@@ -1,0 +1,74 @@
+"""Build and load the port's CUDA kernels.
+
+Each kernel is CUDA C++ in ``emojivoice_tpu_torch/csrc/`` with a plain C
+interface.  ``nvcc`` compiles it for ``sm_90a`` into a shared library under
+``emojivoice_tpu_torch/build/`` (listed in ``.gitignore``) at first use, and
+``ctypes`` loads it.  The library's name carries a hash of its source and
+flags, so an edited source is rebuilt, never reused stale.  Nothing is built
+or loaded at import time: the CPU tests import every module.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parents[1]
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    candidate = Path(cuda_home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels are built from source at first use "
+                           "and need the CUDA toolkit (set CUDA_HOME)")
+    return found
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` into ``build/lib<name>_<hash>.so`` unless
+    that exact build exists; the compiler's output goes to a ``.log`` beside it."""
+    src = CSRC_DIR / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    lib = BUILD_DIR / f"lib{name}_{digest}.so"
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.parent / f"{lib.name}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    lib.with_suffix(".log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed to build {src.name} (exit {proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, lib)
+    return lib
+
+
+def build_log(name: str) -> str:
+    """The compiler output (ptxas register and shared-memory report) of the current build."""
+    return build(name).with_suffix(".log").read_text()
+
+
+@functools.lru_cache(maxsize=None)
+def load_mrf() -> ctypes.CDLL:
+    """K1, the MRF res-block kernel (csrc/mrf.cu), built on first call."""
+    lib = ctypes.CDLL(str(build("mrf")))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.mrf_resblock_f32.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, ctypes.POINTER(i), i,
+                                     ctypes.c_float, p]
+    lib.mrf_resblock_f32.restype = i
+    lib.mrf_error_string.argtypes = [i]
+    lib.mrf_error_string.restype = ctypes.c_char_p
+    return lib

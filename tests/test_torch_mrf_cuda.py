@@ -1,0 +1,63 @@
+"""K1, the MRF res-block CUDA kernel, against its plain twin on the card.
+
+Needs an NVIDIA GPU and nvcc; skipped elsewhere.  Imports no JAX, so it runs
+where the port runs:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_mrf_cuda.py -q
+
+Tolerance: atol = rtol = 2e-4 with TF32 off, the bound
+``tests/test_pallas_mrf.py`` holds the Pallas kernel to.
+"""
+
+import pytest
+import torch
+
+from emojivoice_tpu_torch.ops import mrf
+
+KERNELS = (3, 7, 11)
+DILATIONS = ((1, 3, 5), (1, 3, 5), (1, 3, 5))
+TOL = 2e-4
+
+
+@pytest.fixture
+def cuda_f32():
+    if not torch.cuda.is_available():
+        pytest.skip("K1 is a CUDA kernel: it needs an NVIDIA GPU and nvcc")
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _stage(b, c, t, seed, kernels=KERNELS):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((b, t, c), generator=g)
+    weights = [tuple(torch.randn(shape, generator=g) * 0.01
+                     for shape in ((3, k, c, c), (3, c), (3, k, c, c), (3, c)))
+               for k in kernels]
+    return x.cuda(), [tuple(w.cuda() for w in rb) for rb in weights]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,c,t_len", [(1, 256, 512), (1, 32, 4096), (2, 64, 1000), (3, 40, 77)])
+def test_k1_matches_plain_twin(cuda_f32, b, c, t_len):
+    x, w = _stage(b, c, t_len, seed=c)
+    before = mrf.launches[c]
+    got = mrf.mrf_stage(x, w, KERNELS, DILATIONS)
+    torch.cuda.synchronize()
+    assert mrf.launches[c] == before + 1
+    torch.testing.assert_close(got, mrf.mrf_stage_reference(x, w, KERNELS, DILATIONS), atol=TOL, rtol=TOL)
+
+
+@pytest.mark.cuda
+def test_k1_rejects_what_it_cannot_run(cuda_f32):
+    x, w = _stage(1, 32, 64, seed=0)
+    with pytest.raises(ValueError, match="contiguous"):
+        mrf.mrf_stage(x.transpose(1, 2).contiguous().transpose(1, 2), w, KERNELS, DILATIONS)
+    with pytest.raises(ValueError, match="float32"):
+        mrf.mrf_stage(x.double(), w, KERNELS, DILATIONS)
+    with pytest.raises(ValueError, match="weight shape"):
+        mrf.mrf_stage(x, w, (3, 7, 9), DILATIONS)
+    x_even, w_even = _stage(1, 32, 64, seed=1, kernels=(4, 7, 11))
+    with pytest.raises(ValueError, match="odd"):
+        mrf.mrf_stage(x_even, w_even, (4, 7, 11), DILATIONS)
