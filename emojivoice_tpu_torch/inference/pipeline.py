@@ -34,6 +34,7 @@ from emojivoice_tpu_torch.models.matcha import MatchaTTS
 from emojivoice_tpu_torch.utils.buckets import default_mel_buckets, default_text_buckets, pick_bucket
 from emojivoice_tpu_torch.utils.masks import fix_len_compatibility, intersperse
 from emojivoice_tpu_torch.utils.prng import synthesis_noise
+from emojivoice_tpu_torch.utils.timing import StageClock
 from emojivoice_tpu_torch.vocoder.denoiser import Denoiser
 from emojivoice_tpu_torch.vocoder.hifigan import HiFiGANGenerator
 
@@ -53,30 +54,6 @@ class SynthesisResult:
     stage_ms: dict = dataclasses.field(default_factory=dict)  # the whole batch's, per stage
 
 
-class _StageClock:
-    """Marks the end of each stage: CUDA events on the card, the host clock on
-    the CPU (where every op has finished when it returns)."""
-
-    def __init__(self, device: torch.device):
-        self.cuda = device.type == "cuda"
-        self.marks = []
-        self.mark("start")
-
-    def mark(self, name: str):
-        if self.cuda:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            self.marks.append((name, ev))
-        else:
-            self.marks.append((name, time.perf_counter()))
-
-    def elapsed_ms(self) -> dict:
-        out = {}
-        for (_, a), (name, b) in zip(self.marks, self.marks[1:]):
-            out[name] = a.elapsed_time(b) if self.cuda else (b - a) * 1e3
-        return out
-
-
 @dataclasses.dataclass
 class PendingSynthesis:
     """Synthesis enqueued on the device; ``SynthesisPipeline.finalize``
@@ -86,7 +63,7 @@ class PendingSynthesis:
     cleaned: list
     b: int
     t0: float
-    clock: _StageClock
+    clock: StageClock
 
 
 class SynthesisPipeline:
@@ -208,7 +185,7 @@ class SynthesisPipeline:
         b = x_np.shape[0]
         if seed is None:
             seed = int(np.random.randint(0, 2**31))
-        clock = _StageClock(self.device)
+        clock = StageClock(self.device)
         x = torch.from_numpy(x_np).to(self.device)
         x_lengths = torch.from_numpy(xl_np).to(self.device)
         spk = self._speakers(spks, b)

@@ -1,6 +1,7 @@
-"""Weights carried from the JAX package's param trees to the port's modules.
+"""Weights, gradients and optimizer state carried from the JAX package's
+param trees to the port's modules.
 
-Both functions take a flax variables tree (``{"params": ...}``) as numpy
+The two ``*_state_dict_from_flax`` functions take a flax variables tree (``{"params": ...}``) as numpy
 arrays and return a reference-named state dict of numpy arrays that the
 port's modules load with strict names:
 
@@ -14,6 +15,12 @@ Layouts: flax conv kernels are (k, in, out) → torch Conv1d (out, in, k);
 flax ConvTranspose1d kernels are (k, in, out) → torch (in, out, k); flax
 Dense kernels (in, out) → torch Linear (out, in), or a 1×1 Conv1d
 (out, in, 1) where the reference uses one.  numpy only.
+
+Any tree that mirrors the parameter tree goes through the same mapping: a
+``jax.grad`` tree gives reference-named gradients to hold ``.grad`` against,
+and the ``mu``/``nu`` trees of an ``optax.adam`` state give
+``torch.optim.Adam``'s ``exp_avg``/``exp_avg_sq`` (``buffers=False`` leaves
+out the ``mel_mean``/``mel_std`` buffers, which are no parameters).
 """
 
 from __future__ import annotations
@@ -42,7 +49,7 @@ def _dense(w, as_conv1x1: bool = False) -> np.ndarray:
     return out[..., None] if as_conv1x1 else out
 
 
-def matcha_state_dict_from_flax(params: dict, cfg: ModelConfig) -> Dict[str, np.ndarray]:
+def matcha_state_dict_from_flax(params: dict, cfg: ModelConfig, buffers: bool = True) -> Dict[str, np.ndarray]:
     p = params["params"]
     dec = cfg.decoder
     if {dec.down_block_type, dec.mid_block_type, dec.up_block_type} != {"transformer"}:
@@ -137,9 +144,27 @@ def matcha_state_dict_from_flax(params: dict, cfg: ModelConfig) -> Dict[str, np.
     put_affine(f"{pre_est}.final_block.block.1", est["final_block"]["norm"])
     put_conv(f"{pre_est}.final_proj", est["final_proj"], conv1x1=True)
 
-    sd["mel_mean"] = np.asarray(cfg.data_statistics.mel_mean, np.float32)
-    sd["mel_std"] = np.asarray(cfg.data_statistics.mel_std, np.float32)
+    if buffers:
+        sd["mel_mean"] = np.asarray(cfg.data_statistics.mel_mean, np.float32)
+        sd["mel_std"] = np.asarray(cfg.data_statistics.mel_std, np.float32)
     return sd
+
+
+def load_adam_state_from_optax(optimizer, model, mu: dict, nu: dict, count: int, cfg: ModelConfig) -> None:
+    """Start ``torch.optim.Adam``/``AdamW`` from an ``optax.adam`` state:
+    `mu` and `nu` are the first- and second-moment trees (they mirror the
+    parameter tree, without the ``"params"`` level) and `count` the number of
+    updates taken.  `optimizer` must hold ``model.parameters()`` in order."""
+    import torch
+
+    first = matcha_state_dict_from_flax({"params": mu}, cfg, buffers=False)
+    second = matcha_state_dict_from_flax({"params": nu}, cfg, buffers=False)
+    state = {}
+    for i, (name, param) in enumerate(model.named_parameters()):
+        state[i] = {"step": torch.tensor(float(count)),
+                    "exp_avg": torch.tensor(first[name], device=param.device),
+                    "exp_avg_sq": torch.tensor(second[name], device=param.device)}
+    optimizer.load_state_dict({"state": state, "param_groups": optimizer.state_dict()["param_groups"]})
 
 
 def hifigan_state_dict_from_flax(params: dict, cfg: HiFiGANConfig) -> Dict[str, np.ndarray]:

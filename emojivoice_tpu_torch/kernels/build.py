@@ -56,6 +56,15 @@ def build(name: str) -> Path:
     return lib
 
 
+def build_many(names) -> None:
+    """Compile several kernels at once, one ``nvcc`` process each."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        list(pool.map(build, names))
+
+
 def build_log(name: str) -> str:
     """The compiler output (ptxas register and shared-memory report) of the current build."""
     return build(name).with_suffix(".log").read_text()
@@ -71,4 +80,18 @@ def load_mrf() -> ctypes.CDLL:
     lib.mrf_resblock_f32.restype = i
     lib.mrf_error_string.argtypes = [i]
     lib.mrf_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_mas() -> ctypes.CDLL:
+    """K2, the monotonic-alignment-search kernel (csrc/mas.cu), built on first call."""
+    lib = ctypes.CDLL(str(build("mas")))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.mas_scratch_words.argtypes = [i, i, i]
+    lib.mas_scratch_words.restype = ctypes.c_longlong
+    lib.mas_path_f32.argtypes = [p, p, p, p, i, i, i, p]
+    lib.mas_path_f32.restype = i
+    lib.mas_error_string.argtypes = [i]
+    lib.mas_error_string.restype = ctypes.c_char_p
     return lib

@@ -6,7 +6,9 @@ conv; down₁ resnet → transformer → k3 conv; mid blocks; up blocks with ski
 concat and a k4 s2 p1 transposed upsample; final Block1D → 1×1 proj → mask.
 The time embedding has dimension ``in_channels``; attention adds the 0/1
 float mask to the scores (the diffusers float-mask quirk), so padded frames
-get a −1 bias, not −inf.  Internals are channels-first with reference
+get a −1 bias, not −inf.  ``cfg.dropout`` acts after the attention's output
+projection and inside the feed-forward (after SnakeBeta), as ``nn.Dropout``
+in the slots ``to_out.1`` and ``ff.net.1`` of the reference.  Internals are channels-first with reference
 parameter names; ``Decoder.forward`` keeps the JAX package's channels-last
 interface.
 """
@@ -72,26 +74,26 @@ class SnakeBeta(nn.Module):
 
 
 class FeedForward(nn.Module):
-    def __init__(self, dim: int, inner: int):
+    def __init__(self, dim: int, inner: int, dropout: float = 0.0):
         super().__init__()
-        self.net = nn.ModuleList([SnakeBeta(dim, inner), nn.Identity(), nn.Linear(inner, dim)])
+        self.net = nn.ModuleList([SnakeBeta(dim, inner), nn.Dropout(dropout), nn.Linear(inner, dim)])
 
     def forward(self, x):
-        return self.net[2](self.net[0](x))
+        return self.net[2](self.net[1](self.net[0](x)))
 
 
 class Attention(nn.Module):
     """diffusers Attention numerics: bias-free q/k/v, biased out proj, scale
     head_dim^-0.5, float mask added to the scores."""
 
-    def __init__(self, dim: int, heads: int, head_dim: int):
+    def __init__(self, dim: int, heads: int, head_dim: int, dropout: float = 0.0):
         super().__init__()
         inner = heads * head_dim
         self.heads, self.head_dim = heads, head_dim
         self.to_q = nn.Linear(dim, inner, bias=False)
         self.to_k = nn.Linear(dim, inner, bias=False)
         self.to_v = nn.Linear(dim, inner, bias=False)
-        self.to_out = nn.ModuleList([nn.Linear(inner, dim), nn.Identity()])
+        self.to_out = nn.ModuleList([nn.Linear(inner, dim), nn.Dropout(dropout)])
 
     def forward(self, x, mask_bt):
         b, t, _ = x.shape
@@ -103,18 +105,18 @@ class Attention(nn.Module):
         scores = torch.matmul(q, k.transpose(-2, -1)) / math.sqrt(self.head_dim)
         scores = scores + mask_bt[:, None, None, :]
         out = torch.matmul(torch.softmax(scores, dim=-1), v)
-        return self.to_out[0](out.transpose(1, 2).reshape(b, t, -1))
+        return self.to_out[1](self.to_out[0](out.transpose(1, 2).reshape(b, t, -1)))
 
 
 class BasicTransformerBlock(nn.Module):
     """Pre-norm self-attention + SnakeBeta FFN, on (B, T, C)."""
 
-    def __init__(self, dim: int, heads: int, head_dim: int, ff_mult: int = 4):
+    def __init__(self, dim: int, heads: int, head_dim: int, dropout: float = 0.0, ff_mult: int = 4):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn1 = Attention(dim, heads, head_dim)
+        self.attn1 = Attention(dim, heads, head_dim, dropout)
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
-        self.ff = FeedForward(dim, dim * ff_mult)
+        self.ff = FeedForward(dim, dim * ff_mult, dropout)
 
     def forward(self, x, mask_bt):
         x = x + self.attn1(self.norm1(x), mask_bt)
@@ -164,7 +166,7 @@ class Decoder(nn.Module):
         self.time_mlp = TimestepEmbedding(in_channels, tdim)
 
         def tblocks(ch):
-            return nn.ModuleList([BasicTransformerBlock(ch, cfg.num_heads, cfg.attention_head_dim)
+            return nn.ModuleList([BasicTransformerBlock(ch, cfg.num_heads, cfg.attention_head_dim, cfg.dropout)
                                   for _ in range(cfg.n_blocks)])
 
         self.down_blocks = nn.ModuleList()
