@@ -6,11 +6,16 @@
 Phases (each one failing fails the run, exit code ≠ 0):
   1. build  — compile K1 (csrc/mrf.cu) and K2 (csrc/mas.cu) with nvcc for
      sm_90a from this checkout, both at once;
-  2. kernel, K1 — against its plain twin ``mrf_stage_reference`` at the four
-     HiFi-GAN v1 stage shapes of a 512-frame utterance (C = 256, 128, 64, 32
-     at T = 8, 64, 128, 256 × 512) at B = 1, plus one B = 8 case, within
-     atol = rtol = 2e-4 with TF32 off; times both with CUDA events, in turns
-     plain, K1, K1, plain (median of 10 runs each);
+  2. kernel, K1 — first one convolution of K1 alone (``ops.mrf.conv_taps``:
+     the hand-written wgmma TF32 product with the 3xTF32 split) on one
+     64-frame tile against ``torch.matmul`` in float64; then the stage against
+     its plain twin ``mrf_stage_reference`` at the four HiFi-GAN v1 stage
+     shapes of a 512-frame utterance (C = 256, 128, 64, 32 at T = 8, 64, 128,
+     256 × 512) at B = 1, one B = 8 case, and two ragged shapes (B = 3, C = 40
+     and 20, T no multiple of 64), within atol = rtol = 2e-4 with TF32 off for
+     the twin; times both with CUDA events, in turns plain, K1, K1, plain
+     (median of 10 runs each), K1 on weights packed outside the timed region
+     as the vocoder packs them once per model;
   3. synthesis — ``SynthesisPipeline.from_random(emoji_multi, seed=0)`` on the
      card answers three requests with 10 Euler steps, the denoiser at 0.00025
      and pcm16: (a) the bench headline text, speaker 79, two-stage; (b) the
@@ -23,9 +28,9 @@ Phases (each one failing fails the run, exit code ≠ 0):
      same tensors, equal to the bit, on seeded random log-priors with ragged
      lengths at (B, T_x, T_y) = (16, 256, 768), (32, 128, 512), (1, 64, 128),
      (8, 100, 333) with rows of t_x = 1, t_x = t_y and t_y far below T_y,
-     (4, 512, 2048), and (2, 1000, 1100) whose decision bits go through the
-     global scratch buffer; every path is checked for its properties; both
-     timed like K1;
+     (4, 512, 2048), (2, 1000, 1100), (3, 33, 120), and (2, 1500, 1600) whose
+     decision bits go through the global scratch buffer; every path is
+     checked for its properties; both timed like K1;
   5. training — a synthetic alignable corpus (the 11 emoji speakers, long
      texts, 32 utterances) is written to a temporary folder and
      ``emojivoice_tpu_torch.training.train.main`` is called as a user would,
@@ -43,8 +48,11 @@ Phases (each one failing fails the run, exit code ≠ 0):
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 ``nvidia-smi``'s card name and power limit, and the one before that the
 kernel record, whose ``bound_ms`` is the larger of bytes over 3.35 TB/s and
-operations over 67 TFLOP/s (f32 outside the tensor cores) for the inputs of
-this run.  There is no CPU path: without a CUDA device it exits 1.
+operations over the peak of the unit that does them, for the inputs of this
+run: K1's three TF32 products per f32 product at 495 TFLOP/s (the earlier
+SIMT design's bound at 67 TFLOP/s and a one-product TF32 kernel's stay beside
+it), K2's two f32 operations per cell at 67 TFLOP/s.  There is no CPU path:
+without a CUDA device it exits 1.
 """
 
 from __future__ import annotations
@@ -68,13 +76,15 @@ DILATIONS = ((1, 3, 5), (1, 3, 5), (1, 3, 5))
 MEL = 512
 STAGE_SHAPES = [(1, 256, 8 * MEL), (1, 128, 64 * MEL), (1, 64, 128 * MEL), (1, 32, 256 * MEL)]
 BATCH_SHAPE = (8, 128, 64 * MEL)
+RAGGED_SHAPES = [(3, 40, 333), (3, 20, 1001)]  # C no multiple of 8 or 32, T no multiple of 64
 HEADLINE = ("The quick brown fox jumped over the lazy dog, and everyone at the "
             "party cheered loudly for the brave little robot.")  # bench.py's headline text
 TEXT11 = "Hey there! I am an emoji voice."
 STEPS, STRENGTH = 10, 0.00025
-# H100 SXM: device memory rate, f32 peak outside the tensor cores, and the TF32 tensor-core peak a redesign may use
+# H100 SXM: device memory rate, f32 peak outside the tensor cores, and the TF32 tensor-core peak K1 multiplies at
 HBM_BYTES_PER_S, F32_FLOPS, TF32_FLOPS = 3.35e12, 67e12, 495e12
-MAS_SHAPES = [(16, 256, 768), (32, 128, 512), (1, 64, 128), (8, 100, 333), (4, 512, 2048), (2, 1000, 1100)]
+MAS_SHAPES = [(16, 256, 768), (32, 128, 512), (1, 64, 128), (8, 100, 333), (4, 512, 2048), (2, 1000, 1100),
+              (3, 33, 120), (2, 1500, 1600)]
 TRAIN_BATCH, TRAIN_STEPS, RESUME_STEPS, EVERY = 16, 20, 24, 10
 
 
@@ -111,30 +121,58 @@ def random_stage(b: int, c: int, t: int, seed: int):
     return x.cuda(), [tuple(w.cuda() for w in rb) for rb in weights]
 
 
+def tile_check(mrf) -> float:
+    """K1's tensor-core product alone: one convolution with k = 1 on one
+    64-frame tile (positive x, so the lrelu is the identity) is x @ w + bias;
+    held against float64 at the accuracy of an f32 sum, which one TF32
+    product (~1e-3 relative per operand) would miss by two orders."""
+    worst = 0.0
+    for c in (64, 256):
+        g = torch.Generator().manual_seed(c)
+        x = (torch.rand((1, 64, c), generator=g) + 0.1).cuda()
+        w = (torch.randn((1, c, c), generator=g) * 0.1).cuda()
+        bias = torch.randn((c,), generator=g).cuda()
+        got = mrf.conv_taps(x, w, bias)
+        torch.cuda.synchronize()
+        ref = torch.matmul(x[0].double(), w[0].double()) + bias.double()
+        rel = float((got[0].double() - ref).abs().max() / ref.abs().max())
+        print(f"[kernel] K1 one tile, 64 x {c} x {c}, 3xTF32 wgmma against float64 matmul: max error "
+              f"{rel:.3e} of the largest output")
+        if not rel < 1e-5:
+            raise RuntimeError(f"K1's tensor-core product is off by {rel:.3e} at C={c}")
+        worst = max(worst, rel)
+    return worst
+
+
 def phase_kernel(mrf) -> list:
     rows = []
-    for i, (b, c, t) in enumerate(STAGE_SHAPES + [BATCH_SHAPE]):
+    for i, (b, c, t) in enumerate(STAGE_SHAPES + [BATCH_SHAPE] + RAGGED_SHAPES):
         x, w = random_stage(b, c, t, seed=i)
-        got = mrf.mrf_stage(x, w, KERNELS, DILATIONS)
+        got = mrf.mrf_stage(x, w, KERNELS, DILATIONS)  # contract weights: packed on the fly
         ref = mrf.mrf_stage_reference(x, w, KERNELS, DILATIONS)
+        packed = mrf.pack_weights(w)  # once, outside the timed region, as HiFiGANGenerator.stage_weights does
+        same_bits = torch.equal(got, mrf.mrf_stage(x, packed, KERNELS, DILATIONS))
         torch.cuda.synchronize()
         err = float((got - ref).abs().max())
-        ok = bool(torch.isfinite(got).all()) and torch.allclose(got, ref, atol=TOL, rtol=TOL)
+        ok = bool(torch.isfinite(got).all()) and torch.allclose(got, ref, atol=TOL, rtol=TOL) and same_bits
         plain_ms, k1_ms = abba_ms(lambda: mrf.mrf_stage_reference(x, w, KERNELS, DILATIONS),
-                                  lambda: mrf.mrf_stage(x, w, KERNELS, DILATIONS))
+                                  lambda: mrf.mrf_stage(x, packed, KERNELS, DILATIONS))
         gflop = 2 * sum(2 * len(d) * k for k, d in zip(KERNELS, DILATIONS)) * c * c * t * b / 1e9
         # least time for the stage: x read and out written once, the 36 conv weights and biases read once
         nbytes = 4 * (2 * x.numel() + sum(p.numel() for rb in w for p in rb))
-        flops_ms, bytes_ms = gflop * 1e9 / F32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        split_ms = 3 * gflop * 1e9 / TF32_FLOPS * 1e3  # three TF32 products per f32 product
         rows.append(dict(B=b, C=c, T=t, max_abs_err=err, ok=ok, ms=k1_ms, plain_ms=plain_ms,
                          gflop=gflop, k1_tflops=gflop / k1_ms, plain_tflops=gflop / plain_ms,
-                         bound_ms=max(flops_ms, bytes_ms), bound_by="operations" if flops_ms >= bytes_ms else "bytes",
-                         bytes_ms=bytes_ms, bound_tf32_ms=max(gflop * 1e9 / TF32_FLOPS * 1e3, bytes_ms)))
+                         bound_ms=max(split_ms, bytes_ms), bound_by="operations" if split_ms >= bytes_ms else "bytes",
+                         bytes_ms=bytes_ms, bound_simt_ms=max(gflop * 1e9 / F32_FLOPS * 1e3, bytes_ms),
+                         bound_tf32_ms=max(gflop * 1e9 / TF32_FLOPS * 1e3, bytes_ms)))
         print(f"[kernel] B={b} C={c:3d} T={t:6d}  max_abs_err={err:.3e}  K1 {k1_ms:9.3f} ms "
-              f"({gflop / k1_ms:6.2f} TFLOP/s)  plain {plain_ms:9.3f} ms ({gflop / plain_ms:6.2f} TFLOP/s)  "
-              f"bound {rows[-1]['bound_ms']:.3f} ms by {rows[-1]['bound_by']} (bytes alone {bytes_ms:.4f} ms, at the "
-              f"TF32 peak {rows[-1]['bound_tf32_ms']:.3f} ms)  {'ok' if ok else 'MISMATCH'}")
-        del x, w, got, ref
+              f"({gflop / k1_ms:6.2f} TFLOP/s of f32 work)  plain {plain_ms:9.3f} ms ({gflop / plain_ms:6.2f} TFLOP/s)  "
+              f"bound {rows[-1]['bound_ms']:.3f} ms by {rows[-1]['bound_by']} (3 TF32 products at 495 TFLOP/s; bytes "
+              f"alone {bytes_ms:.4f} ms; the SIMT design's {rows[-1]['bound_simt_ms']:.3f} ms; one TF32 product "
+              f"{rows[-1]['bound_tf32_ms']:.3f} ms)  packed = contract bits: {same_bits}  {'ok' if ok else 'MISMATCH'}")
+        del x, w, got, ref, packed
     return rows
 
 
@@ -501,6 +539,7 @@ def main() -> int:
             if "ptxas info" in line and ("registers" in line or "Compiling" in line):
                 print(f"[build] {name}.cu: {line.strip()}")
 
+    tile_err = tile_check(mrf)
     rows = phase_kernel(mrf)
     if not all(r["ok"] for r in rows):
         raise RuntimeError("K1 disagrees with its plain twin")
@@ -511,7 +550,7 @@ def main() -> int:
     stage_rows = rows[:len(STAGE_SHAPES)]
     k2, k2_sized = training["row"], mas_rows[0]
     print(json.dumps({"kernels": [{
-        "name": "K1 mrf_resblock_f32 (HiFi-GAN MRF stage)",
+        "name": "K1 mrf_resblock_f32 (HiFi-GAN MRF stage, wgmma 3xTF32)",
         "route": "cuda",
         "source": "emojivoice_tpu_torch/csrc/mrf.cu",
         "replaces": "emojivoice_tpu/ops/pallas_mrf.py:105",
@@ -521,9 +560,12 @@ def main() -> int:
         "plain_ms": sum(r["plain_ms"] for r in stage_rows),
         "bound_ms": sum(r["bound_ms"] for r in stage_rows),
         "bound_by": "operations" if all(r["bound_by"] == "operations" for r in stage_rows) else "bytes",
-        "bound_ms_tf32": sum(r["bound_tf32_ms"] for r in stage_rows),
+        "bound_ms_simt": sum(r["bound_simt_ms"] for r in stage_rows),  # the earlier f32 FMA design's bound
+        "bound_ms_tf32": sum(r["bound_tf32_ms"] for r in stage_rows),  # what one TF32 product per tap could reach
         "library_ms": None,  # no single PyTorch call computes an MRF stage
         "shape": "the four stages of a 512-frame utterance, B = 1",
+        "weights": "packed (K-major, split in two TF32 parts) once, outside the timed region",
+        "tile_rel_err_vs_float64": tile_err,
     }, {
         "name": "K2 mas_path_f32 (monotonic alignment search)",
         "route": "cuda",

@@ -70,8 +70,11 @@ class SynthesisPipeline:
     def __init__(self, model_cfg: cfglib.ModelConfig, model: MatchaTTS,
                  vocoder_cfg: cfglib.HiFiGANConfig, vocoder: HiFiGANGenerator,
                  text_buckets: Sequence[int] = None, mel_buckets: Sequence[int] = None,
-                 cleaners: Sequence[str] = ("english_cleaners2",), device="cpu"):
+                 cleaners: Sequence[str] = ("english_cleaners2",), device="cuda"):
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError('SynthesisPipeline: no CUDA device is available (pass device="cpu" to synthesise '
+                               'on the CPU)')
         self.model_cfg = model_cfg
         self.model = model.to(self.device).eval()
         self.vocoder_cfg = vocoder_cfg
@@ -86,10 +89,11 @@ class SynthesisPipeline:
     # ------------------------------------------------------------------ #
 
     @classmethod
-    def from_random(cls, root_cfg: Optional[cfglib.RootConfig] = None, seed: int = 0, device="cpu", **kw):
+    def from_random(cls, root_cfg: Optional[cfglib.RootConfig] = None, seed: int = 0, device="cuda", **kw):
         """Random-init pipeline, seeded (tests and the chip smoke run without
         released weights).  Modules are built on the CPU under a forked RNG
-        seeded with `seed`, then moved to `device`."""
+        seeded with `seed`, then moved to `device`: the card unless the caller
+        asks for ``device="cpu"``."""
         root_cfg = root_cfg or cfglib.get_preset("emoji_multi")
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
@@ -101,7 +105,8 @@ class SynthesisPipeline:
     def from_state_dicts(cls, model_cfg: cfglib.ModelConfig, matcha_sd: dict,
                          vocoder_cfg: cfglib.HiFiGANConfig, hifigan_sd: dict, **kw):
         """Pipeline from reference-named float32 state dicts (tensors or numpy
-        arrays), loaded with strict name matching."""
+        arrays), loaded with strict name matching; on the card unless `kw`
+        holds ``device="cpu"``."""
         def tensors(sd):
             return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in sd.items()}
 

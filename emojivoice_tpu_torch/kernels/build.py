@@ -37,17 +37,19 @@ def _nvcc() -> str:
     return found
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` into ``build/lib<name>_<hash>.so`` unless
-    that exact build exists; the compiler's output goes to a ``.log`` beside it."""
+def build(name: str, defines: tuple = ()) -> Path:
+    """Compile ``csrc/<name>.cu`` (with ``-D`` for each of `defines`) into
+    ``build/lib<name>_<hash>.so`` unless that exact build exists; the
+    compiler's output goes to a ``.log`` beside it."""
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{name}_{digest}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.parent / f"{lib.name}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    cmd = [_nvcc(), *flags, "-o", str(tmp), str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
     lib.with_suffix(".log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
     if proc.returncode != 0:
@@ -65,19 +67,21 @@ def build_many(names) -> None:
         list(pool.map(build, names))
 
 
-def build_log(name: str) -> str:
+def build_log(name: str, defines: tuple = ()) -> str:
     """The compiler output (ptxas register and shared-memory report) of the current build."""
-    return build(name).with_suffix(".log").read_text()
+    return build(name, defines).with_suffix(".log").read_text()
 
 
 @functools.lru_cache(maxsize=None)
-def load_mrf() -> ctypes.CDLL:
+def load_mrf(defines: tuple = ()) -> ctypes.CDLL:
     """K1, the MRF res-block kernel (csrc/mrf.cu), built on first call."""
-    lib = ctypes.CDLL(str(build("mrf")))
+    lib = ctypes.CDLL(str(build("mrf", defines)))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.mrf_resblock_f32.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, ctypes.POINTER(i), i,
                                      ctypes.c_float, p]
     lib.mrf_resblock_f32.restype = i
+    lib.mrf_conv_f32.argtypes = [p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, p]
+    lib.mrf_conv_f32.restype = i
     lib.mrf_error_string.argtypes = [i]
     lib.mrf_error_string.restype = ctypes.c_char_p
     return lib

@@ -151,7 +151,8 @@ def maximum_path(value: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     b, t_x, t_y = value.shape
     words = lib.mas_scratch_words(b, t_x, t_y)
     if words < 0:
-        raise ValueError(f"maximum_path: T_x={t_x}, T_y={t_y} do not fit the kernel's shared memory")
+        raise ValueError(f"maximum_path: T_x={t_x}, T_y={t_y} exceed the kernel (T_x up to 2048, held in one "
+                         f"warp's registers; the tile ring and T_y frame indices in shared memory)")
     path = torch.empty_like(value)
     scratch = torch.empty((words,), dtype=torch.int32, device=value.device) if words else None
     with torch.cuda.device(value.device):

@@ -94,10 +94,14 @@ class TrainState:
         self.step = int(saved["step"])
 
 
-def create_train_state(model_cfg: ModelConfig, opt_cfg: OptimizerConfig, seed: int = 1234, device="cpu",
+def create_train_state(model_cfg: ModelConfig, opt_cfg: OptimizerConfig, seed: int = 1234, device="cuda",
                        model: Optional[MatchaTTS] = None) -> TrainState:
     """A model (built on the CPU under a forked RNG seeded with `seed` unless
-    one is given), moved to `device`, with its optimizer at step 0."""
+    one is given), moved to `device` (the card unless the caller asks for
+    ``device="cpu"``), with its optimizer at step 0."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError('create_train_state: no CUDA device is available (pass device="cpu" to train on the '
+                           'CPU)')
     if model is None:
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)

@@ -16,7 +16,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from emojivoice_tpu_torch.config import HiFiGANConfig
-from emojivoice_tpu_torch.ops.mrf import LRELU_SLOPE, mrf_stage
+from emojivoice_tpu_torch.ops.mrf import LRELU_SLOPE, mrf_stage, pack_weights
 
 
 def get_padding(kernel_size: int, dilation: int = 1) -> int:
@@ -69,14 +69,18 @@ class HiFiGANGenerator(nn.Module):
         self._stacked, self._stacked_key = None, None
 
     def stage_weights(self, stage: int):
-        """The MRF weights of `stage` in K1's layout.  They are stacked once and
-        again only after a res-block parameter moves (``.to``) or is written in
-        place (``load_state_dict``), not on every call."""
+        """The MRF weights of `stage` as ``mrf_stage`` takes them: the contract's
+        stacked tuples on the CPU, K1's packed operands (c_in fastest, split in
+        two TF32 parts) on the card.  They are made once and again only after a
+        res-block parameter moves (``.to``) or is written in place
+        (``load_state_dict``), not on every call."""
         key = tuple((p.data_ptr(), p._version) for p in self.resblocks.parameters())
         if key != self._stacked_key:
             n = self.num_kernels
-            self._stacked = [[rb.stacked_weights() for rb in self.resblocks[s * n:(s + 1) * n]]
-                             for s in range(len(self.ups))]
+            stacked = [[rb.stacked_weights() for rb in self.resblocks[s * n:(s + 1) * n]]
+                       for s in range(len(self.ups))]
+            on_card = self.conv_pre.weight.device.type == "cuda"
+            self._stacked = [pack_weights(stage) for stage in stacked] if on_card else stacked
             self._stacked_key = key
         return self._stacked[stage]
 

@@ -59,7 +59,7 @@ def pipes():
     pp = SynthesisPipeline.from_state_dicts(
         root.model, matcha_state_dict_from_flax(params, root.model), root.vocoder,
         hifigan_state_dict_from_flax(voc_params, root.vocoder), cleaners=("basic_cleaners",),
-        mel_buckets=MEL_BUCKETS, text_buckets=TEXT_BUCKETS)
+        mel_buckets=MEL_BUCKETS, text_buckets=TEXT_BUCKETS, device="cpu")
     return root, jp, params, voc_params, pp
 
 

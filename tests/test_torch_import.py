@@ -44,7 +44,7 @@ from emojivoice_tpu_torch.inference.pipeline import SynthesisPipeline
 model = cfglib.tiny().model
 voc = cfglib.HiFiGANConfig(upsample_rates=(4, 4), upsample_kernel_sizes=(8, 8), upsample_initial_channel=32,
                            resblock_kernel_sizes=(3, 5), resblock_dilation_sizes=((1, 3), (1, 3)))
-pipe = SynthesisPipeline.from_random(cfglib.RootConfig(model=model, vocoder=voc), seed=0,
+pipe = SynthesisPipeline.from_random(cfglib.RootConfig(model=model, vocoder=voc), seed=0, device="cpu",
                                      mel_buckets=(64, 128, 256), text_buckets=(64, 128))
 res = pipe.synthesise(["no jax here"], spks=[1], n_timesteps=2, seed=0, pcm16=True)[0]
 assert res.mel_length > 0 and res.wav.shape == (res.mel_length * 16,), res.wav.shape

@@ -36,6 +36,24 @@ def test_k2_equals_plain_version(cuda, b, t_x, t_y):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("t_x", [1, 31, 33, 257, 1025, 1500])
+def test_k2_text_widths_around_the_lane_blocks(cuda, t_x):
+    """T_x at and beside the widths where the positions per lane change
+    (1, 2, 16, 64 a lane) and beyond 1,024."""
+    value, mask = ragged_mas_problem(3, t_x, t_x + 101, seed=t_x)
+    got = mas.maximum_path(value, mask)
+    assert torch.equal(got, mas.maximum_path_reference(value, mask))
+    assert mas.path_faults(got, mask) == []
+
+
+@pytest.mark.cuda
+def test_k2_rejects_text_wider_than_its_registers(cuda):
+    value, mask = ragged_mas_problem(1, 2049, 2050, seed=0)
+    with pytest.raises(ValueError, match="2048"):
+        mas.maximum_path(value, mask)
+
+
+@pytest.mark.cuda
 def test_k2_text_longer_than_mel_and_empty_items(cuda):
     g = torch.Generator().manual_seed(3)
     value = torch.randn((3, 40, 30), generator=g)

@@ -39,7 +39,8 @@ def _stage(b, c, t, seed, kernels=KERNELS):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,c,t_len", [(1, 256, 512), (1, 32, 4096), (2, 64, 1000), (3, 40, 77)])
+@pytest.mark.parametrize("b,c,t_len", [(1, 256, 512), (1, 32, 4096), (2, 64, 1000), (3, 40, 77),
+                                       (3, 20, 50), (3, 20, 333), (1, 128, 63), (3, 6, 40)])
 def test_k1_matches_plain_twin(cuda_f32, b, c, t_len):
     x, w = _stage(b, c, t_len, seed=c)
     before = mrf.launches[c]
@@ -47,6 +48,30 @@ def test_k1_matches_plain_twin(cuda_f32, b, c, t_len):
     torch.cuda.synchronize()
     assert mrf.launches[c] == before + 1
     torch.testing.assert_close(got, mrf.mrf_stage_reference(x, w, KERNELS, DILATIONS), atol=TOL, rtol=TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,c,t_len", [(1, 128, 700), (3, 20, 50)])
+def test_k1_packed_and_contract_weights_give_the_same_bits(cuda_f32, b, c, t_len):
+    x, w = _stage(b, c, t_len, seed=c + 1)
+    packed = mrf.pack_weights(w)
+    assert all(isinstance(rb, mrf.PackedResblock) and rb.w1.is_cuda for rb in packed)
+    assert torch.equal(mrf.mrf_stage(x, packed, KERNELS, DILATIONS), mrf.mrf_stage(x, w, KERNELS, DILATIONS))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,k,d", [(64, 1, 1), (256, 1, 1), (32, 3, 2), (40, 11, 5)])
+def test_k1_tensor_core_product_against_float64(cuda_f32, c, k, d):
+    """One convolution of K1 (the three-product TF32 sum) against float64:
+    the error of an f32 sum, far below one TF32 product's ~1e-3 relative."""
+    g = torch.Generator().manual_seed(c + k)
+    x = (torch.rand((1, 64, c), generator=g) + 0.1).cuda()  # positive: the lrelu is the identity
+    w = (torch.randn((k, c, c), generator=g) * 0.1).cuda()
+    bias = torch.randn((c,), generator=g).cuda()
+    got = mrf.conv_taps(x, w, bias, d)
+    ref = torch.nn.functional.conv1d(x.double().transpose(1, 2), w.double().permute(2, 1, 0), bias.double(),
+                                     padding=(k // 2) * d, dilation=d).transpose(1, 2)
+    assert float((got.double() - ref).abs().max()) < 2e-5 * float(ref.abs().max())
 
 
 @pytest.mark.cuda

@@ -110,7 +110,7 @@ def test_cuda_device_without_a_card_fails(corpus, tmp_path):
 
 def test_dropout_acts_under_train_and_not_under_eval():
     root = cfglib.tiny()
-    state = create_train_state(root.model, root.optimizer, seed=3)
+    state = create_train_state(root.model, root.optimizer, seed=3, device="cpu")
     rng = np.random.default_rng(0)
     batch = batch_to_device({
         "x": rng.integers(1, 100, (2, 64)).astype(np.int32), "x_lengths": np.array([20, 33], np.int32),

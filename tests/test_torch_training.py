@@ -189,7 +189,7 @@ def test_three_optimizer_steps_match_jax(pair):
     adam = opt1[1][0]  # chain(clip, adam): (EmptyState, (ScaleByAdamState, ...))
     assert int(adam.count) == 1
 
-    state = port_state.create_train_state(CFG, opt_cfg, model=_port(p1))
+    state = port_state.create_train_state(CFG, opt_cfg, model=_port(p1), device="cpu")
     load_adam_state_from_optax(state.optimizer, state.model, adam.mu, adam.nu, int(adam.count), CFG)
     state.step = 1
 
