@@ -1,5 +1,7 @@
-"""Drive the PyTorch port's two paths once on one NVIDIA GPU: synthesis
-(text → pcm16) and acoustic-model training.
+"""Drive the PyTorch port's paths once on one NVIDIA GPU: synthesis
+(text → pcm16), acoustic-model training, and the serving front ends
+(batching engine, streaming vocoder, long-form, CLI, webapp, and a trained
+checkpoint served).
 
     python3 chip_smoke.py
 
@@ -11,8 +13,9 @@ Phases (each one failing fails the run, exit code ≠ 0):
      64-frame tile against ``torch.matmul`` in float64; then the stage against
      its plain twin ``mrf_stage_reference`` at the four HiFi-GAN v1 stage
      shapes of a 512-frame utterance (C = 256, 128, 64, 32 at T = 8, 64, 128,
-     256 × 512) at B = 1, one B = 8 case, and two ragged shapes (B = 3, C = 40
-     and 20, T no multiple of 64), within atol = rtol = 2e-4 with TF32 off for
+     256 × 512) at B = 1, one B = 8 case, two ragged shapes (B = 3, C = 40
+     and 20, T no multiple of 64), and the four stage shapes of one streaming
+     window (80 mel frames: chunk 64 plus 8 of context a side), within atol = rtol = 2e-4 with TF32 off for
      the twin; times both with CUDA events, in turns plain, K1, K1, plain
      (median of 10 runs each), K1 on weights packed outside the timed region
      as the vocoder packs them once per model;
@@ -43,7 +46,28 @@ Phases (each one failing fails the run, exit code ≠ 0):
      20 steps than before.  K2 is held against its plain version on the
      batch's own log-prior, one step is timed by stage, and a four-row train
      step on the card (K2) is held against the CPU (plain MAS on the same
-     log-prior).
+     log-prior).  Before the run's folder is removed,
+     ``SynthesisPipeline.from_checkpoint`` serves the checkpoint directory the
+     trainer wrote: one utterance on the card, K1 on all four stages;
+  6. serving — on the emoji_multi pipeline of phase 3 (HiFi-GAN v1, 10 Euler
+     steps, pcm16), every wait with a timeout: (a) ``BatchingEngine(pipe,
+     max_batch=8, max_wait_ms=10)``, warmed, answers 32 requests from 8
+     client threads (texts of 20-200 characters, the 11 emoji speakers,
+     explicit seeds): all resolve, fewer batches than requests, four
+     ``mrf_stage`` calls per vocoded batch and not one more; a text beyond
+     the largest text bucket fails alone while its neighbours resolve; a
+     seeded request inside a merged batch is held against the direct batch-1
+     call, two same-seed rows of one batch are equal to the bit; the same 32
+     requests are also served one by one; (b) of two back-to-back batches the
+     first's results must arrive while the second still computes; (c) for a
+     short reply, the headline text and a story, chunked streaming (chunk 64)
+     at overlap 8 and at the vocoder's receptive field against the
+     pipeline's own monolithic vocoding of the same mel, ms per chunk, and
+     time to first audio of the full, stream and pipelined strategies; (d)
+     ``cli.main`` writes a readable wav and npy, and ``webapp.serve`` with
+     batching answers 8 concurrent ``POST /api/synthesise``, a ``POST
+     /api/stream`` whose body is a WAV of the expected length, 400 for bad
+     JSON and an unknown language, and ``/health`` with the engine's stats.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 ``nvidia-smi``'s card name and power limit, and the one before that the
@@ -60,11 +84,18 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import math
+import random
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -77,6 +108,8 @@ MEL = 512
 STAGE_SHAPES = [(1, 256, 8 * MEL), (1, 128, 64 * MEL), (1, 64, 128 * MEL), (1, 32, 256 * MEL)]
 BATCH_SHAPE = (8, 128, 64 * MEL)
 RAGGED_SHAPES = [(3, 40, 333), (3, 20, 1001)]  # C no multiple of 8 or 32, T no multiple of 64
+WINDOW = 80  # mel frames of one streaming window: chunk 64 + overlap 8 a side
+WINDOW_SHAPES = [(1, 256, 8 * WINDOW), (1, 128, 64 * WINDOW), (1, 64, 128 * WINDOW), (1, 32, 256 * WINDOW)]
 HEADLINE = ("The quick brown fox jumped over the lazy dog, and everyone at the "
             "party cheered loudly for the brave little robot.")  # bench.py's headline text
 TEXT11 = "Hey there! I am an emoji voice."
@@ -86,6 +119,14 @@ HBM_BYTES_PER_S, F32_FLOPS, TF32_FLOPS = 3.35e12, 67e12, 495e12
 MAS_SHAPES = [(16, 256, 768), (32, 128, 512), (1, 64, 128), (8, 100, 333), (4, 512, 2048), (2, 1000, 1100),
               (3, 33, 120), (2, 1500, 1600)]
 TRAIN_BATCH, TRAIN_STEPS, RESUME_STEPS, EVERY = 16, 20, 24, 10
+SHORT_REPLY = "Sure, I can do that today."
+STORY = ("Once upon a time a little robot lived by the sea. Every morning it counted the waves and sang to the "
+         "gulls. One day a storm took its voice away. So the gulls sang for the robot until spring came back.")
+WAIT_S = 120  # no wait of the serving phase is longer: a hung worker fails the run
+# bounds of the serving phase, both the JAX package's contracts: a seeded row inside a merged batch against the
+# direct batch-1 call (4.5e-08 measured on an H100), and streamed against monolithic audio at an overlap that
+# covers the receptive field (0 to 3.2e-08 measured; PERF.md)
+MERGED_TOL, STREAM_TOL = 1e-5, 1e-6
 
 
 def cuda_ms(fn, iters: int = 5, warmup: int = 1) -> list:
@@ -146,7 +187,7 @@ def tile_check(mrf) -> float:
 
 def phase_kernel(mrf) -> list:
     rows = []
-    for i, (b, c, t) in enumerate(STAGE_SHAPES + [BATCH_SHAPE] + RAGGED_SHAPES):
+    for i, (b, c, t) in enumerate(STAGE_SHAPES + [BATCH_SHAPE] + RAGGED_SHAPES + WINDOW_SHAPES):
         x, w = random_stage(b, c, t, seed=i)
         got = mrf.mrf_stage(x, w, KERNELS, DILATIONS)  # contract weights: packed on the fly
         ref = mrf.mrf_stage_reference(x, w, KERNELS, DILATIONS)
@@ -216,7 +257,7 @@ def cpu_reference_check(pipe) -> dict:
     return out
 
 
-def phase_synthesis(mrf) -> int:
+def phase_synthesis(mrf):
     from emojivoice_tpu_torch import config
     from emojivoice_tpu_torch.apps.emoji import EMOJI_MAPPING
     from emojivoice_tpu_torch.inference.pipeline import SynthesisPipeline
@@ -257,7 +298,363 @@ def phase_synthesis(mrf) -> int:
     # the main path's run: counts start at zero here and only these requests move them
     mrf.launches.clear()
     serve("synth")
+    return pipe, sum(mrf.launches.values())
+
+
+def receptive_field_frames(cfg) -> int:
+    """Mel frames of context a side that one output sample of the HiFi-GAN
+    generator depends on (an upper bound): each layer's reach in samples over
+    the samples per mel frame at its rate, summed: conv_pre and conv_post 7
+    taps, a transposed conv k/(2u) input samples, an MRF stage its widest
+    res-block, (k−1)/2 · (Σd + n_d)."""
+    reach, rate = 3.0, 1
+    for u, k in zip(cfg.upsample_rates, cfg.upsample_kernel_sizes):
+        reach += k / (2 * u) / rate
+        rate *= u
+        reach += max((rk - 1) // 2 * (sum(d) + len(d)) for rk, d in
+                     zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes)) / rate
+    return math.ceil(reach + 3.0 / rate)
+
+
+def serving_engine(pipe, mrf, requests) -> dict:
+    """Phase (a): the batching engine under 8 client threads, its failure
+    isolation and its per-row noise, and the same requests one by one."""
+    from emojivoice_tpu_torch.inference.profile_engine import burst
+    from emojivoice_tpu_torch.inference.serving import BatchingEngine
+
+    pending = []  # every batch the engine dispatched, for the gaps between batches
+    real_async = pipe.synthesise_async
+
+    def spy(*a, **kw):
+        p = real_async(*a, **kw)
+        pending.append(p)
+        return p
+
+    t = time.perf_counter()
+    with BatchingEngine(pipe, max_batch=8, max_wait_ms=10) as eng:
+        eng.warmup()
+        warm_s = time.perf_counter() - t
+        burst(eng, requests)  # the requests' own text and mel buckets, once, before the counted window
+    pipe.synthesise_async = spy
+    try:
+        with BatchingEngine(pipe, max_batch=8, max_wait_ms=10) as eng:
+            mrf.launches.clear()  # the main path's run of this phase
+            served = burst(eng, requests)  # 8 client threads, each submitting its 4 requests and waiting
+            results, window_s = served["results"], served["window_s"]
+            stats = eng.stats()
+            launches = sum(mrf.launches.values())
+    finally:
+        del pipe.synthesise_async
+    check_wavs(results, "(a) engine")
+    if not (len(results) == 32 and stats["batched_rows"] == 32 and stats["batches"] < 32 and stats["errors"] == 0):
+        raise RuntimeError(f"(a) engine: {len(results)} results, stats {stats}")
+    if launches != 4 * stats["batches"] or len(pending) != stats["batches"]:
+        raise RuntimeError(f"(a) engine: {launches} mrf_stage calls for {stats['batches']} vocoded batches "
+                           f"({len(pending)} dispatched), expected 4 each")
+    # the device between batches: from the end of batch N's copies to the start of batch N+1
+    gaps = [a.done.elapsed_time(b.clock.marks[0][1]) for a, b in zip(pending, pending[1:])]
+    spans = [p.clock.marks[0][1].elapsed_time(p.done) for p in pending]
+    audio_s = sum(len(r.wav) for r in results) / 22050
+    out = dict(utt_per_s=32 / window_s, window_s=window_s, audio_s=audio_s, batches=stats["batches"],
+               mean_batch=stats["mean_batch"], batch_hist=stats["batch_hist"], pad_rows=stats["pad_rows"],
+               wait_ms_p50=stats["wait_ms_p50"], wait_ms_p95=stats["wait_ms_p95"],
+               latency_ms_p50=served["latency_ms_p50"], latency_ms_p95=served["latency_ms_p95"],
+               mean_dispatch_ms=stats["mean_dispatch_ms"], batch_span_ms=spans, gap_ms=gaps,
+               gap_share=sum(gaps) / (sum(gaps) + sum(spans)), warmup_s=warm_s, k1_launches=launches)
+
+    # the same 32 requests one by one, without the engine (once to warm the batch-1 shapes, once timed)
+    kw = dict(n_timesteps=STEPS, denoiser_strength=STRENGTH, keep_mel=False, pcm16=True)
+    for timed in (False, True):
+        t = time.perf_counter()
+        singles = [pipe.synthesise([text], spks=[spk], seed=seed, **kw)[0] for text, spk, seed in requests]
+        single_s = time.perf_counter() - t
+    check_wavs(singles, "(a) one by one")
+    out.update(one_by_one_utt_per_s=32 / single_s, one_by_one_s=single_s)
+    if [r.mel_length for r in singles] != [r.mel_length for r in results]:
+        raise RuntimeError(f"(a) engine and one-by-one mel lengths differ: {[r.mel_length for r in results]} "
+                           f"against {[r.mel_length for r in singles]}")
+    print("[serve] (a) engine " + json.dumps(out))
+
+    # a text beyond the largest text bucket fails alone; its co-batched neighbours resolve
+    with BatchingEngine(pipe, max_batch=8, max_wait_ms=500) as eng:
+        good1 = eng.submit(SHORT_REPLY, spk=79, seed=1)
+        bad = eng.submit("word " * 120, spk=79, seed=2)  # 1,201 ids against a largest bucket of 512
+        good2 = eng.submit(TEXT11, spk=86, seed=3)
+        check_wavs([good1.result(timeout=WAIT_S), good2.result(timeout=WAIT_S)], "(a) poison neighbours")
+        error = bad.exception(timeout=WAIT_S)
+        stats = eng.stats()
+    if not (isinstance(error, ValueError) and stats["failed_batches"] >= 1 and stats["errors"] == 1
+            and stats["batched_rows"] == 2):
+        raise RuntimeError(f"(a) poison row: error {error!r}, stats {stats}")
+    print(f"[serve] (a) poison row failed alone ({error}); failed_batches {stats['failed_batches']} errors "
+          f"{stats['errors']} batched_rows {stats['batched_rows']}")
+
+    # per-row noise: a seeded request inside a merged batch against the direct batch-1 call
+    with BatchingEngine(pipe, max_batch=4, max_wait_ms=500, pcm16=False) as eng:
+        futs = [eng.submit(HEADLINE, spk=79, seed=seed) for seed in (11, 12, 11)]
+        merged = [f.result(timeout=WAIT_S) for f in futs]
+        stats = eng.stats()
+    direct = pipe.synthesise([HEADLINE], spks=[79], n_timesteps=STEPS, denoiser_strength=STRENGTH, seed=11,
+                             keep_mel=False)[0]
+    err = float(abs(merged[0].wav - direct.wav).max()) if merged[0].wav.shape == direct.wav.shape else float("inf")
+    same_bits = bool((merged[0].wav == merged[2].wav).all())
+    other = float(abs(merged[0].wav - merged[1].wav).max())
+    print(f"[serve] (a) seed 11 inside a merged batch of {stats['batch_hist']} against the direct batch-1 call: "
+          f"max-abs {err:.3e} (peak {float(abs(direct.wav).max()):.3f}; bound {MERGED_TOL}); two seed-11 rows "
+          f"equal to the bit: {same_bits}; seed 12 differs by {other:.3e}")
+    if not (stats["batches"] == 1 and err <= MERGED_TOL and same_bits and other > 1e-3):
+        raise RuntimeError("(a) per-row seeds: a merged row does not reproduce the direct call")
+    out.update(merged_vs_direct_max_abs=err)
+    return out
+
+
+def serving_overlap(pipe) -> dict:
+    """Phase (b): batch N's results must reach the caller while batch N+1 is
+    still computing.
+
+    First on the pipeline alone: N (batch 8) and then N+1 (batch 32, enough
+    device work to outlast its own dispatch) are enqueued back to back;
+    ``finalize(N)`` must return while N+1 runs, which it does only if it
+    waits for N's own copies and not for the stream.  Then through the engine:
+    two batches of 8 from one burst; when N's futures resolve, N+1 must not
+    have finished."""
+    from emojivoice_tpu_torch.inference.serving import BatchingEngine
+
+    def batch(n, first_seed, strength):
+        return dict(texts=[HEADLINE] * n, spks=[79] * n, seed=list(range(first_seed, first_seed + n)),
+                    n_timesteps=STEPS, denoiser_strength=strength, keep_mel=False, pcm16=True)
+
+    out = {}
+    # With the denoiser on, ``torch.istft`` checks its window envelope on the host: a dispatch then returns
+    # only when its batch is all but done, and nothing is left to overlap.  Shown, not required.  With the
+    # denoiser off, batch 32's vocoder (milliseconds to enqueue, ~0.1 s to run) outlasts its dispatch:
+    # finalize(N) must return while it runs.
+    for name, strength in (("denoiser_on", STRENGTH), ("denoiser_off", 0.0)):
+        for n in (8, 32):  # warm both shapes
+            pipe.synthesise(**batch(n, 0, strength))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first = pipe.synthesise_async(**batch(8, 0, strength))
+        t1 = time.perf_counter()
+        second = pipe.synthesise_async(**batch(32, 8, strength))
+        t2 = time.perf_counter()
+        results = pipe.finalize(first)
+        t3 = time.perf_counter()
+        second_running = not second.done.query()
+        second.done.synchronize()
+        t4 = time.perf_counter()
+        check_wavs(results, "(b) batch N")
+        check_wavs(pipe.finalize(second), "(b) batch N+1")
+        out[name] = dict(dispatch_n_ms=(t1 - t0) * 1e3, dispatch_n1_ms=(t2 - t1) * 1e3, finalize_n_ms=(t3 - t2) * 1e3,
+                         n_results_at_ms=(t3 - t0) * 1e3, n1_done_at_ms=(t4 - t0) * 1e3,
+                         n1_running_when_n_returned=second_running,
+                         n_copies_done_before_n1s_ms=first.done.elapsed_time(second.done),
+                         idle_gap_ms=first.done.elapsed_time(second.clock.marks[0][1]))
+        print(f"[serve] (b) pipeline, batch 8 then batch 32 back to back, {name} " + json.dumps(out[name]))
+    if not out["denoiser_off"]["n1_running_when_n_returned"]:
+        raise RuntimeError("(b) finalize(N) returned only after batch N+1 had finished")
+
+    pending, resolved = [], []
+    real_async = pipe.synthesise_async
+
+    def spy(*a, **kws):
+        p = real_async(*a, **kws)
+        pending.append(p)
+        return p
+
+    def on_done(index, t_start):
+        def callback(_future):
+            # runs in the engine's results thread, at the moment the future resolves
+            nxt = pending[index // 8 + 1] if len(pending) > index // 8 + 1 else None
+            resolved.append((index, (time.perf_counter() - t_start) * 1e3, nxt is None or not nxt.done.query()))
+        return callback
+
+    pipe.synthesise_async = spy
+    try:
+        with BatchingEngine(pipe, max_batch=8, max_wait_ms=10) as eng:
+            t_start = time.perf_counter()
+            futs = []
+            for i in range(16):
+                fut = eng.submit(HEADLINE, spk=79, seed=i)
+                fut.add_done_callback(on_done(i, t_start))
+                futs.append(fut)
+            check_wavs([f.result(timeout=WAIT_S) for f in futs], "(b) engine")
+            stats = eng.stats()
+    finally:
+        del pipe.synthesise_async
+    by_index = {i: (ms, running) for i, ms, running in resolved}
+    first_batch = [by_index[i] for i in range(8)]
+    engine = dict(batch_hist=stats["batch_hist"], n_resolved_at_ms=max(ms for ms, _ in first_batch),
+                  n1_resolved_at_ms=max(by_index[i][0] for i in range(8, 16)),
+                  n1_running_when_n_resolved=all(running for _, running in first_batch),
+                  n_copies_done_before_n1s_ms=pending[0].done.elapsed_time(pending[1].done))
+    print("[serve] (b) engine, two batches of 8 from one burst " + json.dumps(engine))
+    if stats["batch_hist"] != {8: 2} or not engine["n1_running_when_n_resolved"]:
+        raise RuntimeError("(b) engine: batch N's futures resolved only after batch N+1 had finished")
+    out["engine"] = engine
+    return out
+
+
+def first_audio_ms(make_chunks) -> tuple:
+    """(ms to the first chunk, ms to the last, chunks, samples) of a generator of audio chunks."""
+    t = time.perf_counter()
+    first, n, samples = None, 0, 0
+    for chunk in make_chunks():
+        if first is None:
+            first = (time.perf_counter() - t) * 1e3
+        n += 1
+        samples += len(chunk)
+    return first, (time.perf_counter() - t) * 1e3, n, samples
+
+
+def serving_streaming(pipe, mrf) -> list:
+    """Phase (c): chunked streaming against the pipeline's monolithic vocoding
+    of the same mel, and time to first audio by strategy."""
+    import numpy as np
+
+    from emojivoice_tpu_torch.inference.streaming import StreamingVocoder, auto_stream, choose_strategy
+
+    rf = receptive_field_frames(pipe.vocoder_cfg)
+    if rf <= 8:
+        raise RuntimeError(f"receptive field {rf}: HiFi-GAN v1's is expected above the default overlap of 8")
+    rows = []
+    for name, text in (("short reply", SHORT_REPLY), ("headline", HEADLINE), ("story", STORY)):
+        res = pipe.synthesise([text], spks=[79], n_timesteps=STEPS, seed=7, vocode=False)[0]
+        ml = res.mel_length
+        mel = torch.from_numpy(res.mel).cuda()
+        mel = torch.nn.functional.pad(mel, (0, 0, 0, -ml % 64))  # whole chunks, as the streamer pads
+        mono = pipe._vocode(mel[None])[0, : ml * 256].cpu().numpy()
+        row = dict(text=name, chars=len(text), mel_length=ml, audio_s=ml * 256 / 22050, receptive_field=rf,
+                   peak=float(abs(mono).max()), auto=choose_strategy(text)[0])
+        for ov in (8, rf):
+            sv = StreamingVocoder(pipe.vocoder, 64, ov, vocode_fn=pipe._vocode)
+            list(sv.stream(mel, ml))  # warm the window shapes
+            torch.cuda.synchronize()
+            mrf.launches.clear()
+            t = time.perf_counter()
+            chunks = list(sv.stream(mel, ml))
+            total_ms = (time.perf_counter() - t) * 1e3
+            calls = sum(mrf.launches.values())
+            streamed = np.concatenate(chunks)
+            if streamed.shape != mono.shape or calls != 4 * len(chunks):
+                raise RuntimeError(f"(c) {name} overlap {ov}: {streamed.shape} samples against {mono.shape}, "
+                                   f"{calls} mrf_stage calls for {len(chunks)} chunks")
+            row[f"ov{ov}"] = dict(max_abs=float(abs(streamed - mono).max()), bit_equal=bool((streamed == mono).all()),
+                                  chunks=len(chunks), ms_per_chunk=total_ms / len(chunks), mrf_stage_calls=calls)
+        if row[f"ov{rf}"]["max_abs"] > STREAM_TOL:
+            raise RuntimeError(f"(c) {name}: streamed audio at overlap {rf} is {row[f'ov{rf}']['max_abs']:.3e} off the "
+                               f"monolithic call (bound {STREAM_TOL})")
+        # time to first audio by strategy (one warm call, then the median of three)
+        kw = dict(spk=79, n_timesteps=STEPS, seed=7)
+        for strategy in ("full", "stream") + (("pipelined",) if row["auto"] == "pipelined" else ()):
+            def run(strategy=strategy):
+                return first_audio_ms(lambda: auto_stream(pipe, text, strategy=strategy, **kw))
+            run()
+            runs = [run() for _ in range(3)]
+            row[f"ttfa_{strategy}_ms"] = statistics.median(r[0] for r in runs)
+            row[f"total_{strategy}_ms"] = statistics.median(r[1] for r in runs)
+            if min(r[3] for r in runs) <= 0:
+                raise RuntimeError(f"(c) {name}: strategy {strategy} gave no audio")
+        print("[serve] (c) streaming " + json.dumps(row))
+        rows.append(row)
+    return rows
+
+
+def serving_cli_webapp(pipe, mrf) -> int:
+    """Phase (d): the CLI and the webapp as a user runs them.  Returns the
+    ``mrf_stage`` calls of the webapp's requests."""
+    import numpy as np
+    from scipy.io import wavfile
+
+    from emojivoice_tpu_torch.apps import webapp
+    from emojivoice_tpu_torch.inference import cli
+
+    with tempfile.TemporaryDirectory(prefix="emojivoice_cli_") as tmp:
+        t = time.perf_counter()
+        if cli.main(["--random_init", "--text", TEXT11, "--spk", "79", "--seed", "0", "--output_folder", tmp]) != 0:
+            raise RuntimeError("(d) cli.main failed")
+        (wav_path,) = Path(tmp).glob("utterance_*.wav")
+        sr, audio = wavfile.read(wav_path)
+        mel = np.load(wav_path.with_suffix(".npy"))
+        if not (sr == 22050 and audio.shape == (mel.shape[0] * 256,) and mel.shape[1] == 80
+                and np.isfinite(audio).all() and np.isfinite(mel).all()):
+            raise RuntimeError(f"(d) cli.main wrote sr {sr}, audio {audio.shape}, mel {mel.shape}")
+        print(f"[serve] (d) cli.main --random_init --text ... on the card: {wav_path.name} {audio.shape[0]} samples, "
+              f"mel {mel.shape}, png {'written' if wav_path.with_suffix('.png').exists() else 'skipped'}, "
+              f"{time.perf_counter() - t:.2f} s with the pipeline's build")
+
+    server = webapp.serve(pipe, port=0, batching=True, max_batch=8, max_wait_ms=10)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+
+    def post(path, body, ctype="application/json"):
+        data = json.dumps(body).encode() if isinstance(body, dict) else body
+        req = urllib.request.Request(url + path, data=data, headers={"Content-Type": ctype})
+        try:
+            with urllib.request.urlopen(req, timeout=WAIT_S) as r:
+                return r.status, r.read()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read()
+
+    direct = pipe.synthesise([TEXT11], spks=[79], n_timesteps=STEPS, seed=5)[0]  # what /api/stream must carry
+    mrf.launches.clear()
+    try:
+        t = time.perf_counter()
+        with ThreadPoolExecutor(8) as pool:
+            answers = list(pool.map(lambda i: post("/api/synthesise", {"text": f"{TEXT11} Request {i}.", "spk": 79,
+                                                                       "seed": i}), range(8), timeout=WAIT_S))
+        burst_ms = (time.perf_counter() - t) * 1e3
+        bodies = [json.loads(body) for status, body in answers if status == 200]
+        if len(bodies) != 8 or any(b["num_samples"] <= 0 or b["sample_rate"] != 22050 for b in bodies):
+            raise RuntimeError(f"(d) /api/synthesise: {[status for status, _ in answers]}")
+        status, raw = post("/api/stream", {"text": TEXT11, "spk": 79, "seed": 5})
+        pcm = np.frombuffer(raw[44:], dtype="<i2")
+        if not (status == 200 and raw[:4] == b"RIFF" and raw[8:12] == b"WAVE"
+                and struct.unpack("<I", raw[24:28])[0] == 22050 and len(pcm) == len(direct.wav)):
+            raise RuntimeError(f"(d) /api/stream: status {status}, {len(pcm)} samples against {len(direct.wav)}")
+        stream_err = float(np.abs(pcm.astype(np.float32) / 32767.0 - np.clip(direct.wav, -1, 1)).max())
+        codes = dict(bad_json=post("/api/synthesise", b"{bad json")[0],
+                     bad_json_stream=post("/api/stream", b"{bad json")[0],
+                     unknown_language=post("/api/synthesise", {"text": "hi", "language": "zz"})[0],
+                     unknown_language_stream=post("/api/stream", {"text": "hi", "language": "zz"})[0],
+                     too_long=post("/api/synthesise", {"text": "word " * 120})[0])
+        with urllib.request.urlopen(url + "/health", timeout=WAIT_S) as r:
+            health = json.loads(r.read())
+        serving = health.get("serving", {})
+        if set(codes.values()) != {400} or not health.get("ok") or serving.get("batched_rows") != 8 \
+                or serving.get("batches", 99) >= 8:
+            raise RuntimeError(f"(d) webapp: statuses {codes}, health {health}")
+        print(f"[serve] (d) webapp: 8 concurrent POST /api/synthesise in {burst_ms:.1f} ms as {serving['batches']} "
+              f"batches {serving['batch_hist']}; /api/stream {len(pcm)} samples, {stream_err:.2e} off the direct call "
+              f"(one pcm16 step is 3.05e-05); statuses {codes}; /health serving requests {serving['requests']} "
+              f"errors {serving['errors']}")
+        if stream_err > 1.01 / 32767 + MERGED_TOL:
+            raise RuntimeError("(d) /api/stream does not carry the direct call's samples")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(WAIT_S)
+        server.engine.close()
+    if thread.is_alive() or server.engine._worker.is_alive():
+        raise RuntimeError("(d) the webapp's server thread or engine worker did not stop")
     return sum(mrf.launches.values())
+
+
+def phase_serving(pipe, mrf) -> dict:
+    from emojivoice_tpu_torch.apps.emoji import EMOJI_MAPPING
+    from emojivoice_tpu_torch.inference.profile_engine import serving_requests
+
+    requests = serving_requests(32, list(EMOJI_MAPPING.values()))
+    engine = serving_engine(pipe, mrf, requests)
+    overlap = serving_overlap(pipe)
+    mrf.launches.clear()
+    streaming = serving_streaming(pipe, mrf)
+    web_launches = serving_cli_webapp(pipe, mrf)
+    if web_launches < 4 * 2:
+        raise RuntimeError(f"(d) the webapp's requests made {web_launches} mrf_stage calls")
+    return dict(engine=engine, overlap=overlap, streaming=streaming,
+                k1_launches=engine["k1_launches"] + web_launches)
 
 
 def ragged_mas_problem(b: int, t_x: int, t_y: int, seed: int):
@@ -317,7 +714,35 @@ def read_metrics(out_dir: Path, tag: str) -> list:
     return [r for r in map(json.loads, lines) if r["tag"] == tag]
 
 
-def phase_training(mas) -> dict:
+def serve_trained(mrf, ckpt_dir: Path) -> int:
+    """Phase (e): the checkpoint directory the trainer just wrote, served on
+    the card.  The run trained no vocoder, so the pipeline takes a seeded
+    random HiFi-GAN v1 (and warns); K1 must launch on all four stages."""
+    import warnings
+
+    from emojivoice_tpu_torch.inference.pipeline import SynthesisPipeline
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        pipe = SynthesisPipeline.from_checkpoint(str(ckpt_dir), cleaners=("basic_cleaners",))
+    if pipe.device.type != "cuda":
+        raise RuntimeError("from_checkpoint did not build the pipeline on the card")
+    kw = dict(spks=[79], n_timesteps=STEPS, denoiser_strength=STRENGTH, seed=0, pcm16=True)
+    pipe.synthesise([TEXT11], **kw)  # first-call allocations
+    mrf.launches.clear()
+    t = time.perf_counter()
+    res = pipe.synthesise([TEXT11], **kw)
+    wall_ms = (time.perf_counter() - t) * 1e3
+    launches = sum(mrf.launches.values())
+    check_wavs(res, "(e) trained checkpoint")
+    if launches != 4:
+        raise RuntimeError(f"(e) serving the trained checkpoint made {launches} mrf_stage calls, expected 4")
+    print(f"[serve] (e) from_checkpoint({ckpt_dir.name}/, step {RESUME_STEPS}) on the card: mel_length "
+          f"{res[0].mel_length}  wall {wall_ms:.3f} ms  rtf_w {res[0].rtf_w:.5f}  K1 launches {launches}")
+    return launches
+
+
+def phase_training(mas, mrf) -> dict:
     from emojivoice_tpu_torch import config
     from emojivoice_tpu_torch.apps.emoji import EMOJI_MAPPING
     from emojivoice_tpu_torch.data.dataset import BucketBatcher, TextMelDataset
@@ -449,7 +874,8 @@ def phase_training(mas) -> dict:
                                              "peak_gb": torch.cuda.max_memory_allocated() / 1e9}))
 
         card_vs_cpu(matcha, state, batch, mas)
-    return dict(launches=launches, row=path_row)
+        served = serve_trained(mrf, out / "ckpts")
+    return dict(launches=launches, row=path_row, k1_launches=served)
 
 
 def card_vs_cpu(matcha, state, batch, mas) -> None:
@@ -543,11 +969,15 @@ def main() -> int:
     rows = phase_kernel(mrf)
     if not all(r["ok"] for r in rows):
         raise RuntimeError("K1 disagrees with its plain twin")
-    launches = phase_synthesis(mrf)
+    pipe, launches = phase_synthesis(mrf)
     mas_rows = phase_kernel_mas(mas)
-    training = phase_training(mas)
+    training = phase_training(mas, mrf)
+    serving = phase_serving(pipe, mrf)
+    # K1 on the main paths: the synthesis requests, the engine's and the webapp's batches, the trained checkpoint
+    launches += serving["k1_launches"] + training["k1_launches"]
 
     stage_rows = rows[:len(STAGE_SHAPES)]
+    window_rows = rows[-len(WINDOW_SHAPES):]
     k2, k2_sized = training["row"], mas_rows[0]
     print(json.dumps({"kernels": [{
         "name": "K1 mrf_resblock_f32 (HiFi-GAN MRF stage, wgmma 3xTF32)",
@@ -566,6 +996,9 @@ def main() -> int:
         "shape": "the four stages of a 512-frame utterance, B = 1",
         "weights": "packed (K-major, split in two TF32 parts) once, outside the timed region",
         "tile_rel_err_vs_float64": tile_err,
+        "ms_stream_window": sum(r["ms"] for r in window_rows),  # the four stages of one 80-frame streaming window
+        "plain_ms_stream_window": sum(r["plain_ms"] for r in window_rows),
+        "bound_ms_stream_window": sum(r["bound_ms"] for r in window_rows),
     }, {
         "name": "K2 mas_path_f32 (monotonic alignment search)",
         "route": "cuda",

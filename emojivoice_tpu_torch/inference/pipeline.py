@@ -13,17 +13,20 @@ denoiser → optional on-device pcm16.
   read in between.
 
 PyTorch runs eagerly, so ``synthesise_async`` returns once the work is
-enqueued on the device stream (the two-stage host read aside) and
-``finalize`` waits for it.  Each call records when every stage ended
-(CUDA events on the card, the host clock on the CPU) and reports per-stage
-milliseconds beside the reference RTF formulas.
+enqueued on the device stream (the two-stage host read aside), the copies
+of its outputs into pinned host memory included, and ``finalize`` waits for
+this batch's copies only: work enqueued later, by this thread or another,
+does not delay it.  Each call records when every stage ended (CUDA events
+on the card, the host clock on the CPU) and reports per-stage milliseconds
+beside the reference RTF formulas.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Optional, Sequence
+import warnings
+from typing import Any, Optional, Sequence
 
 import numpy as np
 import torch
@@ -59,11 +62,12 @@ class PendingSynthesis:
     """Synthesis enqueued on the device; ``SynthesisPipeline.finalize``
     waits for it and builds the results."""
 
-    out: dict  # device tensors
+    out: dict  # host tensors (pinned, being filled, on the card; the outputs themselves on the CPU)
     cleaned: list
     b: int
     t0: float
     clock: StageClock
+    done: Any = None  # CUDA event recorded after the copies; None on the CPU
 
 
 class SynthesisPipeline:
@@ -116,6 +120,58 @@ class SynthesisPipeline:
         vocoder.load_state_dict(tensors(hifigan_sd), strict=True)
         return cls(model_cfg, model, vocoder_cfg, vocoder, **kw)
 
+    @classmethod
+    def _with_vocoder(cls, model_cfg, matcha_sd, vocoder_cfg, vocoder_ckpt, what, **kw):
+        """Pipeline from a MatchaTTS state dict and a HiFi-GAN dump; with no
+        dump, a random HiFi-GAN from seed 0 (and a warning)."""
+        model = MatchaTTS(model_cfg)
+        model.load_state_dict(matcha_sd, strict=True)
+        if vocoder_ckpt is None:
+            warnings.warn(f"{what}: no vocoder checkpoint given; vocoding with a random HiFi-GAN (seed 0), "
+                          f"whose audio is noise shaped by the mel")
+            with torch.random.fork_rng(devices=[]):
+                torch.manual_seed(0)
+                vocoder = HiFiGANGenerator(vocoder_cfg)
+        else:
+            from emojivoice_tpu_torch.io.torch_ckpt import load_hifigan
+
+            vocoder = HiFiGANGenerator(vocoder_cfg)
+            vocoder.load_state_dict(load_hifigan(vocoder_ckpt), strict=True)
+        return cls(model_cfg, model, vocoder_cfg, vocoder, **kw)
+
+    @classmethod
+    def from_torch_checkpoints(cls, matcha_ckpt: str, vocoder_ckpt: Optional[str] = None,
+                               vocoder_cfg: Optional[cfglib.HiFiGANConfig] = None, **kw):
+        """Load reference-format checkpoints: a MatchaTTS ``.ckpt`` (its
+        ModelConfig is inferred from shapes and embedded hyper-parameters) and
+        a HiFi-GAN generator dump.  `vocoder_cfg` says which generator the dump
+        holds (a dump does not) and defaults to HiFi-GAN v1 at the model's mel
+        width.  The pipeline always holds a vocoder: with
+        ``vocoder_ckpt=None`` it is a seeded random one.  On the card unless
+        `kw` holds ``device="cpu"``."""
+        from emojivoice_tpu_torch.io.torch_ckpt import load_matcha
+
+        matcha_sd, model_cfg = load_matcha(matcha_ckpt)
+        if vocoder_cfg is None:
+            vocoder_cfg = dataclasses.replace(cfglib.HiFiGANConfig(), num_mels=model_cfg.n_feats)
+        return cls._with_vocoder(model_cfg, matcha_sd, vocoder_cfg, vocoder_ckpt, "from_torch_checkpoints", **kw)
+
+    @classmethod
+    def from_checkpoint(cls, ckpt_dir: str, vocoder_ckpt: Optional[str] = None, step: Optional[int] = None, **kw):
+        """Serve a model trained by ``emojivoice_tpu_torch.training.train``:
+        restores the weights of `step` (the latest by default) and the
+        RootConfig beside them from the checkpoint directory (``ckpts/`` under
+        ``--out_dir``).  The vocoder comes from a HiFi-GAN dump; with
+        ``vocoder_ckpt=None`` it is a seeded random one of the run's vocoder
+        config.  On the card unless `kw` holds ``device="cpu"``."""
+        from emojivoice_tpu_torch.io.checkpoint import CheckpointManager
+
+        mgr = CheckpointManager(ckpt_dir)
+        root_cfg = mgr.load_config()
+        restored = mgr.restore(step)
+        matcha_sd = restored["model"] if "model" in restored else restored
+        return cls._with_vocoder(root_cfg.model, matcha_sd, root_cfg.vocoder, vocoder_ckpt, "from_checkpoint", **kw)
+
     # ------------------------------------------------------------------ #
     # stages
     # ------------------------------------------------------------------ #
@@ -150,8 +206,15 @@ class SynthesisPipeline:
         return torch.from_numpy(np.clip(raw, 0, self.model_cfg.n_spks - 1)).to(self.device)
 
     @torch.no_grad()
+    def _vocode(self, mel: torch.Tensor) -> torch.Tensor:
+        """The pipeline's vocoder call, mel (B, T, n_feats) → wav (B, T·hop):
+        K1 on every MRF stage on the card.  Chunked streaming vocodes through
+        it, so streamed and monolithic audio come from the same kernels."""
+        return self.vocoder(mel)
+
+    @torch.no_grad()
     def _vocode_denoise_pcm(self, mel, denoise: bool, denoiser_strength: float, pcm16: bool, clock):
-        wav = self.vocoder(mel)
+        wav = self._vocode(mel)
         clock.mark("vocoder")
         if denoise:
             wav = self.denoiser(wav, denoiser_strength)
@@ -184,7 +247,20 @@ class SynthesisPipeline:
                          denoiser_strength: float = 0.00025, language: Optional[str] = None, seed=None,
                          fused: bool = False, fused_mel_bucket: Optional[int] = None, keep_mel: bool = True,
                          vocode: bool = True, pcm16: bool = False) -> PendingSynthesis:
-        """Enqueue the synthesis without waiting for its outputs."""
+        """Enqueue the synthesis, and the copies of its outputs to the host,
+        without waiting for them.
+
+        In two-stage mode the call blocks once, where the host reads the
+        predicted mel length after the encoder: on one CUDA stream that read
+        returns when everything enqueued before it has finished, an earlier
+        batch included.  So a caller that dispatches batch N+1 before it
+        finalizes batch N (the serving engine, long-form) overlaps N's copies
+        and its own host work with N+1's decode and vocoding, but not N's
+        compute with N+1's: "async" is one encoder deep.  With the denoiser
+        on there is a second wait at the end of the call: ``torch.istft``
+        checks its window envelope on the host, so the call returns when the
+        vocoder has finished and only the last elementwise steps and the
+        copies are still enqueued."""
         t0 = time.perf_counter()
         x_np, xl_np, cleaned, _ = self.encode_texts(texts, language)
         b = x_np.shape[0]
@@ -213,12 +289,22 @@ class SynthesisPipeline:
         if vocode:
             out["wav"] = self._vocode_denoise_pcm(dec["mel"], denoiser_strength > 0, denoiser_strength, pcm16,
                                                   clock)
-        return PendingSynthesis(out=out, cleaned=cleaned, b=b, t0=t0, clock=clock)
+        done = None
+        if self.device.type == "cuda":
+            # device→host copies enqueued now, behind this batch's kernels and ahead of whatever is
+            # enqueued next: a `.cpu()` in finalize would queue behind all later work on the stream
+            out = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True).copy_(v, non_blocking=True)
+                   for k, v in out.items()}
+            done = torch.cuda.Event(enable_timing=True)  # timed: the gap to the next batch's start can be read
+            done.record()
+        return PendingSynthesis(out=out, cleaned=cleaned, b=b, t0=t0, clock=clock, done=done)
 
     def finalize(self, p: PendingSynthesis) -> list[SynthesisResult]:
-        """Wait for an enqueued batch, copy its outputs to the host and build
-        the results.  The RTF clock spans enqueue → copy of this batch."""
-        out = {k: v.cpu().numpy() for k, v in p.out.items()}  # waits for the device
+        """Wait for an enqueued batch's host copies and build the results.
+        The RTF clock spans enqueue → copy of this batch."""
+        if p.done is not None:
+            p.done.synchronize()  # this batch's copies only, not the stream's later work
+        out = {k: v.numpy() for k, v in p.out.items()}
         t_total = time.perf_counter() - p.t0
         stage_ms = p.clock.elapsed_ms()
         ups = self.vocoder_cfg.total_upsample

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import threading
 from typing import NamedTuple, Sequence, Tuple
 
 import torch
@@ -34,6 +35,12 @@ KC = 32  # input channels per slice of K1's tiled weights (csrc/mrf.cu)
 
 # K1 launches by channel width: one per ``mrf_stage`` call on a CUDA tensor
 launches: collections.Counter = collections.Counter()
+# Serving threads (HTTP handlers, the batching engine's worker) vocode at the same time, and ctypes
+# releases the GIL during a call.  K1's host code sets a kernel's dynamic shared-memory size and then
+# launches it; a second thread setting a smaller size in between would make that launch fail, and an
+# unguarded ``+=`` can lose a count.  So one thread at a time enqueues a stage (the kernels themselves
+# still run asynchronously, interleaved on the stream).
+_launch_lock = threading.Lock()
 
 
 class PackedResblock(NamedTuple):
@@ -154,7 +161,7 @@ def mrf_stage(x: torch.Tensor, weights, kernel_sizes: Tuple[int, ...],
     cur = torch.empty_like(x)
     h = torch.empty_like(x)
     n = len(packed)
-    with torch.cuda.device(x.device):
+    with torch.cuda.device(x.device), _launch_lock:
         stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
         for r, (rb, k, dils) in enumerate(zip(packed, kernel_sizes, dilation_sizes)):
             dil_arr = (ctypes.c_int * len(dils))(*dils)
@@ -163,7 +170,7 @@ def mrf_stage(x: torch.Tensor, weights, kernel_sizes: Tuple[int, ...],
                 rb.w1.data_ptr(), rb.b1.data_ptr(), rb.w2.data_ptr(), rb.b2.data_ptr(),
                 b, t, c, k, len(dils), dil_arr, int(r > 0), 1.0 / n, stream)
             _raise_on(lib, err, f"mrf_resblock_f32 at B={b} T={t} C={c} k={k}")
-    launches[c] += 1
+        launches[c] += 1
     return out
 
 
@@ -184,7 +191,7 @@ def conv_taps(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, dilation: in
     tiled = tile_k_major(*pack_k_major(w.float()[None]))
     bias = bias.float().contiguous()
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
+    with torch.cuda.device(x.device), _launch_lock:
         err = lib.mrf_conv_f32(x.data_ptr(), tiled.data_ptr(), bias.data_ptr(), None, out.data_ptr(),
                                b, t, c, k, dilation, 0, 1.0, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     _raise_on(lib, err, f"mrf_conv_f32 at B={b} T={t} C={c} k={k} d={dilation}")

@@ -11,12 +11,19 @@ generator's after ``remove_weight_norm``.
 
 from __future__ import annotations
 
+import threading
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from emojivoice_tpu_torch.config import HiFiGANConfig
 from emojivoice_tpu_torch.ops.mrf import LRELU_SLOPE, mrf_stage, pack_weights
+
+
+# serving threads share one generator: its stacked MRF weights are made by one of them, once
+# (a module-level lock: a lock held by the module would stop ``copy.deepcopy`` of a generator)
+_STACK_LOCK = threading.Lock()
 
 
 def get_padding(kernel_size: int, dilation: int = 1) -> int:
@@ -75,14 +82,15 @@ class HiFiGANGenerator(nn.Module):
         res-block parameter moves (``.to``) or is written in place
         (``load_state_dict``), not on every call."""
         key = tuple((p.data_ptr(), p._version) for p in self.resblocks.parameters())
-        if key != self._stacked_key:
-            n = self.num_kernels
-            stacked = [[rb.stacked_weights() for rb in self.resblocks[s * n:(s + 1) * n]]
-                       for s in range(len(self.ups))]
-            on_card = self.conv_pre.weight.device.type == "cuda"
-            self._stacked = [pack_weights(stage) for stage in stacked] if on_card else stacked
-            self._stacked_key = key
-        return self._stacked[stage]
+        with _STACK_LOCK:
+            if key != self._stacked_key:
+                n = self.num_kernels
+                stacked = [[rb.stacked_weights() for rb in self.resblocks[s * n:(s + 1) * n]]
+                           for s in range(len(self.ups))]
+                on_card = self.conv_pre.weight.device.type == "cuda"
+                self._stacked = [pack_weights(stage) for stage in stacked] if on_card else stacked
+                self._stacked_key = key
+            return self._stacked[stage]
 
     @torch.no_grad()
     def forward(self, mel: torch.Tensor) -> torch.Tensor:

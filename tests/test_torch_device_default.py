@@ -43,8 +43,32 @@ def _train_state(**kw):
     return create_train_state(root.model, root.optimizer, seed=0, **kw)
 
 
+def _ckpt_files(tmp_path):
+    """A checkpoint directory and reference-format files of the tiny model."""
+    from emojivoice_tpu_torch.io.checkpoint import CheckpointManager
+
+    root = _root()
+    matcha_sd, hifigan_sd = _state_dicts(root)
+    CheckpointManager(str(tmp_path / "ckpts")).save(1, {"model": matcha_sd, "step": 1}, cfg=root)
+    torch.save({"state_dict": matcha_sd}, tmp_path / "voice.ckpt")
+    torch.save({"generator": hifigan_sd}, tmp_path / "generator")
+    return root
+
+
+def _from_checkpoint(tmp_path, **kw):
+    _ckpt_files(tmp_path)
+    return SynthesisPipeline.from_checkpoint(str(tmp_path / "ckpts"), str(tmp_path / "generator"), **kw)
+
+
+def _from_torch_checkpoints(tmp_path, **kw):
+    root = _ckpt_files(tmp_path)
+    return SynthesisPipeline.from_torch_checkpoints(str(tmp_path / "voice.ckpt"), str(tmp_path / "generator"),
+                                                    vocoder_cfg=root.vocoder, **kw)
+
+
 ENTRY_POINTS = {"from_random": _from_random, "from_state_dicts": _from_state_dicts, "__init__": _init,
                 "create_train_state": _train_state}
+FILE_ENTRY_POINTS = {"from_checkpoint": _from_checkpoint, "from_torch_checkpoints": _from_torch_checkpoints}
 
 
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
@@ -65,3 +89,65 @@ def test_pipeline_on_the_cpu_synthesises():
     pipe = _from_random(device="cpu", mel_buckets=(64, 128, 256), text_buckets=(64, 128))
     res = pipe.synthesise(["asked for the cpu"], spks=[1], n_timesteps=2, seed=0)[0]
     assert res.mel_length > 0 and res.wav.shape == (res.mel_length * 16,)
+
+
+@pytest.mark.parametrize("name", sorted(FILE_ENTRY_POINTS))
+def test_checkpoint_loader_without_a_card_raises_and_names_the_cpu(name, tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        FILE_ENTRY_POINTS[name](tmp_path)
+
+
+@pytest.mark.parametrize("name", sorted(FILE_ENTRY_POINTS))
+def test_checkpoint_loader_runs_on_the_cpu_when_asked(name, tmp_path):
+    made = FILE_ENTRY_POINTS[name](tmp_path, device="cpu")
+    assert made.device.type == "cpu"
+    assert all(p.device.type == "cpu" for p in list(made.model.parameters()) + list(made.vocoder.parameters()))
+
+
+@pytest.fixture
+def tiny_preset(monkeypatch):
+    """The mains build ``from_random()``'s default preset, emoji_multi at full
+    width; here that name gives the tiny config."""
+    monkeypatch.setattr(cfglib, "get_preset", lambda name, **kw: _root())
+
+
+def _cli_main(argv, tmp_path):
+    from emojivoice_tpu_torch.inference import cli
+
+    return cli.main(["--random_init", "--text", "hi there", "--steps", "2", "--output_folder", str(tmp_path)] + argv)
+
+
+def _webapp_main(argv, tmp_path):
+    from emojivoice_tpu_torch.apps import webapp
+
+    return webapp.main(["--random_init", "--port", "0"] + argv)
+
+
+MAINS = {"cli.main": _cli_main, "webapp.main": _webapp_main}
+
+
+@pytest.mark.parametrize("name", sorted(MAINS))
+def test_main_without_a_card_raises_and_names_the_cpu(name, tmp_path, monkeypatch, tiny_preset):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        MAINS[name]([], tmp_path)
+
+
+@pytest.mark.parametrize("name", sorted(MAINS))
+def test_main_runs_on_the_cpu_when_asked(name, tmp_path, monkeypatch, tiny_preset):
+    from emojivoice_tpu_torch.apps import webapp
+
+    made = []
+    real_init = SynthesisPipeline.__init__
+
+    def spy(self, *a, **kw):
+        real_init(self, *a, **kw)
+        made.append(self)
+
+    monkeypatch.setattr(SynthesisPipeline, "__init__", spy)
+    monkeypatch.setattr(webapp.ThreadingHTTPServer, "serve_forever", lambda self: self.server_close())
+    assert MAINS[name](["--cpu"], tmp_path) == 0
+    assert [p.device.type for p in made] == ["cpu"]
+    if name == "cli.main":
+        assert len(list(tmp_path.glob("utterance_*.wav"))) == 1

@@ -2,7 +2,9 @@
 package, as on the GPU machine where neither need exist.
 
 A fresh interpreter imports every module of ``emojivoice_tpu_torch`` and
-everything ``chip_smoke.py`` imports, runs a tiny CPU synthesis and a
+everything ``chip_smoke.py`` imports, runs a tiny CPU synthesis, the serving
+front ends on it (batching engine, streaming vocoder, long-form, the CLI, the
+webapp over HTTP, a checkpoint written and served), and a
 ``--fast_dev_run`` of the trainer, and then ``sys.modules`` must hold no
 ``emojivoice_tpu`` (or ``emojivoice_tpu.*``) and none of jax, jaxlib, flax,
 optax, orbax.  A second test holds the port's own copies of the presets and
@@ -33,7 +35,9 @@ def foreign():
 import emojivoice_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(emojivoice_tpu_torch.__path__, "emojivoice_tpu_torch.")]
 for want in ("ops.mas", "ops.mel", "data.dataset", "data.audio_np", "training.train", "training.state",
-             "training.synthetic", "io.checkpoint", "io.from_jax", "kernels.build", "config", "apps.emoji"):
+             "training.synthetic", "io.checkpoint", "io.from_jax", "kernels.build", "config", "apps.emoji",
+             "inference.serving", "inference.streaming", "inference.longform", "inference.cli", "apps.webapp",
+             "io.torch_ckpt", "utils.assets"):
     assert "emojivoice_tpu_torch." + want in names, want
 for name in names:
     importlib.import_module(name)
@@ -50,6 +54,48 @@ res = pipe.synthesise(["no jax here"], spks=[1], n_timesteps=2, seed=0, pcm16=Tr
 assert res.mel_length > 0 and res.wav.shape == (res.mel_length * 16,), res.wav.shape
 assert np.isfinite(res.wav).all()
 
+# the serving front ends, each run once on the tiny pipeline
+import json, threading, urllib.request
+from emojivoice_tpu_torch.apps import webapp
+from emojivoice_tpu_torch.inference import cli
+from emojivoice_tpu_torch.inference.longform import synthesise_longform
+from emojivoice_tpu_torch.inference.serving import BatchingEngine
+from emojivoice_tpu_torch.inference.streaming import auto_stream
+from emojivoice_tpu_torch.io.checkpoint import CheckpointManager
+from emojivoice_tpu_torch.utils.assets import resolve_model
+with BatchingEngine(pipe, max_batch=2, max_wait_ms=50) as eng:
+    futs = [eng.submit(f"engine {i}", spk=i, n_timesteps=2) for i in range(2)]
+    assert all(f.result(timeout=120).mel_length > 0 for f in futs)
+assert sum(len(c) for c in auto_stream(pipe, "streamed", spk=1, n_timesteps=2, seed=0, strategy="stream")) > 0
+assert synthesise_longform(pipe, "One sentence. Two sentences.", spk=1, max_chars=15, n_timesteps=2).size > 0
+server = webapp.serve(pipe, port=0, batching=True, max_batch=2, max_wait_ms=5)
+threading.Thread(target=server.serve_forever, daemon=True).start()
+url = f"http://127.0.0.1:{server.server_address[1]}"
+req = urllib.request.Request(url + "/api/synthesise", data=json.dumps({"text": "over http", "steps": 2}).encode(),
+                             headers={"Content-Type": "application/json"})
+with urllib.request.urlopen(req, timeout=120) as r:
+    assert json.loads(r.read())["num_samples"] > 0
+req = urllib.request.Request(url + "/api/stream", data=json.dumps({"text": "over http", "steps": 2}).encode(),
+                             headers={"Content-Type": "application/json"})
+with urllib.request.urlopen(req, timeout=120) as r:
+    assert len(r.read()) > 44
+server.shutdown(); server.server_close(); server.engine.close()
+with tempfile.TemporaryDirectory() as tmp:
+    CheckpointManager(tmp + "/ckpts").save(3, {"model": pipe.model.state_dict(), "step": 3},
+                                          cfg=cfglib.RootConfig(model=model, vocoder=voc))
+    served = SynthesisPipeline.from_checkpoint(resolve_model(tmp + "/ckpts"), device="cpu",
+                                               mel_buckets=(64, 128, 256), text_buckets=(64, 128))
+    assert served.synthesise(["served"], spks=[1], n_timesteps=2, seed=0)[0].mel_length > 0
+    torch.save({"state_dict": pipe.model.state_dict()}, tmp + "/voice.ckpt")
+    torch.save({"generator": pipe.vocoder.state_dict()}, tmp + "/generator")
+    loaded = SynthesisPipeline.from_torch_checkpoints(tmp + "/voice.ckpt", tmp + "/generator", vocoder_cfg=voc,
+                                                      device="cpu", mel_buckets=(64, 128, 256), text_buckets=(64, 128))
+    assert loaded.model_cfg.n_spks == model.n_spks
+    SynthesisPipeline.from_random = classmethod(lambda cls, **kw: pipe)  # the CLI's preset is full width
+    assert cli.main(["--cpu", "--random_init", "--text", "from the cli", "--steps", "2", "--output_folder", tmp]) == 0
+    assert list(Path(tmp).glob("utterance_*.wav"))
+assert not foreign(), foreign()
+
 from emojivoice_tpu_torch.training.synthetic import make_alignable_dataset
 from emojivoice_tpu_torch.training.train import main
 with tempfile.TemporaryDirectory() as tmp:
@@ -62,7 +108,8 @@ tree = ast.parse(open("chip_smoke.py").read())
 mods = {n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)}
 mods |= {a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names}
 for want in ("emojivoice_tpu_torch.kernels.build", "emojivoice_tpu_torch.apps.emoji", "emojivoice_tpu_torch.ops",
-             "emojivoice_tpu_torch.training"):
+             "emojivoice_tpu_torch.training", "emojivoice_tpu_torch.inference.serving",
+             "emojivoice_tpu_torch.inference.streaming", "emojivoice_tpu_torch.inference", "emojivoice_tpu_torch.apps"):
     assert want in mods, (want, mods)
 for m in sorted(mods):
     importlib.import_module(m)
