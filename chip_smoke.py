@@ -1,7 +1,7 @@
 """Drive the PyTorch port's paths once on one NVIDIA GPU: synthesis
-(text → pcm16), acoustic-model training, and the serving front ends
-(batching engine, streaming vocoder, long-form, CLI, webapp, and a trained
-checkpoint served).
+(text → pcm16), acoustic-model training, the vocoder's fine-tune on the
+acoustic model's own mels, and the serving front ends (batching engine,
+streaming vocoder, long-form, CLI, webapp, and trained checkpoints served).
 
     python3 chip_smoke.py
 
@@ -49,7 +49,24 @@ Phases (each one failing fails the run, exit code ≠ 0):
      log-prior).  Before the run's folder is removed,
      ``SynthesisPipeline.from_checkpoint`` serves the checkpoint directory the
      trainer wrote: one utterance on the card, K1 on all four stages;
-  6. serving — on the emoji_multi pipeline of phase 3 (HiFi-GAN v1, 10 Euler
+  6. vocoder training — still inside the training run's folder: (a)
+     ``get_durations.main`` on the run's ``ckpts/`` and filelist with
+     ``--gen_mels``: K2 launches once per batch, every teacher-forced mel has
+     as many frames as its durations sum to, and the first batch's path
+     equals the plain search on the same log-prior to the bit; (b)
+     ``run_vocoder_proof`` at HiFi-GAN v1 width with the full MPD + MSD,
+     batch 16 × 32 frames (8,192 samples), conditioned on (a)'s mels, 60
+     steps logged every 5: the harness's own assert wants the windowed
+     mel-L1 lower at the end, and its two renders go through K1; (c) one GAN
+     step of 4 rows on the card against the same step on the CPU from the
+     same state (the generator that (b) trained, seeded discriminators) and
+     batch, the five metrics within rtol 1e-3 (cuDNN against the CPU's convs,
+     f32 both); (d) the step by stage with CUDA events,
+     steps per second and peak memory at batch 16; (e) the generator that (b)
+     wrote, folded, served beside the run's acoustic checkpoint: finite
+     pcm16, K1 on all four stages, and K1's waveform within 2e-4 of the
+     weight-norm generator's differentiable forward on the same mel;
+  7. serving — on the emoji_multi pipeline of phase 3 (HiFi-GAN v1, 10 Euler
      steps, pcm16), every wait with a timeout: (a) ``BatchingEngine(pipe,
      max_batch=8, max_wait_ms=10)``, warmed, answers 32 requests from 8
      client threads (texts of 20-200 characters, the 11 emoji speakers,
@@ -119,6 +136,9 @@ HBM_BYTES_PER_S, F32_FLOPS, TF32_FLOPS = 3.35e12, 67e12, 495e12
 MAS_SHAPES = [(16, 256, 768), (32, 128, 512), (1, 64, 128), (8, 100, 333), (4, 512, 2048), (2, 1000, 1100),
               (3, 33, 120), (2, 1500, 1600)]
 TRAIN_BATCH, TRAIN_STEPS, RESUME_STEPS, EVERY = 16, 20, 24, 10
+DURATION_BATCH = 8  # get_durations' batch: 32 utterances, 4 batches, 4 K2 launches
+VOC_BATCH, VOC_SEGMENT, VOC_STEPS, VOC_LOG_EVERY = 16, 32, 60, 5
+VOC_TOL = 1e-3  # one GAN step, card against CPU: relative bound on the five metrics
 SHORT_REPLY = "Sure, I can do that today."
 STORY = ("Once upon a time a little robot lived by the sea. Every morning it counted the waves and sang to the "
          "gulls. One day a storm took its voice away. So the gulls sang for the robot until spring came back.")
@@ -875,7 +895,168 @@ def phase_training(mas, mrf) -> dict:
 
         card_vs_cpu(matcha, state, batch, mas)
         served = serve_trained(mrf, out / "ckpts")
-    return dict(launches=launches, row=path_row, k1_launches=served)
+        vocoder = phase_vocoder_training(mas, mrf, matcha, tmp, train_list, out / "ckpts")
+    return dict(launches=launches + vocoder["k2_launches"], row=path_row,
+                k1_launches=served + vocoder["k1_launches"], vocoder=vocoder)
+
+
+def phase_vocoder_training(mas, mrf, matcha, tmp: Path, filelist: Path, ckpt_dir: Path) -> dict:
+    """Phase 6: durations and teacher-forced mels through K2, the GAN
+    fine-tune on them, one step against the CPU, the step by stage, and the
+    fine-tuned generator folded and served through K1."""
+    import numpy as np
+
+    from emojivoice_tpu_torch.config import HiFiGANConfig
+    from emojivoice_tpu_torch.inference.pipeline import SynthesisPipeline
+    from emojivoice_tpu_torch.io.torch_ckpt import load_hifigan
+    from emojivoice_tpu_torch.training import get_durations
+    from emojivoice_tpu_torch.training.vocoder_proof import load_pairs, make_segment_sampler, run_vocoder_proof
+    from emojivoice_tpu_torch.training.vocoder_train import create_vocoder_state, vocoder_train_step
+    from emojivoice_tpu_torch.utils.timing import StageClock
+    from emojivoice_tpu_torch.vocoder.hifigan import HiFiGANGenerator
+
+    cfg = HiFiGANConfig()
+    rows = [r.split("|") for r in filelist.read_text().splitlines() if r.strip()]
+    n_batches = -(-len(rows) // DURATION_BATCH)
+
+    # (a) get_durations --gen_mels, as a user calls it; the first batch's log-prior is kept for the plain search
+    aligned = tmp / "aligned"
+    seen = []
+    real = matcha.maximum_path
+
+    def capture(value, mask):
+        path = real(value, mask)
+        if not seen:
+            seen.append((value, mask, path))
+        return path
+    matcha.maximum_path = capture
+    mas.launches = 0  # the main path's run of K2's second caller
+    t = time.perf_counter()
+    try:
+        if get_durations.main(["--checkpoint_path", str(ckpt_dir), "--filelist", str(filelist), "--preset", PRESET,
+                               "--output_dir", str(aligned), "--batch_size", str(DURATION_BATCH), "--gen_mels",
+                               "--n_timesteps", str(STEPS)]) != 0:
+            raise RuntimeError("(a) get_durations failed")
+    finally:
+        matcha.maximum_path = real
+    torch.cuda.synchronize()
+    durations_s = time.perf_counter() - t
+    k2_launches = mas.launches
+    if k2_launches != n_batches:
+        raise RuntimeError(f"(a) get_durations launched K2 {k2_launches} times for {n_batches} batches")
+    frames = {}
+    for wav_path, _, _ in rows:
+        stem = Path(wav_path).stem
+        durs, gen_mel = np.load(aligned / "durations" / f"{stem}.npy"), np.load(aligned / "gen_mels" / f"{stem}.npy")
+        if gen_mel.shape != (int(round(durs.sum())), 80) or gen_mel.dtype != np.float32 or not np.isfinite(gen_mel).all():
+            raise RuntimeError(f"(a) gen_mels/{stem}.npy is {gen_mel.shape} {gen_mel.dtype} for {durs.sum()} frames "
+                               f"of durations")
+        frames[stem] = gen_mel.shape[0]
+    value, mask, path = seen[0]
+    plain = mas.maximum_path_reference(value, mask)
+    if not torch.equal(path, plain) or mas.path_faults(path, mask):
+        raise RuntimeError("(a) K2's path differs from the plain search on get_durations' first log-prior")
+    print(f"[vocoder] (a) get_durations --gen_mels on {ckpt_dir.name}/: {len(rows)} utterances in {n_batches} batches, "
+          f"{durations_s:.2f} s ({len(rows) / durations_s:.2f} utterances/s with {STEPS} Euler steps and the files), "
+          f"K2 launches {k2_launches}, frames {min(frames.values())}..{max(frames.values())}, first batch "
+          f"{tuple(value.shape)} equal to the plain search")
+
+    # (b) the GAN fine-tune on those mels, through the harness a user calls
+    mrf.launches.clear()
+    t = time.perf_counter()
+    summary = run_vocoder_proof(str(tmp / "voc"), steps=VOC_STEPS, batch_size=VOC_BATCH, segment_frames=VOC_SEGMENT,
+                                window=3, cfg=cfg, log_every=VOC_LOG_EVERY, filelist=str(filelist),
+                                gen_mels_dir=str(aligned / "gen_mels"))
+    proof_s = time.perf_counter() - t
+    render_launches = sum(mrf.launches.values())
+    n_stages = len(cfg.upsample_rates)  # one mrf_stage call each per vocoded batch
+    if render_launches != 2 * n_stages or not summary["fine_tuning"] or summary["backend"] != torch.cuda.get_device_name(0):
+        raise RuntimeError(f"(b) run_vocoder_proof: {render_launches} mrf_stage calls for two renders, summary {summary}")
+    print(f"[vocoder] (b) run_vocoder_proof, HiFi-GAN v1 + MPD + MSD, batch {VOC_BATCH} x {VOC_SEGMENT * 256} samples, "
+          f"{VOC_STEPS} steps in {proof_s:.2f} s with corpus and renders: " + json.dumps(summary))
+
+    # (c) one step on the card against the CPU, from the same state and batch (4 rows)
+    pairs = load_pairs([r[0] for r in rows[:-1]], cfg, 256, 1024, 1024, aligned / "gen_mels")
+    sample = make_segment_sampler(pairs, VOC_SEGMENT, 256, VOC_BATCH, seed=3)
+    batch_np = sample()
+    # from the generator that (b) trained (a random one's waveform is near zero, and every loss then rounds
+    # to the same f32 on both devices) and seeded discriminators
+    gen_file = tmp / "voc" / summary["generator_ckpt"]
+    card = create_vocoder_state(cfg, seed=1, gen_state=load_hifigan(str(gen_file), fold=False))
+    if card.device.type != DEVICE:
+        raise RuntimeError("create_vocoder_state did not build the state on the card")
+    cpu = create_vocoder_state(cfg, seed=1, gen_state=load_hifigan(str(gen_file), fold=False), device="cpu")
+    for a, b in ((card.mpd, cpu.mpd), (card.msd, cpu.msd)):
+        if not all(torch.equal(p.cpu(), q) for p, q in zip(a.parameters(), b.parameters())):
+            raise RuntimeError("(c) the same seed gave the card and the CPU different discriminators")
+    four = {k: torch.from_numpy(v[:4]) for k, v in batch_np.items()}
+    t = time.perf_counter()
+    m_cpu = {k: float(v) for k, v in vocoder_train_step(cpu, four).items()}
+    cpu_s = time.perf_counter() - t
+    m_card = {k: float(v) for k, v in vocoder_train_step(card, {k: v.cuda() for k, v in four.items()}).items()}
+    rel = {k: abs(m_card[k] - m_cpu[k]) / abs(m_cpu[k]) for k in m_cpu}
+    moved = max(float((a.detach().cpu() - b.detach()).abs().max()) for a, b in zip(card.gen.parameters(),
+                                                                                   cpu.gen.parameters()))
+    print(f"[vocoder] (c) one GAN step, 4 rows, card {m_card} cpu {m_cpu} (CPU step {cpu_s:.2f} s); relative "
+          f"differences {rel}; generator parameters after the step differ by at most {moved:.2e}")
+    if max(rel.values()) > VOC_TOL:
+        raise RuntimeError(f"(c) card and CPU GAN steps disagree beyond {VOC_TOL}: {rel}")
+    del cpu
+
+    # (d) the step by stage at batch 16, then steps per second
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch_np.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stage_ms = []
+    for _ in range(2 + 5):  # two to warm
+        clock = StageClock(torch.device(DEVICE))
+        vocoder_train_step(card, batch, clock=clock)
+        torch.cuda.synchronize()
+        stage_ms.append(clock.elapsed_ms())
+    med = {k: statistics.median(m[k] for m in stage_ms[2:]) for k in stage_ms[0]}
+    n = 10
+    t = time.perf_counter()
+    for _ in range(n):
+        vocoder_train_step(card, batch)
+    enqueue_ms = (time.perf_counter() - t) * 1e3 / n  # the host's share: the step itself waits for nothing
+    torch.cuda.synchronize()
+    steps_per_s = n / (time.perf_counter() - t)
+    step = dict(steps_per_s=steps_per_s, host_enqueue_ms=enqueue_ms, **{f"{k}_ms": v for k, v in med.items()},
+                sum_ms=sum(med.values()),
+                batch=VOC_BATCH, segment_samples=VOC_SEGMENT * 256, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                harness_steps_per_s=summary["steps_per_sec_after_first"])
+    print("[vocoder] (d) step " + json.dumps(step))
+    del card
+
+    # (e) the fine-tuned generator, folded, served beside the run's acoustic checkpoint
+    pipe = SynthesisPipeline.from_checkpoint(str(ckpt_dir), str(gen_file), cleaners=("basic_cleaners",))
+    kw = dict(spks=[79], n_timesteps=STEPS, denoiser_strength=STRENGTH, seed=0, pcm16=True)
+    pipe.synthesise([TEXT11], **kw)  # first-call allocations
+    mrf.launches.clear()
+    t = time.perf_counter()
+    res = pipe.synthesise([TEXT11], **kw)
+    wall_ms = (time.perf_counter() - t) * 1e3
+    served_launches = sum(mrf.launches.values())
+    check_wavs(res, "(e) fine-tuned generator")
+    if served_launches != n_stages:
+        raise RuntimeError(f"(e) serving the fine-tuned generator made {served_launches} mrf_stage calls, expected "
+                           f"{n_stages}")
+    trained = HiFiGANGenerator(cfg, weight_norm=True)
+    trained.load_state_dict(load_hifigan(str(gen_file), fold=False), strict=True)
+    trained = trained.cuda().eval()
+    stem = Path(rows[-1][0]).stem
+    mel = torch.from_numpy(np.load(aligned / "gen_mels" / f"{stem}.npy")[None, :160]).cuda()
+    with torch.no_grad():
+        plain_wav = trained.forward_train(mel)
+    k1_wav = pipe.vocoder(mel)  # a comparison: made after the count was read
+    err = float((k1_wav - plain_wav).abs().max())
+    print(f"[vocoder] (e) g_{VOC_STEPS:08d} folded and served with {ckpt_dir.name}/: mel_length {res[0].mel_length}  "
+          f"wall {wall_ms:.3f} ms  K1 launches {served_launches}; K1 on the folded weights against the weight-norm "
+          f"generator's plain forward on {mel.shape[1]} frames of {stem}: max-abs {err:.3e} (bound {TOL})")
+    if not err <= TOL:
+        raise RuntimeError(f"(e) the folded generator through K1 is {err:.3e} off the weight-norm generator")
+    return dict(k2_launches=k2_launches, k1_launches=render_launches + served_launches, step=step, summary=summary,
+                durations_utt_per_s=len(rows) / durations_s, card_vs_cpu_rel=rel, folded_vs_plain=err)
 
 
 def card_vs_cpu(matcha, state, batch, mas) -> None:
@@ -973,7 +1154,8 @@ def main() -> int:
     mas_rows = phase_kernel_mas(mas)
     training = phase_training(mas, mrf)
     serving = phase_serving(pipe, mrf)
-    # K1 on the main paths: the synthesis requests, the engine's and the webapp's batches, the trained checkpoint
+    # K1 on the main paths: the synthesis requests, the engine's and the webapp's batches, the trained checkpoint,
+    # the vocoder proof's two renders and the fine-tuned generator served; K2: the trainer's steps and get_durations
     launches += serving["k1_launches"] + training["k1_launches"]
 
     stage_rows = rows[:len(STAGE_SHAPES)]

@@ -1,7 +1,7 @@
 """Weights, gradients and optimizer state carried from the JAX package's
 param trees to the port's modules.
 
-The two ``*_state_dict_from_flax`` functions take a flax variables tree (``{"params": ...}``) as numpy
+The ``*_state_dict_from_flax`` functions take a flax variables tree (``{"params": ...}``) as numpy
 arrays and return a reference-named state dict of numpy arrays that the
 port's modules load with strict names:
 
@@ -9,7 +9,9 @@ port's modules load with strict names:
   ``emojivoice_tpu.io.torch_ckpt.export_matcha_state_dict`` (transformer
   decoder blocks), including the ``mel_mean``/``mel_std`` buffers;
 * ``hifigan_state_dict_from_flax`` is the inverse of
-  ``convert_hifigan_state_dict`` with folded weight norm.
+  ``convert_hifigan_state_dict``, folded or in the weight-norm training form;
+* ``mpd_state_dict_from_flax`` / ``msd_state_dict_from_flax`` carry the
+  HiFi-GAN discriminators.
 
 Layouts: flax conv kernels are (k, in, out) → torch Conv1d (out, in, k);
 flax ConvTranspose1d kernels are (k, in, out) → torch (in, out, k); flax
@@ -155,12 +157,17 @@ def load_adam_state_from_optax(optimizer, model, mu: dict, nu: dict, count: int,
     `mu` and `nu` are the first- and second-moment trees (they mirror the
     parameter tree, without the ``"params"`` level) and `count` the number of
     updates taken.  `optimizer` must hold ``model.parameters()`` in order."""
+    _load_adam(optimizer, model.named_parameters(), matcha_state_dict_from_flax({"params": mu}, cfg, buffers=False),
+               matcha_state_dict_from_flax({"params": nu}, cfg, buffers=False), count)
+
+
+def _load_adam(optimizer, named_parameters, first: dict, second: dict, count: int) -> None:
+    """`first`/`second`: reference-named moments for `named_parameters`, which
+    `optimizer` must hold in the same order."""
     import torch
 
-    first = matcha_state_dict_from_flax({"params": mu}, cfg, buffers=False)
-    second = matcha_state_dict_from_flax({"params": nu}, cfg, buffers=False)
     state = {}
-    for i, (name, param) in enumerate(model.named_parameters()):
+    for i, (name, param) in enumerate(named_parameters):
         state[i] = {"step": torch.tensor(float(count)),
                     "exp_avg": torch.tensor(first[name], device=param.device),
                     "exp_avg_sq": torch.tensor(second[name], device=param.device)}
@@ -168,14 +175,19 @@ def load_adam_state_from_optax(optimizer, model, mu: dict, nu: dict, count: int,
 
 
 def hifigan_state_dict_from_flax(params: dict, cfg: HiFiGANConfig) -> Dict[str, np.ndarray]:
-    """Folded (plain-kernel) flax HiFi-GAN params → reference generator names."""
-    if cfg.resblock != "1":
-        raise NotImplementedError("only ResBlock1 (HiFi-GAN v1) is ported")
+    """Flax HiFi-GAN params → reference generator names, ResBlock1
+    (``convs1``/``convs2``) or ResBlock2 (``convs``).  A folded tree
+    (``kernel``) gives ``weight``; a weight-norm tree (``v``, ``g``) gives
+    ``weight_v`` in the weight's layout and ``weight_g`` as torch's (C, 1, 1)."""
     p = params["params"]
     sd: Dict[str, np.ndarray] = {}
 
     def put(name, node, layout):
-        sd[f"{name}.weight"] = layout(node["kernel"])
+        if "kernel" in node:
+            sd[f"{name}.weight"] = layout(node["kernel"])
+        else:
+            sd[f"{name}.weight_v"] = layout(node["v"])
+            sd[f"{name}.weight_g"] = _np(node["g"]).reshape(-1, 1, 1)
         sd[f"{name}.bias"] = _np(node["bias"])
 
     put("conv_pre", p["conv_pre"], _conv)
@@ -184,10 +196,53 @@ def hifigan_state_dict_from_flax(params: dict, cfg: HiFiGANConfig) -> Dict[str, 
         put(f"ups.{i}", p[f"ups_{i}"], _convt)
     for n in range(n_up * len(cfg.resblock_kernel_sizes)):
         rb = p[f"resblocks_{n}"]
-        for group in ("convs1", "convs2"):
+        for group in ("convs1", "convs2", "convs"):
             j = 0
             while f"{group}_{j}" in rb:
                 put(f"resblocks.{n}.{group}.{j}", rb[f"{group}_{j}"], _conv)
                 j += 1
     put("conv_post", p["conv_post"], _conv)
     return sd
+
+
+def _discriminator_state_dict(params: dict, layout) -> Dict[str, np.ndarray]:
+    sd: Dict[str, np.ndarray] = {}
+    for d_name, d in params["params"].items():  # discriminators_{i}
+        i = d_name.rsplit("_", 1)[1]
+        for c_name, node in d.items():  # convs_{j} | conv_post
+            name = "conv_post" if c_name == "conv_post" else f"convs.{c_name.rsplit('_', 1)[1]}"
+            sd[f"discriminators.{i}.{name}.weight"] = layout(node["kernel"])
+            sd[f"discriminators.{i}.{name}.bias"] = _np(node["bias"])
+    return sd
+
+
+def mpd_state_dict_from_flax(params: dict) -> Dict[str, np.ndarray]:
+    """Flax MultiPeriodDiscriminator params → reference names; Conv2d kernels
+    (kh, kw, in, out) → torch (out, in, kh, kw)."""
+    return _discriminator_state_dict(params, lambda w: np.ascontiguousarray(_np(w).transpose(3, 2, 0, 1)))
+
+
+def msd_state_dict_from_flax(params: dict) -> Dict[str, np.ndarray]:
+    """Flax MultiScaleDiscriminator params → reference names; grouped 1-D
+    kernels (k, in/groups, out) → torch (out, in/groups, k)."""
+    return _discriminator_state_dict(params, _conv)
+
+
+def load_vocoder_adam_states_from_optax(state, gen_mu: dict, gen_nu: dict, gen_count: int, disc_mu: dict,
+                                        disc_nu: dict, disc_count: int) -> None:
+    """Start the two ``torch.optim.Adam``s of a ``VocoderTrainState`` from the
+    two ``optax.adam`` states of the JAX package's: the generator's moment
+    trees mirror ``gen_params["params"]``, the discriminators' mirror
+    ``{"mpd": variables, "msd": variables}``."""
+    cfg = state.cfg
+    _load_adam(state.gen_opt, state.gen.named_parameters(),
+               hifigan_state_dict_from_flax({"params": gen_mu}, cfg),
+               hifigan_state_dict_from_flax({"params": gen_nu}, cfg), gen_count)
+
+    def disc_sd(tree):
+        return {**{f"mpd.{k}": v for k, v in mpd_state_dict_from_flax(tree["mpd"]).items()},
+                **{f"msd.{k}": v for k, v in msd_state_dict_from_flax(tree["msd"]).items()}}
+
+    named = [(f"{prefix}.{n}", p) for prefix, m in (("mpd", state.mpd), ("msd", state.msd))
+             for n, p in m.named_parameters()]
+    _load_adam(state.disc_opt, named, disc_sd(disc_mu), disc_sd(disc_nu), disc_count)

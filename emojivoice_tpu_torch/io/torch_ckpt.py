@@ -13,7 +13,10 @@ is transposed here.  This module:
   ``hyper_parameters`` where it carries them as plain dicts, with a
   cross-check for every dimension both determine;
 * folds HiFi-GAN weight norm (``weight_g``/``weight_v``) into plain weights,
-  as the reference's ``remove_weight_norm`` does at load.
+  as the reference's ``remove_weight_norm`` does at load, or keeps it for
+  training (``load_hifigan(path, fold=False)``);
+* reads the discriminators of an upstream ``do_*`` training checkpoint
+  (weight norm and spectral norm made plain).
 
 A checkpoint whose ``hyper_parameters`` are pickled omegaconf objects is
 refused by ``weights_only=True``; the error names the file and the cure.
@@ -223,6 +226,60 @@ def load_matcha(path: str) -> Tuple[Dict[str, torch.Tensor], cfglib.ModelConfig]
     return sd, infer_model_config_from_state_dict(sd, hparams=extract_hyper_parameters(obj))
 
 
+def matcha_hyper_parameters(cfg: cfglib.ModelConfig) -> dict:
+    """The reference-structured ``hyper_parameters`` block of `cfg`, as plain
+    dicts: what the reference embeds in its checkpoints, so that an exported
+    file documents its own architecture and ``load_matcha`` recovers `cfg`
+    from it."""
+    return {
+        "n_vocab": cfg.n_vocab,
+        "n_spks": cfg.n_spks,
+        "spk_emb_dim": cfg.spk_emb_dim,
+        "n_feats": cfg.n_feats,
+        "encoder": {
+            "encoder_type": "RoPE Encoder",
+            "encoder_params": {
+                "n_feats": cfg.n_feats,
+                "n_channels": cfg.encoder.n_channels,
+                "filter_channels": cfg.encoder.filter_channels,
+                "filter_channels_dp": cfg.duration_predictor.filter_channels_dp,
+                "n_heads": cfg.encoder.n_heads,
+                "n_layers": cfg.encoder.n_layers,
+                "kernel_size": cfg.encoder.kernel_size,
+                "p_dropout": cfg.encoder.p_dropout,
+                "spk_emb_dim": cfg.spk_emb_dim,
+                "n_spks": cfg.n_spks,
+                "prenet": cfg.encoder.prenet,
+            },
+            "duration_predictor_params": {
+                "filter_channels_dp": cfg.duration_predictor.filter_channels_dp,
+                "kernel_size": cfg.duration_predictor.kernel_size,
+                "p_dropout": cfg.duration_predictor.p_dropout,
+            },
+        },
+        "decoder": {
+            "channels": list(cfg.decoder.channels),
+            "dropout": cfg.decoder.dropout,
+            "attention_head_dim": cfg.decoder.attention_head_dim,
+            "n_blocks": cfg.decoder.n_blocks,
+            "num_mid_blocks": cfg.decoder.num_mid_blocks,
+            "num_heads": cfg.decoder.num_heads,
+            "act_fn": cfg.decoder.act_fn,
+            "down_block_type": cfg.decoder.down_block_type,
+            "mid_block_type": cfg.decoder.mid_block_type,
+            "up_block_type": cfg.decoder.up_block_type,
+        },
+        "cfm": {"name": "CFM", "solver": cfg.cfm.solver, "sigma_min": cfg.cfm.sigma_min},
+        "data_statistics": {
+            "mel_mean": cfg.data_statistics.mel_mean,
+            "mel_std": cfg.data_statistics.mel_std,
+        },
+        "out_size": cfg.out_size,
+        "prior_loss": cfg.prior_loss,
+        "use_precomputed_durations": cfg.use_precomputed_durations,
+    }
+
+
 # ---------------------------------------------------------------------------
 # HiFi-GAN
 # ---------------------------------------------------------------------------
@@ -240,6 +297,77 @@ def fold_hifigan_state_dict(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tens
     return out
 
 
-def load_hifigan(path: str) -> Dict[str, torch.Tensor]:
-    """Generator state dict of a HiFi-GAN dump, weight norm folded."""
-    return fold_hifigan_state_dict(load_torch_state_dict(path))
+def split_hifigan_state_dict(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The training form of a generator state dict: ``weight_g``/``weight_v``
+    pairs pass through, and a plain ``<name>.weight`` (a dump that was folded
+    already) becomes ``v = w``, ``g = ‖w‖`` over every axis but the first."""
+    out = {}
+    for k, v in sd.items():
+        if k.endswith(".weight"):
+            name = k[: -len(".weight")]
+            norm = v.double().pow(2).sum(dim=tuple(range(1, v.dim())), keepdim=True).sqrt()
+            out[f"{name}.weight_g"], out[f"{name}.weight_v"] = norm.float(), v
+        else:
+            out[k] = v
+    return out
+
+
+def load_hifigan(path: str, fold: bool = True) -> Dict[str, torch.Tensor]:
+    """Generator state dict of a HiFi-GAN dump.  fold=True (serving): weight
+    norm folded into plain weights, for ``HiFiGANGenerator(cfg)``.
+    fold=False (training): the ``weight_g``/``weight_v`` parameterization as
+    stored, for ``HiFiGANGenerator(cfg, weight_norm=True)``, so that a
+    fine-tune runs in the upstream optimizer geometry."""
+    sd = load_torch_state_dict(path)
+    return fold_hifigan_state_dict(sd) if fold else split_hifigan_state_dict(sd)
+
+
+def _effective_weight(sd: Dict[str, torch.Tensor], name: str) -> torch.Tensor:
+    """The plain weight of a conv that may be parameterized, in the three
+    forms the reference discriminators use: plain ``weight``; weight norm
+    (``weight_g``/``weight_v``, folded); spectral norm (``weight_orig`` with
+    the power-iteration vector ``weight_u`` and, in some versions,
+    ``weight_v``), as eval mode computes it: ``weight_orig / sigma`` with
+    ``sigma = u · (W v)`` from the stored vectors, W the weight as a
+    (out, rest) matrix, and v recomputed as ``normalize(Wᵀ u)`` where the file
+    has none."""
+    if f"{name}.weight_orig" in sd:
+        w = sd[f"{name}.weight_orig"]
+        u = sd[f"{name}.weight_u"].reshape(-1)
+        w_mat = w.reshape(w.shape[0], -1)
+        if f"{name}.weight_v" in sd:
+            v = sd[f"{name}.weight_v"].reshape(-1)
+        else:
+            v = w_mat.T @ u
+            v = v / max(float(torch.linalg.vector_norm(v)), 1e-12)
+        return w / float(u @ (w_mat @ v))
+    if f"{name}.weight_g" in sd:
+        return fold_weight_norm_torch(sd[f"{name}.weight_g"], sd[f"{name}.weight_v"])
+    return sd[f"{name}.weight"]
+
+
+def plain_discriminator_state_dict(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """An MPD or MSD state dict with every conv's weight made plain
+    (``_effective_weight``) under the name ``<conv>.weight``; biases pass
+    through.  The names are the reference's, which the port's discriminators
+    carry, so nothing else moves."""
+    out = {}
+    for k, v in sd.items():
+        if k.endswith(".bias"):
+            name = k[: -len(".bias")]
+            out[k] = v
+            out[f"{name}.weight"] = _effective_weight(sd, name)
+    return out
+
+
+def load_hifigan_discriminators(path: str) -> Dict[str, Dict[str, torch.Tensor]]:
+    """An upstream HiFi-GAN ``do_*`` training checkpoint (``{"mpd": ...,
+    "msd": ..., "optim_g": ..., ...}``) → ``{"mpd": state dict, "msd": state
+    dict}`` of plain weights for ``MultiPeriodDiscriminator`` and
+    ``MultiScaleDiscriminator``: the ``disc_state`` of
+    ``create_vocoder_state``, so a fine-tune starts from trained
+    discriminators (the generator's side is ``load_hifigan(path, fold=False)``)."""
+    obj = load_torch_file(path)
+    if not isinstance(obj, dict) or "mpd" not in obj or "msd" not in obj:
+        raise ValueError(f"{path}: not a HiFi-GAN do_* checkpoint (missing mpd/msd)")
+    return {k: plain_discriminator_state_dict(state_dict_arrays(obj[k])) for k in ("mpd", "msd")}

@@ -132,6 +132,17 @@ class MatchaTTS(nn.Module):
             prior_loss = torch.zeros((), device=y.device)
         return dur_loss, prior_loss, diff_loss, attn
 
+    @torch.no_grad()
+    def align(self, x, x_lengths, y, y_lengths, spks=None):
+        """The training forward's alignment alone, without the losses: the MAS
+        path ``attn`` (B, T_x, T_y) of the normalized mel `y` against the
+        encoder's means (K2 on the card), with what a teacher-forced decode
+        needs beside it → (attn, mu_x, x_mask, spk_e).  To be called under
+        ``eval()``."""
+        spk_e = self._embed_spks(spks)
+        x_mask, _, _, mu_x, _, attn = self._encode_align(x, x_lengths, y, y_lengths, spk_e)
+        return attn, mu_x, x_mask, spk_e
+
     def _encode_align(self, x, x_lengths, y, y_lengths, spk_e, durations=None):
         """The training forward's front half, shared with the probe: masks,
         encoder, and the MAS alignment over the Gaussian log-prior

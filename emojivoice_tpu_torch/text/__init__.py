@@ -33,3 +33,8 @@ def text_to_sequence(text: str, cleaner_names: Sequence[str]):
     sequence = [i for ch in clean_text
                 if (i := _symbol_to_id.get(ch, N_VOCAB)) < N_VOCAB]
     return sequence, clean_text
+
+
+def sequence_to_text(sequence) -> str:
+    """Symbol ids → the string of their symbols."""
+    return "".join(symbols[int(i)] for i in sequence)

@@ -14,8 +14,13 @@ records where in the (seed, epoch)-deterministic shuffle the run was, so
 ``--resume`` continues on unseen batches, and every random draw is seeded
 from (seed, step), so a resumed run repeats an unbroken one exactly.
 
+``--from_torch_ckpt`` fine-tunes from a reference-format ``.ckpt`` (a
+released voice, or what ``io/export_torch.py`` wrote): the model takes the
+checkpoint's own architecture, and a checkpoint that does not fit the
+preset's data (mel width, speaker count) is refused by name.
+
 Flags keep the JAX trainer's names.  Not ported yet: ``--precision
-bf16-mixed``, ``--from_torch_ckpt``, ``--tp``, ``--num_devices``, ``--dcn_*``,
+bf16-mixed``, ``--tp``, ``--num_devices``, ``--dcn_*``,
 ``--render_val_samples`` and the tensorboard/csv/wandb loggers.
 """
 
@@ -54,6 +59,7 @@ def build_parser():
     p.add_argument("--scheduler_gamma", type=float, default=0.1)
     p.add_argument("--lr_end", type=float, default=0.0)
     p.add_argument("--out_size", type=int, default=None, help="Grad-TTS segment crop (multiple of 4)")
+    p.add_argument("--from_torch_ckpt", default=None, help="fine-tune from a reference-format .ckpt")
     p.add_argument("--resume", action="store_true", help="resume from the latest checkpoint in out_dir")
     p.add_argument("--ckpt_every_steps", type=int, default=1000)
     p.add_argument("--val_every_steps", type=int, default=500)
@@ -126,8 +132,23 @@ def _run(args) -> int:
         seed=args.seed,
     )
 
+    loaded_sd = None
+    if args.from_torch_ckpt:
+        from emojivoice_tpu_torch.io.torch_ckpt import load_matcha
+
+        loaded_sd, loaded_cfg = load_matcha(args.from_torch_ckpt)
+        for field, have, want in (("n_feats", loaded_cfg.n_feats, root.data.audio.n_mels),
+                                  ("n_spks", loaded_cfg.n_spks, root.data.n_spks)):
+            if have != want:
+                raise ValueError(f"--from_torch_ckpt {args.from_torch_ckpt}: the checkpoint's {field}={have} does "
+                                 f"not fit preset {args.preset!r}, whose data gives {want}")
+        model_cfg = dataclasses.replace(loaded_cfg, out_size=args.out_size)
+        print(f"[train] fine-tuning from {args.from_torch_ckpt} (n_spks={model_cfg.n_spks})", flush=True)
+
     state = create_train_state(model_cfg, opt_cfg, seed=args.seed, device=device)
     model = state.model
+    if loaded_sd is not None:
+        model.load_state_dict(loaded_sd, strict=True)
 
     def count(module):
         return sum(p.numel() for p in module.parameters())

@@ -261,3 +261,88 @@ def test_resolve_model_through_the_cache_directory(tmp_path, monkeypatch):
         with pytest.raises(exc) as theirs:
             jax_assets.resolve_model(name, kind, allow_fetch=False)
         assert str(ours.value) == str(theirs.value) and str(cache) in str(ours.value)
+
+
+# ---------------------------------------------------------------------------
+# the vocoder's training side: generator dumps kept unfolded, do_* discriminator files
+# ---------------------------------------------------------------------------
+
+def test_load_hifigan_unfolded_keeps_or_makes_the_weight_norm_pair(exported, tmp_path):
+    jax_root, _, voc_params, voc_sd, folder = exported
+    from emojivoice_tpu_torch.vocoder.hifigan import HiFiGANGenerator
+
+    cfg = port_root(jax_root).vocoder
+    kept = torch_ckpt.load_hifigan(str(folder / "generator_v1"), fold=False)
+    stored = torch_ckpt.load_torch_state_dict(str(folder / "generator_v1"))
+    assert sorted(kept) == sorted(stored) and all(torch.equal(kept[k], stored[k]) for k in stored)
+    gen = HiFiGANGenerator(cfg, weight_norm=True)
+    gen.load_state_dict(kept, strict=True)
+    # the weight it computes is the folded one, which is the bridged flax kernel
+    np.testing.assert_allclose(gen.conv_pre.weight.detach().numpy(), voc_sd["conv_pre.weight"], atol=1e-6)
+    np.testing.assert_allclose(gen.ups[0].weight.detach().numpy(), voc_sd["ups.0.weight"], atol=1e-6)
+    # a dump that was folded already: v = w, g = ‖w‖ over all but the first axis, as the JAX loader makes them
+    torch.save({"generator": as_tensors(voc_sd)}, tmp_path / "folded")
+    made = torch_ckpt.load_hifigan(str(tmp_path / "folded"), fold=False)
+    assert sorted(made) == sorted(kept)
+    for name in ("conv_post", "ups.1", "resblocks.2.convs1.0"):
+        v, g = jax_ckpt._vg(voc_sd, name)
+        np.testing.assert_array_equal(made[f"{name}.weight_v"].numpy(), v)
+        np.testing.assert_allclose(made[f"{name}.weight_g"].numpy(), g, atol=1e-7)
+    gen.load_state_dict(made, strict=True)
+    np.testing.assert_allclose(gen.fold_weight_norm().state_dict()["ups.1.weight"].numpy(), voc_sd["ups.1.weight"],
+                               atol=1e-6)
+
+
+@pytest.mark.filterwarnings("ignore:.*weight_norm.*:FutureWarning")
+def test_load_hifigan_discriminators_makes_every_weight_plain(tmp_path):
+    """A ``do_*`` file in the upstream naming, written here: weight norm on
+    the period discriminators and on scales 1-2, spectral norm on scale 0
+    (settled by power iteration).  Every loaded weight must be the one the
+    upstream module computes in eval mode (atol 1e-6), and equal what the JAX
+    package's loader makes of the same entries."""
+    from emojivoice_tpu_torch.training.vocoder_train import create_vocoder_state
+    from emojivoice_tpu_torch.vocoder.discriminators import MultiPeriodDiscriminator, MultiScaleDiscriminator
+
+    torch.manual_seed(0)
+    mpd, msd = MultiPeriodDiscriminator(), MultiScaleDiscriminator()
+    for d in mpd.discriminators:
+        for conv in list(d.convs) + [d.conv_post]:
+            torch.nn.utils.weight_norm(conv)
+    for i, d in enumerate(msd.discriminators):
+        for conv in list(d.convs) + [d.conv_post]:
+            (torch.nn.utils.spectral_norm if i == 0 else torch.nn.utils.weight_norm)(conv)
+    wav = torch.randn(1, 2048)
+    with torch.no_grad():
+        for _ in range(30):  # power iterations of the spectral-norm vectors, in train mode
+            msd.discriminators[0](wav)
+        mpd.eval(), msd.eval()
+        mpd(wav, wav), msd(wav, wav)  # eval mode computes each effective weight from what is stored
+    path = tmp_path / "do_00000001"
+    torch.save({"mpd": mpd.state_dict(), "msd": msd.state_dict(), "steps": 1, "epoch": 0}, path)
+    names = list(msd.state_dict())
+    assert "discriminators.0.convs.0.weight_orig" in names and "discriminators.1.convs.0.weight_g" in names
+
+    loaded = torch_ckpt.load_hifigan_discriminators(str(path))
+    plain = {"mpd": MultiPeriodDiscriminator(), "msd": MultiScaleDiscriminator()}
+    for key, module in (("mpd", mpd), ("msd", msd)):
+        assert sorted(loaded[key]) == sorted(plain[key].state_dict())
+        raw = {k: v.numpy() for k, v in module.state_dict().items()}
+        for name, sub in module.named_modules():
+            if isinstance(sub, (torch.nn.Conv1d, torch.nn.Conv2d)):
+                got = loaded[key][f"{name}.weight"].numpy()
+                np.testing.assert_allclose(got, sub.weight.detach().numpy(), atol=1e-6, err_msg=f"{key}.{name}")
+                np.testing.assert_allclose(got, jax_ckpt._effective_weight(raw, name), atol=1e-6)
+                assert torch.equal(loaded[key][f"{name}.bias"], sub.bias)
+    # some torch versions store no weight_v for spectral norm: it is recomputed from u (equal once settled)
+    sd = {k: v for k, v in msd.state_dict().items() if not (k.startswith("discriminators.0.") and k.endswith("_v"))}
+    torch.save({"mpd": mpd.state_dict(), "msd": sd}, tmp_path / "do_no_v")
+    again = torch_ckpt.load_hifigan_discriminators(str(tmp_path / "do_no_v"))
+    np.testing.assert_allclose(again["msd"]["discriminators.0.convs.3.weight"].numpy(),
+                               loaded["msd"]["discriminators.0.convs.3.weight"].numpy(), atol=1e-4)
+    # it warm-starts the training state, strictly
+    cfg = cfglib.HiFiGANConfig(upsample_rates=(4, 4), upsample_kernel_sizes=(8, 8), upsample_initial_channel=16)
+    state = create_vocoder_state(cfg, device="cpu", disc_state=loaded)
+    assert torch.equal(state.msd.discriminators[0].convs[0].weight, loaded["msd"]["discriminators.0.convs.0.weight"])
+    torch.save({"generator": {"conv_pre.bias": torch.zeros(2)}}, tmp_path / "g_only")
+    with pytest.raises(ValueError, match="not a HiFi-GAN do_"):
+        torch_ckpt.load_hifigan_discriminators(str(path.parent / "g_only"))

@@ -151,3 +151,48 @@ def test_main_runs_on_the_cpu_when_asked(name, tmp_path, monkeypatch, tiny_prese
     assert [p.device.type for p in made] == ["cpu"]
     if name == "cli.main":
         assert len(list(tmp_path.glob("utterance_*.wav"))) == 1
+
+
+def _vocoder_state(tmp_path, **kw):
+    from emojivoice_tpu_torch.training.vocoder_train import create_vocoder_state
+
+    return create_vocoder_state(VOC, **kw)
+
+
+def _run_vocoder_proof(tmp_path, **kw):
+    from emojivoice_tpu_torch.training.vocoder_proof import run_vocoder_proof
+
+    return run_vocoder_proof(str(tmp_path / "voc"), steps=1, cfg=VOC, **kw)
+
+
+def _run_proof(tmp_path, **kw):
+    from emojivoice_tpu_torch.training.proof import run_proof
+
+    return run_proof("tiny", str(tmp_path / "proof"), steps=1, **kw)
+
+
+def _get_durations_main(tmp_path, **kw):
+    from emojivoice_tpu_torch.training import get_durations
+
+    return get_durations.main(["--checkpoint_path", str(tmp_path / "none.ckpt"), "--filelist", str(tmp_path / "none.txt"),
+                               "--output_dir", str(tmp_path / "out")] + [f"--{k}={v}" for k, v in kw.items()])
+
+
+def _vocoder_proof_main(tmp_path, **kw):
+    from emojivoice_tpu_torch.training import vocoder_proof
+
+    return vocoder_proof.main(["--out_dir", str(tmp_path / "voc"), "--steps", "1"] + [f"--{k}={v}" for k, v in kw.items()])
+
+
+VOCODER_SIDE = {"create_vocoder_state": _vocoder_state, "run_vocoder_proof": _run_vocoder_proof, "run_proof": _run_proof,
+                "get_durations.main": _get_durations_main, "vocoder_proof.main": _vocoder_proof_main}
+
+
+@pytest.mark.parametrize("name", sorted(VOCODER_SIDE))
+def test_vocoder_side_entry_point_without_a_card_raises_and_names_the_cpu(name, tmp_path, monkeypatch):
+    """The vocoder's training side and its tools: nothing is read or written
+    before the missing card is reported."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device is available .*cpu"):
+        VOCODER_SIDE[name](tmp_path)
+    assert not list(tmp_path.iterdir()) or name == "run_proof"  # run_proof makes its folder first

@@ -4,8 +4,10 @@ package, as on the GPU machine where neither need exist.
 A fresh interpreter imports every module of ``emojivoice_tpu_torch`` and
 everything ``chip_smoke.py`` imports, runs a tiny CPU synthesis, the serving
 front ends on it (batching engine, streaming vocoder, long-form, the CLI, the
-webapp over HTTP, a checkpoint written and served), and a
-``--fast_dev_run`` of the trainer, and then ``sys.modules`` must hold no
+webapp over HTTP, a checkpoint written and served), a ``--fast_dev_run`` of
+the trainer, and the vocoder's training side with its tools (data statistics,
+export, ``--from_torch_ckpt``, durations and teacher-forced mels, two GAN
+steps), and then ``sys.modules`` must hold no
 ``emojivoice_tpu`` (or ``emojivoice_tpu.*``) and none of jax, jaxlib, flax,
 optax, orbax.  A second test holds the port's own copies of the presets and
 the emoji mapping equal to the JAX package's, so they cannot drift unnoticed.
@@ -37,7 +39,8 @@ names = [m.name for m in pkgutil.walk_packages(emojivoice_tpu_torch.__path__, "e
 for want in ("ops.mas", "ops.mel", "data.dataset", "data.audio_np", "training.train", "training.state",
              "training.synthetic", "io.checkpoint", "io.from_jax", "kernels.build", "config", "apps.emoji",
              "inference.serving", "inference.streaming", "inference.longform", "inference.cli", "apps.webapp",
-             "io.torch_ckpt", "utils.assets"):
+             "io.torch_ckpt", "utils.assets", "vocoder.discriminators", "training.vocoder_train",
+             "training.vocoder_proof", "training.proof", "training.get_durations", "data.stats", "io.export_torch"):
     assert "emojivoice_tpu_torch." + want in names, want
 for name in names:
     importlib.import_module(name)
@@ -103,12 +106,48 @@ with tempfile.TemporaryDirectory() as tmp:
     assert main(["--preset", "tiny", "--device", "cpu", "--train_filelist", str(train), "--valid_filelist", str(val),
                  "--out_dir", tmp + "/run", "--batch_size", "2", "--fast_dev_run"]) == 0
 
+# the vocoder's training side and the tools around it: every console script's main, once, at a tiny size
+import tomllib
+scripts = tomllib.load(open("pyproject.toml", "rb"))["project"]["scripts"]
+ported = {k: v for k, v in scripts.items() if v.startswith("emojivoice_tpu_torch.")}
+for want in ("emojivoice-get-durations-torch", "emojivoice-data-stats-torch", "emojivoice-export-torch-torch",
+             "emojivoice-train-proof-torch", "emojivoice-vocoder-proof-torch"):
+    assert want in ported, (want, sorted(ported))
+for target in ported.values():
+    mod, fn = target.split(":")
+    assert callable(getattr(importlib.import_module(mod), fn)), target
+from emojivoice_tpu_torch.data import stats
+from emojivoice_tpu_torch.io import export_torch
+from emojivoice_tpu_torch.training import get_durations, proof, vocoder_proof
+narrow = cfglib.HiFiGANConfig(upsample_rates=(8, 8, 4), upsample_kernel_sizes=(16, 16, 8), upsample_initial_channel=16,
+                              resblock_kernel_sizes=(3,), resblock_dilation_sizes=((1, 3),))
+with tempfile.TemporaryDirectory() as tmp:
+    train, val = proof.make_dataset(Path(tmp) / "data", (0, 1), n_utts=3, seconds=1.0, seed=0)
+    assert stats.main(["--filelist", str(train), "--preset", "tiny"]) == 0
+    assert main(["--preset", "tiny", "--device", "cpu", "--train_filelist", str(train), "--valid_filelist", str(val),
+                 "--out_dir", tmp + "/run", "--batch_size", "2", "--max_steps", "1", "--val_every_steps", "0"]) == 0
+    assert export_torch.main(["--ckpt_dir", tmp + "/run/ckpts", "--output", tmp + "/voice.ckpt"]) == 0
+    assert main(["--preset", "tiny", "--device", "cpu", "--train_filelist", str(train), "--valid_filelist", str(val),
+                 "--out_dir", tmp + "/ft", "--batch_size", "2", "--fast_dev_run", "--from_torch_ckpt",
+                 tmp + "/voice.ckpt"]) == 0
+    assert get_durations.main(["--checkpoint_path", tmp + "/voice.ckpt", "--filelist", str(train), "--preset", "tiny",
+                               "--output_dir", tmp + "/durs", "--device", "cpu", "--gen_mels", "--n_timesteps", "1"]) == 0
+    # two steps: the harness's own mel-L1 assert may or may not hold at this size, its path is what runs here
+    try:
+        vocoder_proof.run_vocoder_proof(tmp + "/voc", steps=2, batch_size=1, segment_frames=8, cfg=narrow,
+                                        filelist=str(train), gen_mels_dir=tmp + "/durs/gen_mels", device="cpu")
+    except AssertionError as e:
+        assert "mel L1 did not decrease" in str(e), e
+    assert (Path(tmp) / "voc" / "after.wav").exists() and (Path(tmp) / "voc" / "g_00000002").exists()
+assert not foreign(), foreign()
+
 import chip_smoke
 tree = ast.parse(open("chip_smoke.py").read())
 mods = {n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)}
 mods |= {a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names}
 for want in ("emojivoice_tpu_torch.kernels.build", "emojivoice_tpu_torch.apps.emoji", "emojivoice_tpu_torch.ops",
              "emojivoice_tpu_torch.training", "emojivoice_tpu_torch.inference.serving",
+             "emojivoice_tpu_torch.training.vocoder_proof", "emojivoice_tpu_torch.training.vocoder_train",
              "emojivoice_tpu_torch.inference.streaming", "emojivoice_tpu_torch.inference", "emojivoice_tpu_torch.apps"):
     assert want in mods, (want, mods)
 for m in sorted(mods):

@@ -19,6 +19,7 @@ from emojivoice_tpu.ops.pallas_mrf import mrf_stage_pallas, mrf_stage_unfused, s
 from emojivoice_tpu.vocoder import HiFiGANGenerator as FlaxHiFiGAN
 from emojivoice_tpu_torch.io.from_jax import hifigan_state_dict_from_flax
 from emojivoice_tpu_torch.ops import mrf
+from emojivoice_tpu_torch.vocoder import hifigan
 from emojivoice_tpu_torch.vocoder.hifigan import HiFiGANGenerator
 
 torch.set_num_threads(2)
@@ -118,3 +119,29 @@ def test_hifigan_bridge_round_trip(narrow):
         np.testing.assert_array_equal(np.asarray(flat_b[path]), np.asarray(leaf))
     missing, unexpected = HiFiGANGenerator(cfg).load_state_dict(_tensors(sd), strict=False)
     assert missing == [] and unexpected == []
+
+
+def test_resblock2_generator_serves_on_plain_convs(rng, monkeypatch):
+    """HiFi-GAN v2/v3's ResBlock2 has no fused stage in the JAX package
+    (``stack_resblock_weights`` reads ResBlock1's convs only), so the port's
+    serving forward runs it on plain convs: no ``mrf_stage`` call, and the
+    flax module's waveform within atol 1e-5."""
+    cfg = HiFiGANConfig(resblock="2", upsample_rates=(4, 2), upsample_kernel_sizes=(8, 4), upsample_initial_channel=32,
+                        resblock_kernel_sizes=(3, 5), resblock_dilation_sizes=((1, 3), (1, 3)), num_mels=12)
+    params = _init_flax(cfg, seed=5)
+    mel = (rng.normal(size=(2, 25, 12)) * 2 - 6).astype(np.float32)
+    ref = np.asarray(FlaxHiFiGAN(cfg=cfg).apply(params, jnp.asarray(mel)))
+    gen = HiFiGANGenerator(cfg)
+    sd = hifigan_state_dict_from_flax(params, cfg)
+    assert "resblocks.3.convs.1.weight" in sd and not any(".convs1." in k for k in sd)
+    gen.load_state_dict(_tensors(sd), strict=True)
+    calls = []
+    monkeypatch.setattr(hifigan, "mrf_stage", lambda *a, **kw: calls.append(a) or mrf.mrf_stage(*a, **kw))
+    got = gen(torch.from_numpy(mel))
+    assert not calls and not got.requires_grad and got.shape == (2, 25 * 8)
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-5)
+    with pytest.raises(RuntimeError, match="ResBlock1"):
+        gen.stage_weights(0)
+    # the same spy does see a ResBlock1 generator's stages
+    HiFiGANGenerator(_narrow_cfg())(torch.from_numpy(mel))
+    assert len(calls) == 2

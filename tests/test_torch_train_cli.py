@@ -138,3 +138,31 @@ def test_dropout_acts_under_train_and_not_under_eval():
     assert float(train_step(state, batch, seed=5)["loss"]) == float(m0["loss"])
     model.load_state_dict(saved)
     assert float(train_step(state, batch, seed=5)["loss"]) != float(m0["loss"])  # step 1 now
+
+
+def test_from_torch_ckpt_then_resume_repeats_an_unbroken_fine_tune(corpus, tmp_path):
+    """A fine-tune started from a reference-format file and resumed midway
+    (the flag still on the command line) continues from its own checkpoint,
+    not from the file again, and ends where an unbroken one ends."""
+    from emojivoice_tpu_torch.io.export_torch import export
+
+    root = cfglib.tiny()
+    start = create_train_state(root.model, root.optimizer, seed=9, device="cpu")
+    CheckpointManager(str(tmp_path / "released")).save(0, start.state_dict(), cfg=root)
+    ckpt = str(export(str(tmp_path / "released"), str(tmp_path / "released.ckpt")))
+    common = ("--from_torch_ckpt", ckpt, "--val_every_steps", "0")
+    whole, broken = tmp_path / "whole", tmp_path / "broken"
+    assert main(_args(corpus, whole, "--max_steps", "4", "--ckpt_every_steps", "0", *common)) == 0
+    assert main(_args(corpus, broken, "--max_steps", "2", "--ckpt_every_steps", "2", *common)) == 0
+    assert main(_args(corpus, broken, "--max_steps", "4", "--ckpt_every_steps", "2", "--resume", *common)) == 0
+    a = CheckpointManager(str(whole / "ckpts")).restore(4)
+    b = CheckpointManager(str(broken / "ckpts")).restore(4)
+    moved = 0.0
+    for name, value in a["model"].items():
+        assert torch.equal(value, b["model"][name]), name
+        moved = max(moved, float((value - start.model.state_dict()[name]).abs().max()))
+    assert moved > 1e-5  # the fine-tune left the file's weights
+    assert [r["loss"] for r in _records(broken, "train")] == [r["loss"] for r in _records(whole, "train")]
+    # a run without the flag starts elsewhere: the file's weights did arrive
+    assert main(_args(corpus, tmp_path / "scratch", "--max_steps", "1", "--val_every_steps", "0", "--seed", "1234")) == 0
+    assert _records(tmp_path / "scratch", "train")[0]["loss"] != _records(whole, "train")[0]["loss"]
