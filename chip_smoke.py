@@ -84,7 +84,24 @@ Phases (each one failing fails the run, exit code ≠ 0):
      ``cli.main`` writes a readable wav and npy, and ``webapp.serve`` with
      batching answers 8 concurrent ``POST /api/synthesise``, a ``POST
      /api/stream`` whose body is a WAV of the expected length, 400 for bad
-     JSON and an unknown language, and ``/health`` with the engine's stats.
+     JSON and an unknown language, and ``/health`` with the engine's stats;
+  8. export — on the same pipeline's weights: (a) ``export_bundle`` on the
+     card over batches (1, 8) x text bucket 256 x mel buckets (512, 1024),
+     f32 wav (export wall and each program's .pt2 bytes printed), loaded with
+     ``LoadedBundle``; the headline at batch 1 (speaker 79, the duration
+     program picks the bucket) and 8 texts at batch 8 with per-row seeds, each
+     held against the live fused call with the same seeds at the same mel
+     bucket within 1e-5, and each program run must launch K1 on all four
+     stages (``mrf_stage`` is a registered op inside the program); (b) a
+     pinned mel bucket of 512 at a speaking rate that overflows it escalates
+     through the duration program to 1024; (c) ``BatchingEngine`` over
+     ``BundleSynthesisPipeline``, 16 requests from 8 threads, a merged seeded
+     row against its direct bundle call; (d) ``webapp.serve`` on the bundle:
+     8 concurrent ``POST /api/synthesise`` answer 200, a wrong step count
+     400, ``/api/stream`` 200 for ``auto`` and 400 for a forced ``stream``;
+     (e) bundle against live at batch 1 and 8, alternated, host wall and
+     device span; (f) one denoised fused dispatch of the live pipeline and
+     one of the bundle under ``torch.cuda.set_sync_debug_mode("error")``.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 ``nvidia-smi``'s card name and power limit, and the one before that the
@@ -147,6 +164,10 @@ WAIT_S = 120  # no wait of the serving phase is longer: a hung worker fails the 
 # direct batch-1 call (4.5e-08 measured on an H100), and streamed against monolithic audio at an overlap that
 # covers the receptive field (0 to 3.2e-08 measured; PERF.md)
 MERGED_TOL, STREAM_TOL = 1e-5, 1e-6
+# the export phase: a bundle over batches x one text bucket x mel buckets, held against the live fused call
+EXPORT_BATCHES, EXPORT_TEXT_BUCKET, EXPORT_MEL_BUCKETS = (1, 8), 256, (512, 1024)
+EXPORT_TOL = 1e-5  # bundle row against the live fused row with the same seed at the same mel bucket
+EXPORT_TIMED_RUNS = 5  # pairs of (live, bundle, bundle, live) per batch size
 
 
 def cuda_ms(fn, iters: int = 5, warmup: int = 1) -> list:
@@ -445,10 +466,8 @@ def serving_overlap(pipe) -> dict:
                     n_timesteps=STEPS, denoiser_strength=strength, keep_mel=False, pcm16=True)
 
     out = {}
-    # With the denoiser on, ``torch.istft`` checks its window envelope on the host: a dispatch then returns
-    # only when its batch is all but done, and nothing is left to overlap.  Shown, not required.  With the
-    # denoiser off, batch 32's vocoder (milliseconds to enqueue, ~0.1 s to run) outlasts its dispatch:
-    # finalize(N) must return while it runs.
+    # Batch 32's vocoder and denoiser (milliseconds to enqueue, ~0.1 s to run) outlast its dispatch: finalize(N)
+    # must return while they run, with the denoiser on (its inverse STFT waits for nothing on the host) and off.
     for name, strength in (("denoiser_on", STRENGTH), ("denoiser_off", 0.0)):
         for n in (8, 32):  # warm both shapes
             pipe.synthesise(**batch(n, 0, strength))
@@ -471,8 +490,8 @@ def serving_overlap(pipe) -> dict:
                          n_copies_done_before_n1s_ms=first.done.elapsed_time(second.done),
                          idle_gap_ms=first.done.elapsed_time(second.clock.marks[0][1]))
         print(f"[serve] (b) pipeline, batch 8 then batch 32 back to back, {name} " + json.dumps(out[name]))
-    if not out["denoiser_off"]["n1_running_when_n_returned"]:
-        raise RuntimeError("(b) finalize(N) returned only after batch N+1 had finished")
+    if not all(row["n1_running_when_n_returned"] for row in out.values()):
+        raise RuntimeError(f"(b) finalize(N) returned only after batch N+1 had finished: {out}")
 
     pending, resolved = [], []
     real_async = pipe.synthesise_async
@@ -675,6 +694,259 @@ def phase_serving(pipe, mrf) -> dict:
         raise RuntimeError(f"(d) the webapp's requests made {web_launches} mrf_stage calls")
     return dict(engine=engine, overlap=overlap, streaming=streaming,
                 k1_launches=engine["k1_launches"] + web_launches)
+
+
+def export_timing(pipe, bundle, texts, spks, seeds, m_bucket) -> dict:
+    """Bundle against live wall at one batch: alternated runs (live, bundle,
+    bundle, live), the same fused work at the same mel bucket (no duration
+    program, no mel copy), host wall and device span by CUDA events."""
+    kw = dict(n_timesteps=STEPS, denoiser_strength=STRENGTH, keep_mel=False)
+
+    def run(fn):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        return (time.perf_counter() - t) * 1e3, start.elapsed_time(end)
+
+    def live():
+        pipe.synthesise(texts, spks=spks, seed=list(seeds), fused=True, fused_mel_bucket=m_bucket, **kw)
+
+    def exported():
+        bundle.synthesise(texts, spks=spks, seed=list(seeds), mel_bucket=m_bucket)
+
+    live(), exported()  # warm
+    wall = {"live": [], "bundle": []}
+    device = {"live": [], "bundle": []}
+    for _ in range(EXPORT_TIMED_RUNS):
+        for name, fn in (("live", live), ("bundle", exported), ("bundle", exported), ("live", live)):
+            w, d = run(fn)
+            wall[name].append(w)
+            device[name].append(d)
+    out = {"batch": len(texts), "mel_bucket": m_bucket, "runs_each": 2 * EXPORT_TIMED_RUNS}
+    for name in ("live", "bundle"):
+        out[f"{name}_wall_ms_median"] = statistics.median(wall[name])
+        out[f"{name}_wall_ms_min"] = min(wall[name])
+        out[f"{name}_device_ms_median"] = statistics.median(device[name])
+        out[f"{name}_device_ms_min"] = min(device[name])
+    return out
+
+
+def phase_export(pipe, mrf) -> dict:
+    """Phase 8: the export artifact on the card.  A bundle of the live
+    pipeline's weights (emoji_multi, HiFi-GAN v1, 10 Euler steps, denoiser
+    0.00025, f32 wav) over EXPORT_BATCHES x EXPORT_TEXT_BUCKET x
+    EXPORT_MEL_BUCKETS, loaded with ``LoadedBundle`` and held against the live
+    fused call row by row, K1 counted inside each program run; the duration
+    program and a pinned bucket's escalation; the engine and ``webapp
+    --bundle`` over it; bundle against live wall; and a dispatch of each with
+    no host sync.  Each checked run reads ``mrf.launches`` from 0: ``k1_launches``
+    counts K1 inside the bundle's program runs, ``k1_launches_live`` in the live
+    pipeline's dispatch of (f)."""
+    import numpy as np
+
+    from emojivoice_tpu_torch.apps import webapp
+    from emojivoice_tpu_torch.apps.emoji import EMOJI_MAPPING
+    from emojivoice_tpu_torch.inference.export import BundleSynthesisPipeline, LoadedBundle, export_bundle
+    from emojivoice_tpu_torch.inference.serving import BatchingEngine
+    from emojivoice_tpu_torch.utils.masks import fix_len_compatibility
+
+    n_stages = len(pipe.vocoder_cfg.upsample_rates)
+    emoji_spks = list(EMOJI_MAPPING.values())
+    launches = 0
+
+    def counted(what, n_programs, fn):
+        """fn()'s result; it must launch K1 on every stage of each synthesis program it runs, and no more."""
+        nonlocal launches
+        mrf.launches.clear()
+        out = fn()
+        grew = sum(mrf.launches.values())
+        if grew != n_stages * n_programs:
+            raise RuntimeError(f"[export] {what}: {grew} mrf_stage calls, expected {n_stages} x {n_programs}")
+        launches += grew
+        return out
+
+    def hold(what, got, want) -> dict:
+        """Bundle results against live results, row by row."""
+        rows = []
+        for r, w in zip(got, want):
+            if r["mel_length"] != w.mel_length or r["wav"].shape != w.wav.shape:
+                raise RuntimeError(f"[export] {what}: mel_length {r['mel_length']} / {r['wav'].shape} against the "
+                                   f"live {w.mel_length} / {w.wav.shape}")
+            rows.append(float(np.abs(r["wav"].astype(np.float32) - w.wav).max()))
+            check_wavs([w], what)
+        out = dict(max_abs=max(rows), bit_equal=all(x == 0.0 for x in rows), rows=len(rows))
+        if not out["max_abs"] <= EXPORT_TOL:
+            raise RuntimeError(f"[export] {what}: bundle against live max-abs {out['max_abs']:.3e} > {EXPORT_TOL}")
+        return out
+
+    def live(texts, spks, seeds, m_bucket, **extra):
+        return pipe.synthesise(texts, spks=spks, seed=list(seeds), n_timesteps=STEPS, denoiser_strength=STRENGTH,
+                               fused=True, fused_mel_bucket=m_bucket, keep_mel=False, **extra)
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="emojivoice_bundle_") as tmp:
+        t = time.perf_counter()
+        export_bundle(pipe, tmp, text_buckets=[EXPORT_TEXT_BUCKET], mel_buckets=list(EXPORT_MEL_BUCKETS),
+                      batches=EXPORT_BATCHES, n_timesteps=STEPS, denoiser_strength=STRENGTH)
+        export_s = time.perf_counter() - t
+        sizes = {f.stem: f.stat().st_size for f in sorted(Path(tmp).glob("*.pt2"))}
+        out.update(export_s=export_s, programs=len(sizes), pt2_bytes=sizes)
+        print(f"[export] export_bundle on the card: {len(sizes)} programs (batches {EXPORT_BATCHES} x text "
+              f"{EXPORT_TEXT_BUCKET} x mel {EXPORT_MEL_BUCKETS}, {STEPS} steps, denoiser {STRENGTH}, f32 wav) in "
+              f"{export_s:.2f} s; .pt2 bytes {json.dumps(sizes)}")
+
+        t = time.perf_counter()
+        bundle = LoadedBundle(tmp, device=DEVICE)
+        if bundle.device.type != DEVICE:
+            raise RuntimeError("[export] LoadedBundle did not run on the card")
+        for name in sizes:
+            bundle._load(name)
+        out["load_s"] = time.perf_counter() - t
+        print(f"[export] LoadedBundle loaded the {len(sizes)} programs in {out['load_s']:.2f} s")
+
+        # (a) the headline at batch 1 (the duration program picks the mel bucket), then 8 texts at batch 8
+        x, xl, _, _ = pipe.encode_texts([HEADLINE])
+        with torch.no_grad():
+            y_len = int(pipe.model.encode_text(torch.from_numpy(x).to(DEVICE), torch.from_numpy(xl).to(DEVICE),
+                                               torch.tensor([79], device=DEVICE))[2].max())
+        res1, t1 = counted("(a) headline, batch 1", 1, lambda: bundle.synthesise([HEADLINE], spks=[79], seed=[0]))
+        if t1["mel_bucket"] != min(b for b in EXPORT_MEL_BUCKETS if b >= fix_len_compatibility(y_len)):
+            raise RuntimeError(f"[export] (a) the duration program picked mel bucket {t1['mel_bucket']} for {y_len} frames")
+        out["batch1"] = dict(hold("(a) headline, batch 1", res1, live([HEADLINE], [79], [0], t1["mel_bucket"])),
+                             mel_bucket=t1["mel_bucket"], mel_length=res1[0]["mel_length"], wall_ms=t1["wall_s"] * 1e3)
+        texts8 = [f"{TEXT11} Request number {i}." for i in range(8)]
+        spks8, seeds8 = emoji_spks[:8], list(range(100, 108))
+        res8, t8 = counted("(a) 8 texts, batch 8", 1, lambda: bundle.synthesise(texts8, spks=spks8, seed=seeds8))
+        out["batch8"] = dict(hold("(a) 8 texts, batch 8", res8, live(texts8, spks8, seeds8, t8["mel_bucket"])),
+                             mel_bucket=t8["mel_bucket"], wall_ms=t8["wall_s"] * 1e3)
+        print(f"[export] (a) bundle against the live fused call, same seeds and mel bucket: batch 1 "
+              f"{json.dumps(out['batch1'])}; batch 8 {json.dumps(out['batch8'])}")
+
+        # (b) the two-program path and a pinned bucket's escalation: a speaking rate that overflows the smallest
+        small, large = min(EXPORT_MEL_BUCKETS), max(EXPORT_MEL_BUCKETS)
+        rate = (small + large) / 2 / y_len
+        loads = []
+        real_load = bundle._load
+        bundle._load = lambda name: (loads.append(name), real_load(name))[1]
+        try:
+            esc, t_esc = counted("(b) pinned and escalated", 2, lambda: bundle.synthesise(
+                [HEADLINE], spks=[79], seed=[0], length_scale=rate, mel_bucket=small))
+            pick, t_pick = counted("(b) duration program's pick", 1, lambda: bundle.synthesise(
+                [HEADLINE], spks=[79], seed=[0], length_scale=rate))
+        finally:
+            del bundle._load
+        dur, synth = f"dur_b1_t{EXPORT_TEXT_BUCKET}", f"synth_b1_t{EXPORT_TEXT_BUCKET}_m"
+        if not (t_esc["mel_bucket"] == t_pick["mel_bucket"] == large
+                and loads == [f"{synth}{small}", dur, f"{synth}{large}", dur, f"{synth}{large}"]):
+            raise RuntimeError(f"[export] (b) pinned {small} at rate {rate:.3f}: served at {t_esc['mel_bucket']}, "
+                               f"programs {loads}")
+        if not np.array_equal(esc[0]["wav"], pick[0]["wav"]):
+            raise RuntimeError("[export] (b) the escalated call differs from the duration program's pick")
+        out["escalation"] = dict(rate=rate, pinned=small, served=t_esc["mel_bucket"], mel_length=esc[0]["mel_length"],
+                                 programs=loads, wall_ms=t_esc["wall_s"] * 1e3,
+                                 **hold("(b) escalated", esc, live([HEADLINE], [79], [0], large, length_scale=rate)))
+        print(f"[export] (b) pinned mel bucket {small} at speaking rate {rate:.3f} escalated: "
+              f"{json.dumps(out['escalation'])}")
+
+        # (c) the batching engine over the bundle: 16 requests from 8 client threads
+        bp = BundleSynthesisPipeline(bundle)
+        requests = [(f"{TEXT11} Request {i}.", emoji_spks[i % len(emoji_spks)], 200 + i) for i in range(16)]
+        from emojivoice_tpu_torch.inference.profile_engine import burst
+
+        with BatchingEngine(bp, max_batch=max(bp.batch_buckets), max_wait_ms=10, batch_buckets=bp.batch_buckets) as eng:
+            burst(eng, requests)  # warm
+            warm_batches = eng.stats()["batches"]
+            mrf.launches.clear()
+            served = burst(eng, requests)
+            grew = sum(mrf.launches.values())
+            stats = eng.stats()
+        launches += grew
+        batches = stats["batches"] - warm_batches
+        check_wavs(served["results"], "(c) engine over the bundle")
+        if not (stats["errors"] == 0 and stats["batched_rows"] == 32 and grew == n_stages * batches < n_stages * 16):
+            raise RuntimeError(f"[export] (c) engine: stats {stats}, {grew} mrf_stage calls for {batches} batches")
+        text, spk, seed = requests[5]
+        direct = bp.synthesise([text], spks=[spk], seed=[seed])[0]
+        merged_err = float(np.abs(served["results"][5].wav - direct.wav).max())
+        out["engine"] = dict(utt_per_s=served["utt_per_s"], latency_ms_p50=served["latency_ms_p50"],
+                             latency_ms_p95=served["latency_ms_p95"], batch_hist=stats["batch_hist"],
+                             batches=batches, merged_vs_direct_max_abs=merged_err, k1_launches=grew)
+        print(f"[export] (c) BatchingEngine over BundleSynthesisPipeline, 16 requests from 8 threads "
+              f"(after one warm burst): {json.dumps(out['engine'])}")
+        if not merged_err <= EXPORT_TOL:
+            raise RuntimeError(f"[export] (c) a seeded row inside a merged batch is {merged_err:.3e} off its direct call")
+
+        # (d) webapp --bundle: the server main() builds, on a port
+        server = webapp.serve(bp, port=0, batching=True, max_batch=8, max_wait_ms=10)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+
+        def post(path, body):
+            req = urllib.request.Request(url + path, data=json.dumps(body).encode(),
+                                         headers={"Content-Type": "application/json"})
+            try:
+                with urllib.request.urlopen(req, timeout=WAIT_S) as r:
+                    return r.status, r.read()
+            except urllib.error.HTTPError as e:
+                return e.code, e.read()
+
+        try:
+            with ThreadPoolExecutor(8) as pool:
+                answers = list(pool.map(lambda i: post("/api/synthesise", {"text": f"{TEXT11} Web {i}.", "spk": 79,
+                                                                           "seed": i}), range(8), timeout=WAIT_S))
+            stream_auto = post("/api/stream", {"text": TEXT11, "spk": 79, "seed": 5})
+            codes = dict(synthesise=[status for status, _ in answers],
+                         wrong_steps=post("/api/synthesise", {"text": "hi", "steps": 7})[0],
+                         stream_auto=stream_auto[0],
+                         stream_forced=post("/api/stream", {"text": TEXT11, "strategy": "stream"})[0])
+            health = server.engine.stats()
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(WAIT_S)
+            server.engine.close()
+        if codes != dict(synthesise=[200] * 8, wrong_steps=400, stream_auto=200, stream_forced=400) \
+                or stream_auto[1][:4] != b"RIFF" or thread.is_alive():
+            raise RuntimeError(f"[export] (d) webapp --bundle: statuses {codes}")
+        print(f"[export] (d) webapp --bundle: statuses {json.dumps(codes)}; engine batches {health['batch_hist']}")
+
+        # (e) bundle against live, batch 1 and batch 8, at the mel bucket of (a)
+        out["timing"] = [export_timing(pipe, bundle, [HEADLINE], [79], [0], t1["mel_bucket"]),
+                         export_timing(pipe, bundle, texts8, spks8, seeds8, t8["mel_bucket"])]
+        for row in out["timing"]:
+            print("[export] (e) bundle against live " + json.dumps(row))
+
+        # (f) a denoised dispatch of each with no host sync: fused live, and the bundle at a pinned bucket
+        def unsynced(dispatch):
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return dispatch()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+
+        mrf.launches.clear()
+        check_wavs(pipe.finalize(unsynced(lambda: pipe.synthesise_async(
+            [HEADLINE], spks=[79], seed=[0], n_timesteps=STEPS, denoiser_strength=STRENGTH, fused=True,
+            fused_mel_bucket=t1["mel_bucket"], keep_mel=False))), "(f) live under sync debug")
+        out["k1_launches_live"] = sum(mrf.launches.values())
+        if out["k1_launches_live"] != n_stages:
+            raise RuntimeError(f"[export] (f) live dispatch: {out['k1_launches_live']} mrf_stage calls")
+        got, _ = counted("(f) bundle under sync debug", 1, lambda: bundle.fetch(unsynced(
+            lambda: bundle.dispatch([HEADLINE], spks=[79], seed=[0], mel_bucket=t1["mel_bucket"]))))
+        if not np.array_equal(got[0]["wav"], res1[0]["wav"]):
+            raise RuntimeError("[export] (f) the bundle's dispatch under sync debug differs from (a)")
+        print('[export] (f) one denoised fused dispatch of the live pipeline and one of the bundle under '
+              'torch.cuda.set_sync_debug_mode("error"): no host sync')
+    out["k1_launches"] = launches
+    print(f"[export] K1 launches counted inside the bundle's program runs: {launches}; in the live dispatch of (f): "
+          f"{out['k1_launches_live']}")
+    return out
 
 
 def ragged_mas_problem(b: int, t_x: int, t_y: int, seed: int):
@@ -1154,9 +1426,12 @@ def main() -> int:
     mas_rows = phase_kernel_mas(mas)
     training = phase_training(mas, mrf)
     serving = phase_serving(pipe, mrf)
+    exported = phase_export(pipe, mrf)
     # K1 on the main paths: the synthesis requests, the engine's and the webapp's batches, the trained checkpoint,
-    # the vocoder proof's two renders and the fine-tuned generator served; K2: the trainer's steps and get_durations
-    launches += serving["k1_launches"] + training["k1_launches"]
+    # the vocoder proof's two renders, the fine-tuned generator served, the exported bundle's program runs and the
+    # live dispatch under sync debug; K2: the trainer's steps and get_durations
+    launches += serving["k1_launches"] + training["k1_launches"] + exported["k1_launches"] \
+        + exported["k1_launches_live"]
 
     stage_rows = rows[:len(STAGE_SHAPES)]
     window_rows = rows[-len(WINDOW_SHAPES):]
@@ -1181,6 +1456,7 @@ def main() -> int:
         "ms_stream_window": sum(r["ms"] for r in window_rows),  # the four stages of one 80-frame streaming window
         "plain_ms_stream_window": sum(r["plain_ms"] for r in window_rows),
         "bound_ms_stream_window": sum(r["bound_ms"] for r in window_rows),
+        "launches_in_exported_programs": exported["k1_launches"],
     }, {
         "name": "K2 mas_path_f32 (monotonic alignment search)",
         "route": "cuda",

@@ -1,11 +1,15 @@
 """`emojivoice-tts-app-torch`: browser demo and HTTP API on the PyTorch port
-(port of ``emojivoice_tpu.apps.webapp``, minus exported bundles).
+(port of ``emojivoice_tpu.apps.webapp``).
 
 Controls: text, ODE steps, temperature, length scale, speaker id; the
 response shows the phonetized text, the mel image (where matplotlib is
 installed), and playable audio.  ``POST /api/synthesise`` answers JSON,
 ``POST /api/stream`` a progressive WAV.  Implemented on the stdlib
-http.server.  Runs on the card unless ``--cpu`` is given.
+http.server.  Runs on the card unless ``--cpu`` is given.  ``--bundle``
+serves an exported bundle (``inference/export.py``) in place of live model
+code, at the bundle's operating point: a request for another step count or
+denoiser strength answers 400, and ``/api/stream`` gives the full utterance
+for ``auto`` and 400 for a forced ``stream``.
 
 Handler threads and the batching engine's worker issue work onto one CUDA
 stream; kernels of two requests may interleave there, and nothing they share
@@ -376,13 +380,18 @@ def serve(pipeline, host: str = "127.0.0.1", port: int = 7860, defaults=None,
           batching: bool = False, max_batch: int = 8, max_wait_ms: float = 10.0,
           extra_models=None, cache_example_texts=None):
     defaults = defaults or {"text": "Hey there! I am an emoji voice. 😎",
+                            # a bundle fixes the step count at export: the form posts its operating point
                             "steps": getattr(pipeline, "n_timesteps", 10),
                             "temperature": 0.667, "length_scale": 1.0, "spk": 79}
     engine = None
     if batching:
         from emojivoice_tpu_torch.inference.serving import BatchingEngine
 
-        engine = BatchingEngine(pipeline, max_batch=max_batch, max_wait_ms=max_wait_ms)
+        kw = {}
+        if hasattr(pipeline, "batch_buckets"):  # a bundle: its exported batch grid only
+            kw["batch_buckets"] = pipeline.batch_buckets
+            max_batch = min(max_batch, max(pipeline.batch_buckets))
+        engine = BatchingEngine(pipeline, max_batch=max_batch, max_wait_ms=max_wait_ms, **kw)
     models = {"default": pipeline, **(extra_models or {})}
     examples_html = ""
     if cache_example_texts:
@@ -405,9 +414,13 @@ def main(argv=None) -> int:
     p.add_argument("--checkpoint_path", default=None)
     p.add_argument("--vocoder", default=None)
     p.add_argument("--random_init", action="store_true")
+    p.add_argument("--bundle", default=None,
+                   help="serve an exported bundle (emojivoice-export-bundle-torch) instead of live model code; "
+                        "the steps and denoiser strength are the bundle's own")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=7860)
-    p.add_argument("--language", default=None, help="cleaning language (default: en)")
+    p.add_argument("--language", default=None,
+                   help="cleaning language (default: en for a live pipeline, the exported cleaners for --bundle)")
     p.add_argument("--model", action="append", default=None, metavar="NAME=CKPT[,VOCODER]",
                    help="load an ADDITIONAL named checkpoint for side-by-side "
                         "compare (repeatable); the reference demo serves two "
@@ -429,7 +442,15 @@ def main(argv=None) -> int:
 
     device = "cpu" if args.cpu else "cuda"
     cleaners = (LANGUAGE_CLEANERS[args.language or "en"].__name__,)
-    if args.random_init or not args.checkpoint_path:
+    if args.bundle:
+        if args.checkpoint_path or args.vocoder or args.random_init or args.model:
+            p.error("--bundle serves the exported artifact; it cannot be combined with "
+                    "--checkpoint_path/--vocoder/--random_init/--model")
+        from emojivoice_tpu_torch.inference.export import BundleSynthesisPipeline
+
+        # --language overrides the bundle's exported cleaners per request
+        pipe = BundleSynthesisPipeline(args.bundle, language=args.language, device=device)
+    elif args.random_init or not args.checkpoint_path:
         pipe = SynthesisPipeline.from_random(cleaners=cleaners, device=device)
     else:
         pipe = SynthesisPipeline.from_torch_checkpoints(

@@ -12,9 +12,14 @@ denoiser → optional on-device pcm16.
 * **Fused** (``fused=True``): one pass at a fixed mel capacity with no host
   read in between.
 
+A pipeline may hold no vocoder (``vocoder_cfg=None``, ``vocoder=None``,
+``from_random(with_vocoder=False)``): it then has no denoiser either, serves
+mels only, and ``vocode=True`` raises.
+
 PyTorch runs eagerly, so ``synthesise_async`` returns once the work is
-enqueued on the device stream (the two-stage host read aside), the copies
-of its outputs into pinned host memory included, and ``finalize`` waits for
+enqueued on the device stream (the two-stage host read aside): the inputs go
+up from pinned host memory without a wait, and the copies of its outputs
+into pinned host memory are enqueued too, and ``finalize`` waits for
 this batch's copies only: work enqueued later, by this thread or another,
 does not delay it.  Each call records when every stage ended (CUDA events
 on the card, the host clock on the CPU) and reports per-stage milliseconds
@@ -57,6 +62,29 @@ class SynthesisResult:
     stage_ms: dict = dataclasses.field(default_factory=dict)  # the whole batch's, per stage
 
 
+def upload(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A host tensor onto `device`.  To the card from pinned memory without
+    waiting: a copy from pageable memory waits for the stream."""
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def to_host_async(out: dict) -> tuple:
+    """Enqueue the device→host copies of `out`'s tensors into pinned memory,
+    behind the work that made them and ahead of whatever is enqueued next (a
+    ``.cpu()`` later would queue behind all later work on the stream) →
+    (host tensors, the CUDA event recorded after the copies).  On the CPU:
+    (out, None)."""
+    if not any(v.is_cuda for v in out.values()):
+        return out, None
+    out = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True).copy_(v, non_blocking=True)
+           for k, v in out.items()}
+    done = torch.cuda.Event(enable_timing=True)  # timed: the gap to the next batch's start can be read
+    done.record()
+    return out, done
+
+
 @dataclasses.dataclass
 class PendingSynthesis:
     """Synthesis enqueued on the device; ``SynthesisPipeline.finalize``
@@ -72,38 +100,43 @@ class PendingSynthesis:
 
 class SynthesisPipeline:
     def __init__(self, model_cfg: cfglib.ModelConfig, model: MatchaTTS,
-                 vocoder_cfg: cfglib.HiFiGANConfig, vocoder: HiFiGANGenerator,
+                 vocoder_cfg: Optional[cfglib.HiFiGANConfig] = None, vocoder: Optional[HiFiGANGenerator] = None,
                  text_buckets: Sequence[int] = None, mel_buckets: Sequence[int] = None,
                  cleaners: Sequence[str] = ("english_cleaners2",), device="cuda"):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError('SynthesisPipeline: no CUDA device is available (pass device="cpu" to synthesise '
                                'on the CPU)')
+        if (vocoder_cfg is None) != (vocoder is None):
+            raise ValueError("SynthesisPipeline: give both vocoder_cfg and vocoder, or neither (a mel-only pipeline)")
         self.model_cfg = model_cfg
         self.model = model.to(self.device).eval()
         self.vocoder_cfg = vocoder_cfg
-        self.vocoder = vocoder.to(self.device).eval()
+        self.vocoder = vocoder.to(self.device).eval() if vocoder is not None else None
         self.text_buckets = tuple(text_buckets or default_text_buckets())
         self.mel_buckets = tuple(mel_buckets or default_mel_buckets())
         self.cleaners = tuple(cleaners)
-        self.denoiser = Denoiser(self.vocoder, num_mels=model_cfg.n_feats, device=self.device)
+        self.denoiser = (Denoiser(self.vocoder, num_mels=model_cfg.n_feats, device=self.device)
+                         if self.vocoder is not None else None)
 
     # ------------------------------------------------------------------ #
     # constructors
     # ------------------------------------------------------------------ #
 
     @classmethod
-    def from_random(cls, root_cfg: Optional[cfglib.RootConfig] = None, seed: int = 0, device="cuda", **kw):
+    def from_random(cls, root_cfg: Optional[cfglib.RootConfig] = None, seed: int = 0, device="cuda",
+                    with_vocoder: bool = True, **kw):
         """Random-init pipeline, seeded (tests and the chip smoke run without
         released weights).  Modules are built on the CPU under a forked RNG
         seeded with `seed`, then moved to `device`: the card unless the caller
-        asks for ``device="cpu"``."""
+        asks for ``device="cpu"``.  ``with_vocoder=False`` gives a mel-only
+        pipeline with the same acoustic weights."""
         root_cfg = root_cfg or cfglib.get_preset("emoji_multi")
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
             model = MatchaTTS(root_cfg.model)
-            vocoder = HiFiGANGenerator(root_cfg.vocoder)
-        return cls(root_cfg.model, model, root_cfg.vocoder, vocoder, device=device, **kw)
+            vocoder = HiFiGANGenerator(root_cfg.vocoder) if with_vocoder else None
+        return cls(root_cfg.model, model, root_cfg.vocoder if with_vocoder else None, vocoder, device=device, **kw)
 
     @classmethod
     def from_state_dicts(cls, model_cfg: cfglib.ModelConfig, matcha_sd: dict,
@@ -203,7 +236,7 @@ class SynthesisPipeline:
             return None
         raw = np.asarray(spks if spks is not None else [0] * b, np.int64)
         # out-of-range ids are clamped like the JAX pipeline's robust lookup
-        return torch.from_numpy(np.clip(raw, 0, self.model_cfg.n_spks - 1)).to(self.device)
+        return upload(torch.from_numpy(np.clip(raw, 0, self.model_cfg.n_spks - 1)), self.device)
 
     @torch.no_grad()
     def _vocode(self, mel: torch.Tensor) -> torch.Tensor:
@@ -256,19 +289,18 @@ class SynthesisPipeline:
         batch included.  So a caller that dispatches batch N+1 before it
         finalizes batch N (the serving engine, long-form) overlaps N's copies
         and its own host work with N+1's decode and vocoding, but not N's
-        compute with N+1's: "async" is one encoder deep.  With the denoiser
-        on there is a second wait at the end of the call: ``torch.istft``
-        checks its window envelope on the host, so the call returns when the
-        vocoder has finished and only the last elementwise steps and the
-        copies are still enqueued."""
+        compute with N+1's: "async" is one encoder deep.  A fused call waits
+        nowhere."""
+        if vocode and self.vocoder is None:
+            raise ValueError("this pipeline has no vocoder: it serves mels only (pass vocode=False)")
         t0 = time.perf_counter()
         x_np, xl_np, cleaned, _ = self.encode_texts(texts, language)
         b = x_np.shape[0]
         if seed is None:
             seed = int(np.random.randint(0, 2**31))
         clock = StageClock(self.device)
-        x = torch.from_numpy(x_np).to(self.device)
-        x_lengths = torch.from_numpy(xl_np).to(self.device)
+        x = upload(torch.from_numpy(x_np), self.device)
+        x_lengths = upload(torch.from_numpy(xl_np), self.device)
         spk = self._speakers(spks, b)
 
         enc = self.model.encode_text(x, x_lengths, spk, length_scale)
@@ -289,14 +321,7 @@ class SynthesisPipeline:
         if vocode:
             out["wav"] = self._vocode_denoise_pcm(dec["mel"], denoiser_strength > 0, denoiser_strength, pcm16,
                                                   clock)
-        done = None
-        if self.device.type == "cuda":
-            # device→host copies enqueued now, behind this batch's kernels and ahead of whatever is
-            # enqueued next: a `.cpu()` in finalize would queue behind all later work on the stream
-            out = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True).copy_(v, non_blocking=True)
-                   for k, v in out.items()}
-            done = torch.cuda.Event(enable_timing=True)  # timed: the gap to the next batch's start can be read
-            done.record()
+        out, done = to_host_async(out)
         return PendingSynthesis(out=out, cleaned=cleaned, b=b, t0=t0, clock=clock, done=done)
 
     def finalize(self, p: PendingSynthesis) -> list[SynthesisResult]:
@@ -307,14 +332,13 @@ class SynthesisPipeline:
         out = {k: v.numpy() for k, v in p.out.items()}
         t_total = time.perf_counter() - p.t0
         stage_ms = p.clock.elapsed_ms()
-        ups = self.vocoder_cfg.total_upsample
         results = []
         for i in range(p.b):
             ml = int(out["mel_lengths"][i])
             mel = out["mel"][i][:ml] if "mel" in out else np.zeros((0, 0), np.float32)
             wav = None
             if "wav" in out:
-                raw = out["wav"][i][: ml * ups]
+                raw = out["wav"][i][: ml * self.vocoder_cfg.total_upsample]
                 wav = raw.astype(np.float32) / 32767.0 if raw.dtype == np.int16 else raw.astype(np.float32)
             # reference RTF formulas (matcha_tts.py:142-143, cli.py:301-302)
             rtf = t_total * SAMPLE_RATE / (max(ml, 1) * HOP_LENGTH) / p.b

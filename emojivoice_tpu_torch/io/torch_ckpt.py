@@ -7,19 +7,19 @@ The reference's voices are Lightning checkpoints of MatchaTTS
 modules carry the reference's parameter names and layouts already, so nothing
 is transposed here.  This module:
 
-* reads a file with ``torch.load(..., weights_only=True)`` and unwraps it to a
-  flat ``{name: float32 tensor}``;
+* reads a file with ``torch.load(..., weights_only=True)``, or, where that
+  refuses the file, through the restricted unpickler of ``io/torch_pickle.py``
+  (tensors and plain containers resolved, every other class an inert
+  stand-in), and unwraps it to a flat ``{name: float32 tensor}``;
 * recovers the ``ModelConfig`` from tensor shapes plus the checkpoint's own
-  ``hyper_parameters`` where it carries them as plain dicts, with a
-  cross-check for every dimension both determine;
+  ``hyper_parameters``, plain dicts or pickled omegaconf objects (the
+  reference's released voices), with a cross-check for every dimension both
+  determine;
 * folds HiFi-GAN weight norm (``weight_g``/``weight_v``) into plain weights,
   as the reference's ``remove_weight_norm`` does at load, or keeps it for
   training (``load_hifigan(path, fold=False)``);
 * reads the discriminators of an upstream ``do_*`` training checkpoint
   (weight norm and spectral norm made plain).
-
-A checkpoint whose ``hyper_parameters`` are pickled omegaconf objects is
-refused by ``weights_only=True``; the error names the file and the cure.
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from emojivoice_tpu_torch import config as cfglib
+from emojivoice_tpu_torch.io import torch_pickle
 
 
 def fold_weight_norm_torch(g: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -45,14 +46,15 @@ def fold_weight_norm_torch(g: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def load_torch_file(path: str) -> Any:
-    """The unpickled checkpoint object, tensors on the CPU."""
+    """The unpickled checkpoint object, tensors on the CPU.  A file that
+    ``weights_only=True`` refuses (a Lightning checkpoint's pickled omegaconf
+    ``hyper_parameters``) is read by ``torch_pickle``'s restricted unpickler,
+    which runs none of the file's code: its other objects come back as inert
+    stand-ins."""
     try:
         return torch.load(path, map_location="cpu", weights_only=True)
-    except pickle.UnpicklingError as e:
-        raise RuntimeError(
-            f"{path}: not loadable with weights_only=True ({e}); a checkpoint that pickles objects besides "
-            f"tensors and plain containers must be re-saved as {{'state_dict': ..., 'hyper_parameters': "
-            f"plain dicts}}") from e
+    except pickle.UnpicklingError:
+        return torch.load(path, map_location="cpu", weights_only=False, pickle_module=torch_pickle)
 
 
 def _flatten(obj: Any, prefix: str, out: Dict[str, torch.Tensor]) -> None:
@@ -83,12 +85,16 @@ def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
 
 
 def extract_hyper_parameters(ckpt_obj: Any) -> Optional[dict]:
-    """The checkpoint's embedded hyper-parameters as plain python, or None
-    when it carries none (raw state-dict dumps)."""
+    """The checkpoint's embedded hyper-parameters as plain python (omegaconf
+    and Lightning stand-ins walked by ``torch_pickle.plain_hparams``), or
+    None when it carries none (raw state-dict dumps)."""
     if not isinstance(ckpt_obj, dict):
         return None
     hp = ckpt_obj.get("hyper_parameters", ckpt_obj.get("hparams"))
-    return hp if isinstance(hp, dict) and hp else None
+    if hp is None:
+        return None
+    plain = torch_pickle.plain_hparams(hp)
+    return plain if isinstance(plain, dict) and plain else None
 
 
 # ---------------------------------------------------------------------------

@@ -25,12 +25,14 @@ from emojivoice_tpu_torch.config import DecoderConfig
 from emojivoice_tpu_torch.models.modules import mish, snake_beta
 
 
+# log(10000) as an f32 torch computes it, read once here: ``.item()`` inside the forward stops ``torch.export``
+_LOG_BASE = torch.log(torch.tensor(10000.0, dtype=torch.float32)).item()
+
+
 def sinusoidal_pos_emb(t: torch.Tensor, dim: int, scale: float = 1000.0) -> torch.Tensor:
     """(B,) → (B, dim), in f32."""
     half = dim // 2
-    log_base = torch.log(torch.tensor(10000.0, dtype=torch.float32))
-    freqs = torch.exp(torch.arange(half, dtype=torch.float32, device=t.device)
-                      * (-log_base.item() / (half - 1)))
+    freqs = torch.exp(torch.arange(half, dtype=torch.float32, device=t.device) * (-_LOG_BASE / (half - 1)))
     ang = scale * t.float()[:, None] * freqs[None, :]
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 

@@ -11,6 +11,13 @@ raises if the build or a launch fails; it never falls back.  On a CPU tensor
 it runs ``mrf_stage_reference``, the same function written with
 ``F.conv1d`` from ``mrf_stage_unfused``.
 
+Both go through one registered PyTorch op, ``emojivoice_tpu_torch::mrf_stage``
+(``torch.library.custom_op``; its fake implementation gives ``empty_like(x)``),
+so ``torch.export`` traces a vocoder through K1 as one node and an exported
+program launches K1 on the card as the live vocoder does
+(``inference/export.py``).  K1 has no backward, here as in the JAX package:
+the op registers no autograd formula.
+
 K1 multiplies on the tensor cores in TF32 and keeps f32 accuracy by splitting
 each operand in two TF32 numbers (``split_tf32``) and summing three products.
 Its weight operands are the contract's weights transposed to
@@ -143,15 +150,34 @@ def _raise_on(lib, err: int, what: str) -> None:
         raise RuntimeError(f"K1 {what} launch failed: CUDA error {err} ({lib.mrf_error_string(err).decode()})")
 
 
-def mrf_stage(x: torch.Tensor, weights, kernel_sizes: Tuple[int, ...],
-              dilation_sizes: Tuple[Tuple[int, ...], ...]) -> torch.Tensor:
-    """Fused MRF stage (B, T, C) → (B, T, C); see the module docstring.
-    `weights`: contract tuples, or on a CUDA tensor ``PackedResblock``s."""
+@torch.library.custom_op("emojivoice_tpu_torch::mrf_stage", mutates_args=(),
+                         schema="(Tensor x, Tensor[] operands, int[] kernel_sizes, int[] dilations, "
+                                "int[] n_dilations) -> Tensor")
+def _mrf_stage_op(x, operands, kernel_sizes, dilations, n_dilations):
+    """The registered op behind ``mrf_stage``: `operands` is the res-blocks'
+    (w1, b1, w2, b2) flattened, `dilations` the res-blocks' dilation lists
+    concatenated, `n_dilations` their lengths."""
+    weights = [tuple(operands[4 * r:4 * r + 4]) for r in range(len(kernel_sizes))]
+    ends = [sum(n_dilations[:r + 1]) for r in range(len(n_dilations))]
+    dils = [tuple(dilations[end - n:end]) for end, n in zip(ends, n_dilations)]
     if x.device.type == "cpu":
-        return mrf_stage_reference(x, weights, kernel_sizes, dilation_sizes)
+        # contiguous, as the kernel's output and the fake implementation are
+        return mrf_stage_reference(x, weights, kernel_sizes, dils).contiguous()
     if x.device.type != "cuda":
         raise ValueError(f"mrf_stage: no kernel for device {x.device}")
-    packed = weights if all(isinstance(rb, PackedResblock) for rb in weights) else pack_weights(weights)
+    return _launch_k1(x, weights, kernel_sizes, dils)
+
+
+@_mrf_stage_op.register_fake
+def _mrf_stage_fake(x, operands, kernel_sizes, dilations, n_dilations):
+    return torch.empty_like(x)
+
+
+def _launch_k1(x: torch.Tensor, weights, kernel_sizes, dilation_sizes) -> torch.Tensor:
+    """K1 on a CUDA tensor: one ``mrf_resblock_f32`` launch per res-block
+    (each runs its convs), raising on a failed build or launch."""
+    packed = weights if all(w[0].dim() == 7 for w in weights) else pack_weights(weights)
+    packed = [PackedResblock(*rb) for rb in packed]
     _check(x, packed, kernel_sizes, dilation_sizes)
     from emojivoice_tpu_torch.kernels.build import load_mrf
 
@@ -172,6 +198,17 @@ def mrf_stage(x: torch.Tensor, weights, kernel_sizes: Tuple[int, ...],
             _raise_on(lib, err, f"mrf_resblock_f32 at B={b} T={t} C={c} k={k}")
         launches[c] += 1
     return out
+
+
+def mrf_stage(x: torch.Tensor, weights, kernel_sizes: Tuple[int, ...],
+              dilation_sizes: Tuple[Tuple[int, ...], ...]) -> torch.Tensor:
+    """Fused MRF stage (B, T, C) → (B, T, C); see the module docstring.
+    `weights`: contract tuples, or on a CUDA tensor ``PackedResblock``s."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"mrf_stage: no kernel for device {x.device}")
+    return torch.ops.emojivoice_tpu_torch.mrf_stage(
+        x, [t for rb in weights for t in rb], [int(k) for k in kernel_sizes],
+        [int(d) for dils in dilation_sizes for d in dils], [len(dils) for dils in dilation_sizes])
 
 
 def conv_taps(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, dilation: int = 1) -> torch.Tensor:

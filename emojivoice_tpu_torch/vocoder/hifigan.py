@@ -13,6 +13,8 @@ Two forwards, chosen by the caller:
   kernel on a CUDA tensor, its plain twin on a CPU tensor.  ResBlock2 has no
   fused kernel (nor has it in the JAX package) and runs plain convs.  It
   needs plain weights: on a weight-norm generator it raises.
+  ``for_export()`` gives the same forward as ``torch.export`` traces it
+  (``PackedGenerator``: the stages' operands made beforehand, as buffers).
 * ``forward_train`` is the same function on plain ``F.conv1d`` /
   ``F.conv_transpose1d`` for either parameterization, differentiable; the
   GAN step trains through it.
@@ -181,14 +183,13 @@ class HiFiGANGenerator(nn.Module):
                                "the generator it returns (forward_train runs either parameterization)")
         if cfg.resblock != "1":
             return self.forward_train(mel)
-        dils = tuple(tuple(d) for d in cfg.resblock_dilation_sizes)
-        x = self.conv_pre(mel.transpose(1, 2))
-        for i, up in enumerate(self.ups):
-            x = up(F.leaky_relu(x, LRELU_SLOPE))
-            x = mrf_stage(x.transpose(1, 2).contiguous(), self.stage_weights(i), cfg.resblock_kernel_sizes,
-                          dils).transpose(1, 2)
-        x = self.conv_post(F.leaky_relu(x, 0.01))
-        return torch.tanh(x)[:, 0, :]
+        return _serve(self, mel, [self.stage_weights(i) for i in range(len(self.ups))])
+
+    def for_export(self) -> nn.Module:
+        """The serving forward as ``torch.export`` can trace it: a ResBlock1
+        generator becomes a ``PackedGenerator``; a ResBlock2 one, which runs
+        plain convs, is returned as it is."""
+        return PackedGenerator(self) if self.cfg.resblock == "1" and not self.weight_norm else self
 
     def forward_train(self, mel: torch.Tensor) -> torch.Tensor:
         """The same function on plain PyTorch convs, differentiable, for
@@ -215,3 +216,43 @@ class HiFiGANGenerator(nn.Module):
         plain = HiFiGANGenerator(self.cfg)
         plain.load_state_dict(fold_hifigan_state_dict(self.state_dict()), strict=True)
         return plain.to(self.conv_pre.bias.device).eval()
+
+
+def _serve(gen, mel: torch.Tensor, stages) -> torch.Tensor:
+    """The serving forward of a ResBlock1 generator, every MRF stage through
+    ``mrf_stage`` on `stages` (``stage_weights`` of each stage)."""
+    cfg = gen.cfg
+    dils = tuple(tuple(d) for d in cfg.resblock_dilation_sizes)
+    x = gen.conv_pre(mel.transpose(1, 2))
+    for up, weights in zip(gen.ups, stages):
+        x = up(F.leaky_relu(x, LRELU_SLOPE))
+        x = mrf_stage(x.transpose(1, 2).contiguous(), weights, cfg.resblock_kernel_sizes, dils).transpose(1, 2)
+    x = gen.conv_post(F.leaky_relu(x, 0.01))
+    return torch.tanh(x)[:, 0, :]
+
+
+class PackedGenerator(nn.Module):
+    """A ResBlock1 generator's serving forward with the MRF stages' operands
+    (``stage_weights``: K1's packed operands on the card, the contract's
+    stacked weights on the CPU), made once here, held as buffers in place of
+    the res-block convs: under ``torch.export`` the parameters have no storage
+    to pack from, and an exported program then carries each weight once.
+    Shares the other convs with the generator it was made from."""
+
+    def __init__(self, gen: HiFiGANGenerator):
+        super().__init__()
+        self.cfg = gen.cfg
+        self.conv_pre, self.ups, self.conv_post = gen.conv_pre, gen.ups, gen.conv_post
+        for i in range(len(gen.ups)):
+            for r, rb in enumerate(gen.stage_weights(i)):
+                for j, t in enumerate(rb):
+                    self.register_buffer(f"mrf_{i}_{r}_{j}", t)
+
+    def stages(self) -> list:
+        n_rb = len(self.cfg.resblock_kernel_sizes)
+        return [[tuple(getattr(self, f"mrf_{i}_{r}_{j}") for j in range(4)) for r in range(n_rb)]
+                for i in range(len(self.ups))]
+
+    @torch.no_grad()
+    def forward(self, mel: torch.Tensor) -> torch.Tensor:
+        return _serve(self, mel, self.stages())

@@ -12,6 +12,7 @@ trainer must be servable through ``from_checkpoint``.
 """
 
 import dataclasses
+import pickle
 
 import jax
 import jax.numpy as jnp
@@ -25,12 +26,14 @@ from emojivoice_tpu.models import MatchaTTS as FlaxMatcha
 from emojivoice_tpu.utils import assets as jax_assets
 from emojivoice_tpu_torch import config as cfglib
 from emojivoice_tpu_torch.inference.pipeline import SynthesisPipeline
-from emojivoice_tpu_torch.io import torch_ckpt
+from emojivoice_tpu_torch.io import torch_ckpt, torch_pickle
 from emojivoice_tpu_torch.io.checkpoint import CheckpointManager
 from emojivoice_tpu_torch.io.from_jax import hifigan_state_dict_from_flax, matcha_state_dict_from_flax
 from emojivoice_tpu_torch.training.synthetic import make_alignable_dataset
 from emojivoice_tpu_torch.training.train import main as train_main
 from emojivoice_tpu_torch.utils import assets
+from tests.test_io import _init_tiny, _omegaconf_like_wrapper
+from tests.test_models import tiny_cfg
 from tests.test_torch_serving import flax_tiny_params, port_root
 
 torch.set_num_threads(2)
@@ -197,9 +200,72 @@ def test_loader_unwraps_and_refuses_pickled_objects(tmp_path):
     assert list(flat) == ["encoder.emb.weight"] and flat["encoder.emb.weight"].dtype == torch.float32
     torch.save({"generator": {"conv_pre.bias": torch.zeros(2)}, "steps": 1}, tmp_path / "gen.pt")
     assert list(torch_ckpt.load_torch_state_dict(str(tmp_path / "gen.pt"))) == ["conv_pre.bias"]
-    torch.save({"state_dict": {}, "hyper_parameters": CheckpointManager}, tmp_path / "pickled.ckpt")
-    with pytest.raises(RuntimeError, match="weights_only"):
-        torch_ckpt.load_torch_file(str(tmp_path / "pickled.ckpt"))
+    # a pickled class is refused by weights_only and then resolved to an inert stand-in, never to itself
+    torch.save({"state_dict": {"w": torch.ones(2)}, "hyper_parameters": CheckpointManager}, tmp_path / "pickled.ckpt")
+    obj = torch_ckpt.load_torch_file(str(tmp_path / "pickled.ckpt"))
+    hp = obj["hyper_parameters"]
+    assert hp is not CheckpointManager and issubclass(hp, torch_pickle.StandIn) and hp.__name__ == "CheckpointManager"
+    assert torch_ckpt.extract_hyper_parameters(obj) is None
+    assert torch.equal(torch_ckpt.state_dict_arrays(obj)["w"], torch.ones(2))
+
+
+def _write_marker(path):
+    with open(path, "w") as f:
+        f.write("the checkpoint ran code")
+
+
+class _Malicious:
+    """Pickles as a call the loader must never make."""
+
+    def __init__(self, call, args):
+        self.call, self.args = call, args
+
+    def __reduce__(self):
+        return self.call, self.args
+
+
+def test_restricted_unpickler_runs_no_code_of_the_checkpoint(tmp_path):
+    marks = [tmp_path / "marker_function", tmp_path / "marker_open"]
+    torch.save({"state_dict": {"encoder.w": torch.arange(4.0)},
+                "hyper_parameters": {"a": _Malicious(_write_marker, (str(marks[0]),)),
+                                     "b": [_Malicious(open, (str(marks[1]), "w"))]}}, tmp_path / "evil.ckpt")
+    with pytest.raises(pickle.UnpicklingError):
+        torch.load(tmp_path / "evil.ckpt", weights_only=True)
+    obj = torch_ckpt.load_torch_file(str(tmp_path / "evil.ckpt"))
+    assert not any(m.exists() for m in marks)
+    assert isinstance(obj["hyper_parameters"]["a"], torch_pickle.StandIn)
+    assert type(obj["hyper_parameters"]["b"][0]).__name__ == "open"
+    assert torch.equal(torch_ckpt.state_dict_arrays(obj)["encoder.w"], torch.arange(4.0))
+
+
+def test_hparams_from_omegaconf_pickle_beats_shape_guesses(tmp_path, monkeypatch):
+    """``tests/test_io.py``'s checkpoint with omegaconf-pickled
+    hyper-parameters (4 encoder heads, a 4 x 4 decoder head split: invisible
+    to the shapes) read by the port: the ModelConfig the JAX loader infers
+    from the same file, and the same weights."""
+    cfg = tiny_cfg()
+    cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(cfg.encoder, n_heads=4, n_channels=24),
+                              decoder=dataclasses.replace(cfg.decoder, attention_head_dim=4, num_heads=4))
+    _, params = _init_tiny(cfg)
+    sd = jax_ckpt.export_matcha_state_dict(jax.device_get(params), cfg)
+    sd.pop("mel_mean")
+    sd.pop("mel_std")
+    wrap, forget = _omegaconf_like_wrapper(monkeypatch)
+    path = tmp_path / "fourhead.ckpt"
+    torch.save({"state_dict": as_tensors(sd), "hyper_parameters": wrap(jax_ckpt.export_matcha_hparams(cfg))}, path)
+    forget()  # omegaconf absent at read time
+
+    got_sd, got = torch_ckpt.load_matcha(str(path))
+    _, want = jax_ckpt.load_matcha_params(str(path))
+    assert cfglib.to_dict(got) == jax_cfglib.to_dict(want)
+    assert got.encoder.n_heads == 4 and (got.decoder.num_heads, got.decoder.attention_head_dim) == (4, 4)
+    assert got.data_statistics.mel_mean == cfg.data_statistics.mel_mean
+    assert got.data_statistics.mel_std == cfg.data_statistics.mel_std
+    guessed = torch_ckpt.infer_model_config_from_state_dict(got_sd)  # the shapes alone read one 16-dim head
+    assert (guessed.encoder.n_heads, guessed.decoder.num_heads) != (4, 4)
+    assert sorted(got_sd) == sorted(sd)
+    for k, v in sd.items():
+        np.testing.assert_array_equal(got_sd[k].numpy(), np.asarray(v, np.float32), err_msg=k)
 
 
 def test_trained_checkpoint_is_served(tmp_path):

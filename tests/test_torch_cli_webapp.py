@@ -339,7 +339,9 @@ def test_webapp_engine_and_stream_under_concurrency(pipe):
 
 def test_webapp_main_flags(tiny_from_random, monkeypatch):
     """``main`` builds the pipelines its flags name and hands them to
-    ``serve``; it has every flag of the JAX webapp but ``--bundle``."""
+    ``serve``; it has every flag of the JAX webapp (``--bundle``, which
+    serves an exported bundle alone, is driven in
+    ``tests/test_torch_export_serving.py``)."""
     served = {}
 
     class Stub:
@@ -362,7 +364,7 @@ def test_webapp_main_flags(tiny_from_random, monkeypatch):
     with pytest.raises(SystemExit):
         webapp.main(["--cpu", "--model", "default=random"])
     with pytest.raises(SystemExit):
-        webapp.main(["--cpu", "--bundle", "somewhere"])
+        webapp.main(["--cpu", "--bundle", "somewhere", "--random_init"])
 
 
 @pytest.mark.parametrize("script,target", [

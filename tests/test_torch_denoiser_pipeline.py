@@ -76,6 +76,61 @@ def test_stft_istft_match_jax(rng):
     np.testing.assert_allclose(back, y, atol=1e-5)
 
 
+
+@pytest.mark.parametrize("frames", [2, 21, 129])
+def test_istft_overlap_add_matches_torch_istft(rng, frames, monkeypatch):
+    """The port's overlap-add inverse against ``torch.istft`` and the JAX
+    ``istft`` on the same spectrum, and its envelope made once per shape."""
+    spec = (rng.normal(size=(2, frames, N_FFT // 2 + 1)) + 1j * rng.normal(size=(2, frames, N_FFT // 2 + 1)))
+    spec = torch.from_numpy(spec.astype(np.complex64))
+    got = stft.istft(spec, N_FFT, HOP, N_FFT)
+    ref = torch.istft(spec.transpose(1, 2), N_FFT, HOP, N_FFT, window=torch.hann_window(N_FFT), center=True)
+    ref_jax = np.asarray(jax_stft.istft(jnp.asarray(spec.numpy()), N_FFT, HOP, N_FFT, center=True))
+    assert got.shape == ref.shape == ref_jax.shape == (2, HOP * (frames - 1))
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), ref_jax, atol=1e-5)
+    env = stft.istft_envelope(N_FFT, HOP, N_FFT, frames, "cpu")
+    assert stft.istft_envelope(N_FFT, HOP, N_FFT, frames, "cpu") is env
+    assert env.untyped_storage().nbytes() == env.numel() * 4  # owns its storage: an exported program carries it
+    # istft divides by the kept envelope: doubling the kept one halves the result
+    monkeypatch.setitem(stft._ENVELOPES, (N_FFT, HOP, N_FFT, frames, torch.device("cpu")), env * 2)
+    torch.testing.assert_close(stft.istft(spec, N_FFT, HOP, N_FFT), got / 2, rtol=0, atol=0)
+
+
+def test_denoiser_and_pipeline_never_call_torch_istft(pipes, monkeypatch):
+    """``torch.istft`` checks its window envelope on the host, a wait at the
+    end of every denoised dispatch: nothing on the synthesis path calls it."""
+    pp = pipes[-1]
+    expected = pp.synthesise(["no host wait"], spks=[1], n_timesteps=2, seed=4)[0].wav
+
+    def refuse(*a, **kw):
+        raise AssertionError("torch.istft called")
+
+    monkeypatch.setattr(torch, "istft", refuse)
+    audio = torch.from_numpy(np.random.default_rng(0).normal(size=(1, HOP * 12)).astype(np.float32)) * 0.1
+    assert pp.denoiser(audio, 0.05).shape == audio.shape
+    for fused in (False, True):
+        res = pp.synthesise(["no host wait"], spks=[1], n_timesteps=2, seed=4, fused=fused,
+                            fused_mel_bucket=64 if fused else None)[0]
+        assert np.isfinite(res.wav).all() and res.wav.size == res.mel_length * 16
+        np.testing.assert_array_equal(res.wav, expected)
+
+def test_rope_tables_reach_the_device_once_per_shape(pipes, monkeypatch):
+    """The encoder's RoPE tables are copied to the device once per shape and
+    kept: a copy from pageable memory on every call waits for the device."""
+    from emojivoice_tpu_torch.ops import rope
+
+    pp = pipes[-1]
+    pp.synthesise(["tables made"], spks=[1], n_timesteps=2, seed=0)
+    made = []
+    real = rope.rope_tables
+    monkeypatch.setattr(rope, "rope_tables", lambda *a: made.append(a) or real(*a))
+    pp.synthesise(["tables kept"], spks=[1], n_timesteps=2, seed=0)
+    assert made == []
+    rope._TABLES.clear()
+    pp.synthesise(["tables kept"], spks=[1], n_timesteps=2, seed=0)
+    assert len(made) == len(set(made)) > 0
+
 def test_denoiser_matches_jax(pipes, rng):
     root, jp, _, voc_params, pp = pipes
     jd = JaxDenoiser(lambda m: jp.vocoder.apply(voc_params, m), mode="zeros", num_mels=12)

@@ -196,3 +196,68 @@ def test_vocoder_side_entry_point_without_a_card_raises_and_names_the_cpu(name, 
     with pytest.raises(RuntimeError, match="no CUDA device is available .*cpu"):
         VOCODER_SIDE[name](tmp_path)
     assert not list(tmp_path.iterdir()) or name == "run_proof"  # run_proof makes its folder first
+
+
+def _card_bundle(tmp_path):
+    """A manifest as ``export_bundle`` writes it on the card (its programs are not read before the device check)."""
+    import json
+
+    from emojivoice_tpu_torch.inference import export
+
+    (tmp_path / "manifest.json").write_text(json.dumps({"format": export.FORMAT, "device": "cuda"}))
+    (tmp_path / "synth_b1_t64_m64.json").write_text(json.dumps({"device": "cuda"}))
+    return tmp_path
+
+
+def _loaded_bundle(tmp_path, **kw):
+    from emojivoice_tpu_torch.inference.export import LoadedBundle
+
+    return LoadedBundle(str(_card_bundle(tmp_path)), **kw)
+
+
+def _bundle_pipeline(tmp_path, **kw):
+    from emojivoice_tpu_torch.inference.export import BundleSynthesisPipeline
+
+    return BundleSynthesisPipeline(str(_card_bundle(tmp_path)), **kw)
+
+
+def _exported_synthesizer(tmp_path, **kw):
+    from emojivoice_tpu_torch.inference.export import ExportedSynthesizer
+
+    return ExportedSynthesizer(str(_card_bundle(tmp_path) / "synth_b1_t64_m64"), **kw)
+
+
+def _export_main(tmp_path, **kw):
+    from emojivoice_tpu_torch.inference import export
+
+    return export.main_export(["--random_init", "--output_dir", str(tmp_path / "bundle")] +
+                              (["--cpu"] if kw.get("device") == "cpu" else []))
+
+
+def _run_main(tmp_path, **kw):
+    from emojivoice_tpu_torch.inference import export
+
+    return export.main_run(["--bundle", str(_card_bundle(tmp_path)), "--text", "hi"] +
+                           (["--cpu"] if kw.get("device") == "cpu" else []))
+
+
+EXPORT_SIDE = {"LoadedBundle": _loaded_bundle, "BundleSynthesisPipeline": _bundle_pipeline,
+               "ExportedSynthesizer": _exported_synthesizer, "main_export": _export_main, "main_run": _run_main}
+
+
+@pytest.mark.parametrize("name", sorted(EXPORT_SIDE))
+def test_export_side_without_a_card_raises_and_names_the_cpu(name, tmp_path, monkeypatch, tiny_preset):
+    """The export and its runners default to the card: without one they
+    raise and name the CPU, and write no bundle."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"|--cpu'):
+        EXPORT_SIDE[name](tmp_path)
+    assert not (tmp_path / "bundle").exists()
+
+
+@pytest.mark.parametrize("name", ["LoadedBundle", "BundleSynthesisPipeline", "ExportedSynthesizer", "main_run"])
+def test_a_card_bundle_refuses_the_cpu(name, tmp_path):
+    """A program runs on the device it was exported on: asked for the CPU,
+    a bundle made on the card says to export one with --cpu."""
+    with pytest.raises(ValueError, match="exported on cuda.*--cpu"):
+        EXPORT_SIDE[name](tmp_path, device="cpu")

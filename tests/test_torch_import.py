@@ -4,7 +4,8 @@ package, as on the GPU machine where neither need exist.
 A fresh interpreter imports every module of ``emojivoice_tpu_torch`` and
 everything ``chip_smoke.py`` imports, runs a tiny CPU synthesis, the serving
 front ends on it (batching engine, streaming vocoder, long-form, the CLI, the
-webapp over HTTP, a checkpoint written and served), a ``--fast_dev_run`` of
+webapp over HTTP, a checkpoint written and served, a bundle exported and
+run), a ``--fast_dev_run`` of
 the trainer, and the vocoder's training side with its tools (data statistics,
 export, ``--from_torch_ckpt``, durations and teacher-forced mels, two GAN
 steps), and then ``sys.modules`` must hold no
@@ -40,7 +41,8 @@ for want in ("ops.mas", "ops.mel", "data.dataset", "data.audio_np", "training.tr
              "training.synthetic", "io.checkpoint", "io.from_jax", "kernels.build", "config", "apps.emoji",
              "inference.serving", "inference.streaming", "inference.longform", "inference.cli", "apps.webapp",
              "io.torch_ckpt", "utils.assets", "vocoder.discriminators", "training.vocoder_train",
-             "training.vocoder_proof", "training.proof", "training.get_durations", "data.stats", "io.export_torch"):
+             "training.vocoder_proof", "training.proof", "training.get_durations", "data.stats", "io.export_torch",
+             "inference.export", "io.torch_pickle"):
     assert "emojivoice_tpu_torch." + want in names, want
 for name in names:
     importlib.import_module(name)
@@ -83,6 +85,10 @@ req = urllib.request.Request(url + "/api/stream", data=json.dumps({"text": "over
 with urllib.request.urlopen(req, timeout=120) as r:
     assert len(r.read()) > 44
 server.shutdown(); server.server_close(); server.engine.close()
+from emojivoice_tpu_torch.inference.export import LoadedBundle, export_bundle
+with tempfile.TemporaryDirectory() as tmp:
+    export_bundle(pipe, tmp, text_buckets=[64], mel_buckets=[64], batches=(1,), n_timesteps=2)
+    assert LoadedBundle(tmp, device="cpu").synthesise(["exported"], spks=[1], seed=0)[0][0]["mel_length"] > 0
 with tempfile.TemporaryDirectory() as tmp:
     CheckpointManager(tmp + "/ckpts").save(3, {"model": pipe.model.state_dict(), "step": 3},
                                           cfg=cfglib.RootConfig(model=model, vocoder=voc))
@@ -111,7 +117,8 @@ import tomllib
 scripts = tomllib.load(open("pyproject.toml", "rb"))["project"]["scripts"]
 ported = {k: v for k, v in scripts.items() if v.startswith("emojivoice_tpu_torch.")}
 for want in ("emojivoice-get-durations-torch", "emojivoice-data-stats-torch", "emojivoice-export-torch-torch",
-             "emojivoice-train-proof-torch", "emojivoice-vocoder-proof-torch"):
+             "emojivoice-train-proof-torch", "emojivoice-vocoder-proof-torch", "emojivoice-export-bundle-torch",
+             "emojivoice-run-exported-torch"):
     assert want in ported, (want, sorted(ported))
 for target in ported.values():
     mod, fn = target.split(":")
@@ -148,7 +155,8 @@ mods |= {a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.
 for want in ("emojivoice_tpu_torch.kernels.build", "emojivoice_tpu_torch.apps.emoji", "emojivoice_tpu_torch.ops",
              "emojivoice_tpu_torch.training", "emojivoice_tpu_torch.inference.serving",
              "emojivoice_tpu_torch.training.vocoder_proof", "emojivoice_tpu_torch.training.vocoder_train",
-             "emojivoice_tpu_torch.inference.streaming", "emojivoice_tpu_torch.inference", "emojivoice_tpu_torch.apps"):
+             "emojivoice_tpu_torch.inference.streaming", "emojivoice_tpu_torch.inference", "emojivoice_tpu_torch.apps",
+             "emojivoice_tpu_torch.inference.export"):
     assert want in mods, (want, mods)
 for m in sorted(mods):
     importlib.import_module(m)

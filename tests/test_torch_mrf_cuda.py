@@ -86,3 +86,35 @@ def test_k1_rejects_what_it_cannot_run(cuda_f32):
     x_even, w_even = _stage(1, 32, 64, seed=1, kernels=(4, 7, 11))
     with pytest.raises(ValueError, match="odd"):
         mrf.mrf_stage(x_even, w_even, (4, 7, 11), DILATIONS)
+
+
+@pytest.mark.cuda
+def test_k1_runs_inside_an_exported_vocoder(cuda_f32, tmp_path, monkeypatch):
+    """An exported, saved and reloaded v1 vocoder on the card launches K1
+    once per stage through the registered op, gives the live forward's
+    waveform to the bit, and raises when the kernel cannot be built: no
+    fallback to the plain twin inside the program either."""
+    from emojivoice_tpu_torch.config import HiFiGANConfig
+    from emojivoice_tpu_torch.kernels import build
+    from emojivoice_tpu_torch.vocoder.hifigan import HiFiGANGenerator
+
+    torch.manual_seed(0)
+    gen = HiFiGANGenerator(HiFiGANConfig()).cuda().eval()
+    mel = torch.randn((1, 64, 80), device="cuda") * 2 - 6
+    with torch.no_grad():
+        exported = torch.export.export(gen.for_export().eval(), (mel,))
+    torch.export.save(exported, tmp_path / "voc.pt2")
+    program = torch.export.load(tmp_path / "voc.pt2").module()
+    before = sum(mrf.launches.values())
+    with torch.inference_mode():
+        got = program(mel)
+    torch.cuda.synchronize()
+    assert sum(mrf.launches.values()) == before + 4
+    assert torch.equal(got, gen(mel))
+
+    def no_build():
+        raise RuntimeError("nvcc failed")
+
+    monkeypatch.setattr(build, "load_mrf", no_build)
+    with pytest.raises(RuntimeError, match="nvcc failed"), torch.inference_mode():
+        program(mel)

@@ -145,3 +145,42 @@ def test_resblock2_generator_serves_on_plain_convs(rng, monkeypatch):
     # the same spy does see a ResBlock1 generator's stages
     HiFiGANGenerator(_narrow_cfg())(torch.from_numpy(mel))
     assert len(calls) == 2
+
+
+def test_registered_op_passes_opcheck(rng):
+    """``emojivoice_tpu_torch::mrf_stage``: schema, fake implementation (the
+    shape ``torch.export`` traces with) and its CPU implementation, the plain
+    twin, through ``torch.library.opcheck``; ``mrf_stage`` goes through it."""
+    c, t_len = 8, 20
+    w = [tuple(torch.from_numpy((rng.normal(size=s) * 0.1).astype(np.float32))
+               for s in ((3, k, c, c), (3, c), (3, k, c, c), (3, c))) for k in (3, 5)]
+    x = torch.from_numpy(rng.normal(size=(2, t_len, c)).astype(np.float32))
+    args = (x, [p for rb in w for p in rb], [3, 5], [1, 3, 5, 1, 2, 3], [3, 3])
+    op = torch.ops.emojivoice_tpu_torch.mrf_stage.default
+    torch.library.opcheck(op, args)
+    want = mrf.mrf_stage_reference(x, w, (3, 5), ((1, 3, 5), (1, 2, 3)))
+    torch.testing.assert_close(op(*args), want, rtol=0, atol=0)
+    torch.testing.assert_close(mrf.mrf_stage(x, w, (3, 5), ((1, 3, 5), (1, 2, 3))), want, rtol=0, atol=0)
+
+
+def test_exported_generator_keeps_the_op_as_one_node_per_stage(rng, narrow, tmp_path):
+    """A generator exported on the CPU (``for_export``), saved and reloaded:
+    one ``mrf_stage`` node per stage, no res-block parameter carried, and the
+    live forward's waveform to the bit."""
+    cfg, params = narrow
+    gen = HiFiGANGenerator(cfg)
+    gen.load_state_dict(_tensors(hifigan_state_dict_from_flax(params, cfg)), strict=True)
+    mel = torch.from_numpy((rng.normal(size=(2, 25, 12)) * 2 - 6).astype(np.float32))
+    with torch.no_grad():
+        exported = torch.export.export(gen.for_export().eval(), (mel,))
+    nodes = [n for n in exported.graph.nodes if "emojivoice_tpu_torch.mrf_stage" in str(n.target)]
+    assert len(nodes) == len(cfg.upsample_rates) == 2
+    assert not any(".convs1." in k or ".convs2." in k for k in exported.state_dict)
+    torch.export.save(exported, tmp_path / "voc.pt2")
+    before = sum(mrf.launches.values())
+    with torch.inference_mode():
+        got = torch.export.load(tmp_path / "voc.pt2").module()(mel)
+    assert sum(mrf.launches.values()) == before
+    torch.testing.assert_close(got, gen(mel), rtol=0, atol=0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(FlaxHiFiGAN(cfg=cfg).apply(params, jnp.asarray(mel.numpy()))),
+                               atol=ATOL)
