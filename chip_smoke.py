@@ -1,7 +1,9 @@
 """Drive the PyTorch port's paths once on one NVIDIA GPU: synthesis
 (text → pcm16), acoustic-model training, the vocoder's fine-tune on the
-acoustic model's own mels, and the serving front ends (batching engine,
-streaming vocoder, long-form, CLI, webapp, and trained checkpoints served).
+acoustic model's own mels, the serving front ends (batching engine,
+streaming vocoder, long-form, CLI, webapp, and trained checkpoints served),
+the export artifact, and the reduced-precision paths (bf16 serving through
+K1's bf16 mode, bf16-mixed training).
 
     python3 chip_smoke.py
 
@@ -46,7 +48,11 @@ Phases (each one failing fails the run, exit code ≠ 0):
      20 steps than before.  K2 is held against its plain version on the
      batch's own log-prior, one step is timed by stage, and a four-row train
      step on the card (K2) is held against the CPU (plain MAS on the same
-     log-prior).  Before the run's folder is removed,
+     log-prior).  Then ``[precision]``: the same step in ``bf16-mixed`` from
+     the same weights, its loss within rtol 0.05 of the f32 step's, K2 on its
+     bf16 log-prior equal to the plain search, the step by stage (two warm,
+     median of 5), steps per second beside f32's and peak memory.  Before the
+     run's folder is removed,
      ``SynthesisPipeline.from_checkpoint`` serves the checkpoint directory the
      trainer wrote: one utterance on the card, K1 on all four stages;
   6. vocoder training — still inside the training run's folder: (a)
@@ -101,7 +107,22 @@ Phases (each one failing fails the run, exit code ≠ 0):
      400, ``/api/stream`` 200 for ``auto`` and 400 for a forced ``stream``;
      (e) bundle against live at batch 1 and 8, alternated, host wall and
      device span; (f) one denoised fused dispatch of the live pipeline and
-     one of the bundle under ``torch.cuda.set_sync_debug_mode("error")``.
+     one of the bundle under ``torch.cuda.set_sync_debug_mode("error")``;
+  9. precision — K1's bf16 mode (``mrf_resblock_bf16``, one wgmma bf16 product
+     per tap): one 64-frame tile against float64 on the same bf16 operands
+     (relative 1e-5), then the stage against its plain twin's bf16 branch at
+     the four stage shapes and at B = 8, C = 128 (99 % of the outputs within
+     2e-4, all within 2e-3: two sum orders can round an intermediate to
+     neighbouring bf16 numbers), timed against
+     the twin and, alternately in the same call, against K1's f32 mode; the
+     pipeline (emoji_multi + v1, random weights, 10 steps, denoiser on, f32
+     wav) in three settings, f32, ``vocoder_dtype=bf16`` and
+     ``compute_dtype=bf16``, at batch 1 two-stage and 8 and 32 fused: wall,
+     rtf_w, stage ms, 4 K1 launches a request in the setting's mode, the wav
+     within 2e-2 of f32's (``vocoder_dtype``, the mel unchanged within 1e-5)
+     and the mel within MAE 0.1 and 2 frames of f32's (``compute_dtype``); one
+     streamed utterance in bf16 mode, ms per chunk and max-abs against its
+     monolithic call.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 ``nvidia-smi``'s card name and power limit, and the one before that the
@@ -109,7 +130,8 @@ kernel record, whose ``bound_ms`` is the larger of bytes over 3.35 TB/s and
 operations over the peak of the unit that does them, for the inputs of this
 run: K1's three TF32 products per f32 product at 495 TFLOP/s (the earlier
 SIMT design's bound at 67 TFLOP/s and a one-product TF32 kernel's stay beside
-it), K2's two f32 operations per cell at 67 TFLOP/s.  There is no CPU path:
+it), K1's bf16 mode one bf16 product at 989 TFLOP/s, K2's two f32 operations
+per cell at 67 TFLOP/s.  There is no CPU path:
 without a CUDA device it exits 1.
 """
 
@@ -136,6 +158,10 @@ import torch
 
 DEVICE, PRESET = "cuda", "emoji_multi"
 TOL = 2e-4  # the bound tests/test_pallas_mrf.py holds the Pallas kernel to
+# K1's bf16 mode against its twin: within TOL on at least BF16_WITHIN of the outputs, and BF16_FLIP_TOL on all.
+# The two sum in other orders, and an intermediate that close to a bf16 rounding boundary rounds to neighbouring
+# bf16 numbers in the two: one bf16 step of it, |w|·step on each output that reads it (tests/test_torch_mrf_cuda.py)
+BF16_WITHIN, BF16_FLIP_TOL = 0.99, 2e-3
 KERNELS = (3, 7, 11)
 DILATIONS = ((1, 3, 5), (1, 3, 5), (1, 3, 5))
 MEL = 512
@@ -148,8 +174,9 @@ HEADLINE = ("The quick brown fox jumped over the lazy dog, and everyone at the "
             "party cheered loudly for the brave little robot.")  # bench.py's headline text
 TEXT11 = "Hey there! I am an emoji voice."
 STEPS, STRENGTH = 10, 0.00025
-# H100 SXM: device memory rate, f32 peak outside the tensor cores, and the TF32 tensor-core peak K1 multiplies at
-HBM_BYTES_PER_S, F32_FLOPS, TF32_FLOPS = 3.35e12, 67e12, 495e12
+# H100 SXM: device memory rate, f32 peak outside the tensor cores, and the TF32 and bf16 tensor-core peaks K1
+# multiplies at (dense)
+HBM_BYTES_PER_S, F32_FLOPS, TF32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 495e12, 989e12
 MAS_SHAPES = [(16, 256, 768), (32, 128, 512), (1, 64, 128), (8, 100, 333), (4, 512, 2048), (2, 1000, 1100),
               (3, 33, 120), (2, 1500, 1600)]
 TRAIN_BATCH, TRAIN_STEPS, RESUME_STEPS, EVERY = 16, 20, 24, 10
@@ -168,6 +195,13 @@ MERGED_TOL, STREAM_TOL = 1e-5, 1e-6
 EXPORT_BATCHES, EXPORT_TEXT_BUCKET, EXPORT_MEL_BUCKETS = (1, 8), 256, (512, 1024)
 EXPORT_TOL = 1e-5  # bundle row against the live fused row with the same seed at the same mel bucket
 EXPORT_TIMED_RUNS = 5  # pairs of (live, bundle, bundle, live) per batch size
+# the precision phase: K1's bf16 mode at the four stage shapes and at batch 8, the pipeline in three settings
+BF16_SHAPES = STAGE_SHAPES + [BATCH_SHAPE]
+PRECISION_BATCHES = (1, 8, 32)  # batch 1 two-stage, 8 and 32 fused
+PRECISION_TIMED = 3  # timed calls per request, after one warm call; the median is kept
+VOCODER_TOL = 2e-2  # bf16 vocoder against f32 (tests/test_pipeline.py::test_vocoder_bf16_close_to_f32)
+MEL_MAE_TOL, MEL_LENGTH_TOL = 0.1, 2  # compute_dtype=bf16 against f32 (tests/test_export_and_obs.py)
+TRAIN_RTOL = 0.05  # bf16-mixed step loss against f32 (tests/test_training.py::test_bf16_mixed_precision_step)
 
 
 def cuda_ms(fn, iters: int = 5, warmup: int = 1) -> list:
@@ -319,7 +353,7 @@ def phase_synthesis(mrf):
         t = time.perf_counter()
         results = pipe.synthesise(texts, spks=spks, seed=seed, **kw, **extra)
         wall_ms = (time.perf_counter() - t) * 1e3
-        delta = {c: mrf.launches[c] - before.get(c, 0) for c in (256, 128, 64, 32)}
+        delta = {c: mrf.launches[(c, "f32")] - before.get((c, "f32"), 0) for c in (256, 128, 64, 32)}
         if any(n != 1 for n in delta.values()) or sum(mrf.launches.values()) - sum(before.values()) != 4:
             raise RuntimeError(f"{name}: K1 launches per stage width {delta}, expected one on each of four")
         check_wavs(results, name)
@@ -1164,12 +1198,13 @@ def phase_training(mas, mrf) -> dict:
                                              "optimizer_ms": med["optimizer"], "batch": TRAIN_BATCH,
                                              "t_text": batch["x"].shape[1], "t_mel": batch["y"].shape[1],
                                              "peak_gb": torch.cuda.max_memory_allocated() / 1e9}))
+        precision = precision_training(matcha, mas, state, batch, seed, steps_per_s)
 
         card_vs_cpu(matcha, state, batch, mas)
         served = serve_trained(mrf, out / "ckpts")
         vocoder = phase_vocoder_training(mas, mrf, matcha, tmp, train_list, out / "ckpts")
-    return dict(launches=launches + vocoder["k2_launches"], row=path_row,
-                k1_launches=served + vocoder["k1_launches"], vocoder=vocoder)
+    return dict(launches=launches + vocoder["k2_launches"] + precision["k2_launches"], row=path_row,
+                k1_launches=served + vocoder["k1_launches"], vocoder=vocoder, precision=precision)
 
 
 def phase_vocoder_training(mas, mrf, matcha, tmp: Path, filelist: Path, ckpt_dir: Path) -> dict:
@@ -1393,6 +1428,232 @@ def card_vs_cpu(matcha, state, batch, mas) -> None:
         raise RuntimeError("card and CPU train steps disagree")
 
 
+def bf16_weights(w) -> list:
+    """Contract weights with w1, w2 rounded to bf16: K1's bf16 mode."""
+    return [(w1.to(torch.bfloat16), b1, w2.to(torch.bfloat16), b2) for w1, b1, w2, b2 in w]
+
+
+def bf16_tile_check(mrf) -> float:
+    """K1's bf16 product alone: one k = 1 convolution on one 64-frame tile of
+    bf16-exact positive x against float64 on the same operands; a bf16
+    product is exact in f32, so only the f32 sum's error remains."""
+    worst = 0.0
+    for c in (64, 256):
+        g = torch.Generator().manual_seed(c + 1)
+        x = (torch.rand((1, 64, c), generator=g) + 0.1).to(torch.bfloat16).float().cuda()
+        w = (torch.randn((1, c, c), generator=g) * 0.1).to(torch.bfloat16).cuda()
+        bias = torch.randn((c,), generator=g).cuda()
+        got = mrf.conv_taps(x, w, bias)
+        torch.cuda.synchronize()
+        ref = torch.matmul(x[0].double(), w[0].double()) + bias.double()
+        rel = float((got[0].double() - ref).abs().max() / ref.abs().max())
+        print(f"[precision] K1 bf16 one tile, 64 x {c} x {c}, wgmma bf16 against float64 matmul of the same bf16 "
+              f"operands: max error {rel:.3e} of the largest output")
+        if not rel <= 1e-5:
+            raise RuntimeError(f"K1's bf16 product is off by {rel:.3e} at C={c}")
+        worst = max(worst, rel)
+    return worst
+
+
+def precision_kernel(mrf) -> list:
+    """K1's bf16 mode against its plain twin at the four stage shapes of a
+    512-frame utterance and at batch 8; its time beside the plain twin's and,
+    timed alternately in the same call, K1's f32 mode's."""
+    rows = []
+    for i, (b, c, t) in enumerate(BF16_SHAPES):
+        x, w = random_stage(b, c, t, seed=100 + i)
+        w16 = bf16_weights(w)
+        got = mrf.mrf_stage(x, w16, KERNELS, DILATIONS)
+        ref = mrf.mrf_stage_reference(x, w16, KERNELS, DILATIONS)
+        packed16, packed32 = mrf.pack_weights(w16), mrf.pack_weights(w)
+        same_bits = torch.equal(got, mrf.mrf_stage(x, packed16, KERNELS, DILATIONS))
+        torch.cuda.synchronize()
+        diff = (got - ref).abs()
+        err = float(diff.max())
+        within = float((diff <= TOL + TOL * ref.abs()).float().mean())
+        ok = bool(torch.isfinite(got).all()) and within >= BF16_WITHIN and err <= BF16_FLIP_TOL and same_bits
+        plain_ms, bf16_ms = abba_ms(lambda: mrf.mrf_stage_reference(x, w16, KERNELS, DILATIONS),
+                                    lambda: mrf.mrf_stage(x, packed16, KERNELS, DILATIONS))
+        f32_ms, bf16_ms_again = abba_ms(lambda: mrf.mrf_stage(x, packed32, KERNELS, DILATIONS),
+                                        lambda: mrf.mrf_stage(x, packed16, KERNELS, DILATIONS))
+        gflop = 2 * sum(2 * len(d) * k for k, d in zip(KERNELS, DILATIONS)) * c * c * t * b / 1e9
+        # x read and out written once (f32), the 36 bf16 conv weights and the f32 biases read once
+        nbytes = 4 * 2 * x.numel() + sum(w1.numel() + w2.numel() for w1, _, w2, _ in w16) * 2 \
+            + 4 * sum(b1.numel() + b2.numel() for _, b1, _, b2 in w16)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = gflop * 1e9 / BF16_FLOPS * 1e3
+        rows.append(dict(B=b, C=c, T=t, max_abs_err=err, within_tol=within, ok=ok, ms=bf16_ms, plain_ms=plain_ms,
+                         f32_ms=f32_ms,
+                         ms_beside_f32=bf16_ms_again, gflop=gflop, tflops=gflop / bf16_ms,
+                         bound_ms=max(ops_ms, bytes_ms), bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                         bytes_ms=bytes_ms))
+        print(f"[precision] K1 bf16 B={b} C={c:3d} T={t:6d}  max_abs_err={err:.3e} against the twin, "
+              f"{100 * within:.3f} % within {TOL}  "
+              f"bf16 {bf16_ms:9.3f} ms ({gflop / bf16_ms:6.2f} TFLOP/s)  plain {plain_ms:9.3f} ms  "
+              f"f32 (3xTF32) {f32_ms:9.3f} ms against bf16 {bf16_ms_again:9.3f} ms, alternated  "
+              f"bound {rows[-1]['bound_ms']:.3f} ms by {rows[-1]['bound_by']} (bf16 at 989 TFLOP/s; bytes alone "
+              f"{bytes_ms:.4f} ms)  packed = contract bits: {same_bits}  {'ok' if ok else 'MISMATCH'}")
+        del x, w, w16, got, ref, packed16, packed32
+    if not all(r["ok"] for r in rows):
+        raise RuntimeError("K1's bf16 mode disagrees with its plain twin")
+    return rows
+
+
+def precision_pipeline(mrf, pipe) -> dict:
+    """The pipeline in three settings (f32, ``vocoder_dtype=bf16``,
+    ``compute_dtype=bf16``) at batch 1 two-stage and batch 8 and 32 fused:
+    wall, rtf_w and stage ms, the wav against f32 (``vocoder_dtype``) and the
+    mel against f32 (``compute_dtype``), and the K1 launches by mode of each
+    counted request; then one streaming chunk in bf16 mode.  Returns the K1
+    bf16 launches of the counted runs."""
+    import numpy as np
+
+    from emojivoice_tpu_torch import config
+    from emojivoice_tpu_torch.inference.pipeline import SynthesisPipeline
+    from emojivoice_tpu_torch.inference.streaming import StreamingVocoder
+    from emojivoice_tpu_torch.utils.buckets import pick_bucket
+
+    bf16 = torch.bfloat16
+    pipes = {"f32": pipe}
+    for name, kw in (("vocoder_dtype", dict(vocoder_dtype=bf16)), ("compute_dtype", dict(compute_dtype=bf16))):
+        pipes[name] = SynthesisPipeline.from_random(config.get_preset(PRESET), seed=0, device=DEVICE,
+                                                    cleaners=("basic_cleaners",), **kw)
+    first = pipe.synthesise([HEADLINE], spks=[79], n_timesteps=STEPS, seed=0, vocode=False)[0]
+    bucket = pick_bucket(first.mel_length, pipe.mel_buckets)
+    kw = dict(n_timesteps=STEPS, denoiser_strength=STRENGTH)
+    bf16_launches, out = 0, {}
+    for b in PRECISION_BATCHES:
+        req = dict(texts=[HEADLINE] * b, spks=[79] * b, seed=list(range(b)), **kw)
+        if b > 1:
+            req.update(fused=True, fused_mel_bucket=bucket)
+        results = {}
+        for name, p in pipes.items():
+            p.synthesise(**req)  # warm
+            walls = []
+            for _ in range(PRECISION_TIMED):
+                mrf.launches.clear()  # the counted run: the last timed call
+                t = time.perf_counter()
+                res = p.synthesise(**req)
+                walls.append((time.perf_counter() - t) * 1e3)
+            by_mode = {m: sum(n for (c, mode), n in mrf.launches.items() if mode == m) for m in ("f32", "bf16")}
+            want = "f32" if name == "f32" else "bf16"
+            if by_mode[want] != 4 or sum(by_mode.values()) != 4:
+                raise RuntimeError(f"[precision] {name} batch {b}: K1 launches by mode {by_mode}, expected 4 {want}")
+            if name != "f32":
+                bf16_launches += by_mode["bf16"]
+            check_wavs(res, f"[precision] {name} batch {b}")
+            results[name] = res
+            row = dict(setting=name, batch=b, fused=b > 1, wall_ms=statistics.median(walls), wall_ms_all=walls,
+                       rtf_w=res[0].rtf_w, stage_ms=res[0].stage_ms, k1_launches=by_mode,
+                       mel_lengths=sorted({r.mel_length for r in res}))
+            ref = results["f32"]
+            if name == "vocoder_dtype":
+                row["wav_max_abs_vs_f32"] = max(float(np.abs(r.wav - f.wav).max()) for r, f in zip(res, ref))
+                row["mel_max_abs_vs_f32"] = max(float(np.abs(r.mel - f.mel).max()) for r, f in zip(res, ref))
+                if not (0 < row["wav_max_abs_vs_f32"] < VOCODER_TOL and row["mel_max_abs_vs_f32"] <= 1e-5):
+                    raise RuntimeError(f"[precision] vocoder_dtype batch {b}: {row}")
+            if name == "compute_dtype":
+                lengths = [abs(r.mel_length - f.mel_length) for r, f in zip(res, ref)]
+                maes = [float(np.abs(r.mel[:n] - f.mel[:n]).mean()) for r, f, n in
+                        zip(res, ref, (min(r.mel_length, f.mel_length) for r, f in zip(res, ref)))]
+                row.update(mel_mae_vs_f32=max(maes), mel_length_diff=max(lengths))
+                if not (max(lengths) <= MEL_LENGTH_TOL and 0 < max(maes) < MEL_MAE_TOL):
+                    raise RuntimeError(f"[precision] compute_dtype batch {b}: {row}")
+            print("[precision] pipeline " + json.dumps(row))
+            out[f"{name}_b{b}"] = row
+    # one streaming chunk in bf16 mode: the chunks go through the pipeline's _vocode, K1's bf16 mode
+    pv = pipes["vocoder_dtype"]
+    res = pv.synthesise([HEADLINE], spks=[79], n_timesteps=STEPS, seed=7, vocode=False)[0]
+    ml = res.mel_length
+    mel = torch.nn.functional.pad(torch.from_numpy(res.mel).cuda(), (0, 0, 0, -ml % 64))
+    mono = pv._vocode(mel[None])[0, : ml * 256].cpu().numpy()
+    sv = StreamingVocoder(pv.vocoder, 64, 8, vocode_fn=pv._vocode)
+    list(sv.stream(mel, ml))  # warm the window shapes
+    torch.cuda.synchronize()
+    mrf.launches.clear()
+    t = time.perf_counter()
+    chunks = list(sv.stream(mel, ml))
+    total_ms = (time.perf_counter() - t) * 1e3
+    calls = mrf.launches.copy()
+    streamed = np.concatenate(chunks)
+    stream = dict(chunks=len(chunks), ms_per_chunk=total_ms / len(chunks), k1_bf16_launches=sum(calls.values()),
+                  max_abs_vs_monolithic=float(np.abs(streamed - mono).max()), peak=float(np.abs(mono).max()))
+    print("[precision] streaming, vocoder_dtype=bf16, chunk 64, overlap 8 " + json.dumps(stream))
+    if streamed.shape != mono.shape or set(m for _, m in calls) != {"bf16"} or stream["k1_bf16_launches"] != 4 * len(chunks) \
+            or not stream["max_abs_vs_monolithic"] < VOCODER_TOL:
+        raise RuntimeError(f"[precision] streaming in bf16 mode: {stream}, launches {dict(calls)}")
+    out["stream"] = stream
+    out["k1_bf16_launches"] = bf16_launches + stream["k1_bf16_launches"]
+    del pipes
+    return out
+
+
+def precision_training(matcha, mas, state, batch, seed: int, f32_steps_per_s: float) -> dict:
+    """The acoustic train step in ``bf16-mixed`` at the ``[train] step`` shape:
+    its loss against the f32 step's from the same weights and step, K2 on the
+    step's bf16 log-prior against the plain search, the step by stage and
+    steps per second, peak memory."""
+    from emojivoice_tpu_torch.training.state import create_train_state, train_step
+    from emojivoice_tpu_torch.utils.timing import StageClock
+
+    def fresh():
+        st = create_train_state(state.model.cfg, state.opt_cfg, model=copy.deepcopy(state.model), device=DEVICE)
+        st.step = state.step
+        return st
+
+    losses = {}
+    seen = {}
+    real = matcha.maximum_path
+
+    def capture(value, mask):
+        path = real(value, mask)
+        seen.setdefault(value.dtype, (value, mask, path))
+        return path
+    matcha.maximum_path = capture
+    try:
+        for precision in ("f32", "bf16-mixed"):
+            losses[precision] = {k: float(v) for k, v in train_step(fresh(), batch, seed, precision=precision).items()}
+    finally:
+        matcha.maximum_path = real
+    value, mask, path = seen[torch.bfloat16]
+    plain = mas.maximum_path_reference(value, mask)
+    k2_exact = torch.equal(path, plain) and path.dtype == torch.bfloat16 and not mas.path_faults(path.float(), mask)
+    rel = abs(losses["bf16-mixed"]["loss"] - losses["f32"]["loss"]) / abs(losses["f32"]["loss"])
+    print(f"[precision] bf16-mixed train step against f32 from the same weights, step and draws: loss "
+          f"{losses['bf16-mixed']['loss']:.6f} against {losses['f32']['loss']:.6f} (rel {rel:.3e}, bound {TRAIN_RTOL}); "
+          f"K2 on the step's bf16 log-prior {tuple(value.shape)} equal to the plain search: {k2_exact}")
+    if not (rel < TRAIN_RTOL and k2_exact and all(math.isfinite(v) for v in losses["bf16-mixed"].values())):
+        raise RuntimeError(f"[precision] bf16-mixed step: losses {losses}, K2 exact {k2_exact}")
+
+    st = fresh()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mas.launches = 0  # the main path's run: K2 in the bf16-mixed steps
+    stage_ms = []
+    for _ in range(2 + 5):  # two to warm
+        clock = StageClock(torch.device(DEVICE))
+        train_step(st, batch, seed, clock=clock, precision="bf16-mixed")
+        torch.cuda.synchronize()
+        stage_ms.append(clock.elapsed_ms())
+    med = {k: statistics.median(m[k] for m in stage_ms[2:]) for k in stage_ms[0]}
+    n = 10
+    t = time.perf_counter()
+    for _ in range(n):
+        train_step(st, batch, seed, precision="bf16-mixed")
+    torch.cuda.synchronize()
+    steps_per_s = n / (time.perf_counter() - t)
+    out = dict(steps_per_s=steps_per_s, f32_steps_per_s=f32_steps_per_s, ratio=steps_per_s / f32_steps_per_s,
+               forward_ms=med["forward"], backward_ms=med["backward"], optimizer_ms=med["optimizer"],
+               batch=batch["y"].shape[0], t_text=batch["x"].shape[1], t_mel=batch["y"].shape[1],
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9, loss_rel_vs_f32=rel, k2_exact=k2_exact,
+               k2_launches=mas.launches)
+    print("[precision] bf16-mixed step " + json.dumps(out))
+    if mas.launches != 2 + 5 + n:
+        raise RuntimeError(f"[precision] {mas.launches} K2 launches in {2 + 5 + n} bf16-mixed steps")
+    del st
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU", file=sys.stderr)
@@ -1427,6 +1688,9 @@ def main() -> int:
     training = phase_training(mas, mrf)
     serving = phase_serving(pipe, mrf)
     exported = phase_export(pipe, mrf)
+    bf16_tile_err = bf16_tile_check(mrf)
+    bf16_rows = precision_kernel(mrf)
+    precision = precision_pipeline(mrf, pipe)
     # K1 on the main paths: the synthesis requests, the engine's and the webapp's batches, the trained checkpoint,
     # the vocoder proof's two renders, the fine-tuned generator served, the exported bundle's program runs and the
     # live dispatch under sync debug; K2: the trainer's steps and get_durations
@@ -1457,6 +1721,27 @@ def main() -> int:
         "plain_ms_stream_window": sum(r["plain_ms"] for r in window_rows),
         "bound_ms_stream_window": sum(r["bound_ms"] for r in window_rows),
         "launches_in_exported_programs": exported["k1_launches"],
+    }, {
+        "name": "K1 mrf_resblock_bf16 (HiFi-GAN MRF stage, K1's bf16 mode, wgmma bf16)",
+        "route": "cuda",
+        "source": "emojivoice_tpu_torch/csrc/mrf.cu",
+        "replaces": "emojivoice_tpu/ops/pallas_mrf.py:183",
+        "launches": precision["k1_bf16_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in bf16_rows),
+        "ms": sum(r["ms"] for r in bf16_rows[:len(STAGE_SHAPES)]),
+        "plain_ms": sum(r["plain_ms"] for r in bf16_rows[:len(STAGE_SHAPES)]),
+        "bound_ms": sum(r["bound_ms"] for r in bf16_rows[:len(STAGE_SHAPES)]),
+        "bound_by": "operations" if all(r["bound_by"] == "operations" for r in bf16_rows[:len(STAGE_SHAPES)])
+        else "bytes",
+        "library_ms": None,  # no single PyTorch call computes an MRF stage
+        "shape": "the four stages of a 512-frame utterance, B = 1",
+        "weights": "bf16, packed (K-major) once, outside the timed region",
+        "f32_mode_ms_alternated": sum(r["f32_ms"] for r in bf16_rows[:len(STAGE_SHAPES)]),
+        "ms_alternated_with_f32": sum(r["ms_beside_f32"] for r in bf16_rows[:len(STAGE_SHAPES)]),
+        "ms_b8_c128": bf16_rows[-1]["ms"],
+        "f32_mode_ms_b8_c128": bf16_rows[-1]["f32_ms"],
+        "bound_ms_b8_c128": bf16_rows[-1]["bound_ms"],
+        "tile_rel_err_vs_float64": bf16_tile_err,
     }, {
         "name": "K2 mas_path_f32 (monotonic alignment search)",
         "route": "cuda",

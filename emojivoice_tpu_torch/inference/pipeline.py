@@ -12,6 +12,25 @@ denoiser → optional on-device pcm16.
 * **Fused** (``fused=True``): one pass at a fixed mel capacity with no host
   read in between.
 
+Precision (opt-in, as in the JAX package; f32 is the default and the oracle):
+
+* ``vocoder_dtype=torch.bfloat16`` runs only the vocoder in bf16: K1's bf16
+  mode on every MRF stage (``vocoder/hifigan.py``); the mel is the f32 one.
+* ``compute_dtype=torch.bfloat16`` runs the acoustic model in bf16 too.  In
+  two-stage mode the encoder and durations stay f32 (the JAX stage A casts
+  nothing) and stage B decodes in bf16 from ``mu_x``, ``x_mask`` and the
+  speaker embedding cast down; fused, the encoder runs in bf16 as well.  The
+  vocoder then runs K1's bf16 mode whatever ``vocoder_dtype`` says.
+
+Either way the noise is drawn in f32, durations and the alignment path are
+f32, the denoiser's bias probe runs the f32 vocoder, and mel and wav come back
+in f32.  Parameters stay f32 at rest: where JAX casts inside the compiled
+program, an eager per-call cast would cost a launch per tensor, so the pipeline
+makes its bf16 copy of the acoustic model once, at construction
+(``compute_model``; load new weights into a new pipeline), and the vocoder
+packs K1's bf16 operands once per weights.  Export ignores both switches, as
+the JAX package's does.
+
 A pipeline may hold no vocoder (``vocoder_cfg=None``, ``vocoder=None``,
 ``from_random(with_vocoder=False)``): it then has no denoiser either, serves
 mels only, and ``vocode=True`` raises.
@@ -28,6 +47,7 @@ beside the reference RTF formulas.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import time
 import warnings
@@ -102,21 +122,34 @@ class SynthesisPipeline:
     def __init__(self, model_cfg: cfglib.ModelConfig, model: MatchaTTS,
                  vocoder_cfg: Optional[cfglib.HiFiGANConfig] = None, vocoder: Optional[HiFiGANGenerator] = None,
                  text_buckets: Sequence[int] = None, mel_buckets: Sequence[int] = None,
-                 cleaners: Sequence[str] = ("english_cleaners2",), device="cuda"):
+                 cleaners: Sequence[str] = ("english_cleaners2",), device="cuda", denoiser_mode: str = "zeros",
+                 compute_dtype: torch.dtype = torch.float32, vocoder_dtype: torch.dtype = torch.float32):
+        """`denoiser_mode` "zeros" or "normal" picks the denoiser's bias probe;
+        `compute_dtype` and `vocoder_dtype` are f32 or bf16 (module docstring)."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError('SynthesisPipeline: no CUDA device is available (pass device="cpu" to synthesise '
                                'on the CPU)')
         if (vocoder_cfg is None) != (vocoder is None):
             raise ValueError("SynthesisPipeline: give both vocoder_cfg and vocoder, or neither (a mel-only pipeline)")
+        for name, dtype in (("compute_dtype", compute_dtype), ("vocoder_dtype", vocoder_dtype)):
+            if dtype not in (torch.float32, torch.bfloat16):
+                raise ValueError(f"SynthesisPipeline: {name}={dtype}; expected torch.float32 or torch.bfloat16")
         self.model_cfg = model_cfg
         self.model = model.to(self.device).eval()
+        self.compute_dtype, self.vocoder_dtype = compute_dtype, vocoder_dtype
+        # the acoustic model in the compute dtype: a copy made once, or the model itself
+        self.compute_model = (copy.deepcopy(self.model).to(compute_dtype) if compute_dtype != torch.float32
+                              else self.model)
+        # K1's mode: bf16 whenever either switch is
+        self.vocode_dtype = torch.bfloat16 if torch.bfloat16 in (compute_dtype, vocoder_dtype) else torch.float32
         self.vocoder_cfg = vocoder_cfg
         self.vocoder = vocoder.to(self.device).eval() if vocoder is not None else None
         self.text_buckets = tuple(text_buckets or default_text_buckets())
         self.mel_buckets = tuple(mel_buckets or default_mel_buckets())
         self.cleaners = tuple(cleaners)
-        self.denoiser = (Denoiser(self.vocoder, num_mels=model_cfg.n_feats, device=self.device)
+        # the bias probe runs the f32 vocoder in every precision
+        self.denoiser = (Denoiser(self.vocoder, num_mels=model_cfg.n_feats, device=self.device, mode=denoiser_mode)
                          if self.vocoder is not None else None)
 
     # ------------------------------------------------------------------ #
@@ -240,10 +273,11 @@ class SynthesisPipeline:
 
     @torch.no_grad()
     def _vocode(self, mel: torch.Tensor) -> torch.Tensor:
-        """The pipeline's vocoder call, mel (B, T, n_feats) → wav (B, T·hop):
-        K1 on every MRF stage on the card.  Chunked streaming vocodes through
-        it, so streamed and monolithic audio come from the same kernels."""
-        return self.vocoder(mel)
+        """The pipeline's vocoder call, mel (B, T, n_feats) → wav (B, T·hop)
+        f32: K1 on every MRF stage on the card, in bf16 mode where the
+        pipeline's precision says so.  Chunked streaming vocodes through it,
+        so streamed and monolithic audio come from the same kernels."""
+        return self.vocoder(mel.float(), compute_dtype=self.vocode_dtype)
 
     @torch.no_grad()
     def _vocode_denoise_pcm(self, mel, denoise: bool, denoiser_strength: float, pcm16: bool, clock):
@@ -303,7 +337,8 @@ class SynthesisPipeline:
         x_lengths = upload(torch.from_numpy(xl_np), self.device)
         spk = self._speakers(spks, b)
 
-        enc = self.model.encode_text(x, x_lengths, spk, length_scale)
+        # fused, the encoder runs in the compute dtype; two-stage, stage A stays f32 (the JAX stage A casts nothing)
+        enc = (self.compute_model if fused else self.model).encode_text(x, x_lengths, spk, length_scale)
         clock.mark("encoder")
         if fused:
             m_bucket = fused_mel_bucket or self.mel_buckets[-1]
@@ -311,13 +346,17 @@ class SynthesisPipeline:
             # the host sync: the predicted mel length picks the mel bucket
             y_len_max = int(enc[2].max().item())
             m_bucket = pick_bucket(fix_len_compatibility(y_len_max), self.mel_buckets)
-        z = synthesis_noise(seed, b, m_bucket, self.model_cfg.n_feats, temperature, self.device)
-        dec = self.model.decode_mel(*enc, m_bucket, n_timesteps, z)
+            if self.compute_dtype != torch.float32:  # stage B's inputs in the compute dtype, as the JAX stage B casts
+                mu_x, w_ceil, y_lengths, x_mask, spk_e = enc
+                dt = self.compute_dtype
+                enc = (mu_x.to(dt), w_ceil, y_lengths, x_mask.to(dt), spk_e.to(dt) if spk_e is not None else None)
+        z = synthesis_noise(seed, b, m_bucket, self.model_cfg.n_feats, temperature, self.device)  # f32
+        dec = self.compute_model.decode_mel(*enc, m_bucket, n_timesteps, z)
         clock.mark("decoder")
 
         out = {"mel_lengths": dec["mel_lengths"]}
         if keep_mel:
-            out["mel"] = dec["mel"]
+            out["mel"] = dec["mel"].float()
         if vocode:
             out["wav"] = self._vocode_denoise_pcm(dec["mel"], denoiser_strength > 0, denoiser_strength, pcm16,
                                                   clock)

@@ -1,11 +1,13 @@
 """Where the time of a synthesis call goes, at emoji_multi + HiFi-GAN v1 width.
 
-    python -m emojivoice_tpu_torch.inference.profile_slice [--out FILE]
+    python -m emojivoice_tpu_torch.inference.profile_slice [--out FILE] [--compute_dtype bf16] [--vocoder_dtype bf16]
 
 Builds ``SynthesisPipeline.from_random(emoji_multi, seed=0)`` on the card
 with TF32 off and sends ``bench.py``'s headline text (speaker 79, 10 Euler
 steps, denoiser 0.00025, pcm16) as four requests: batch 1 two-stage, then
-batch 1, 8 and 32 fused at the batch-1 mel bucket.  For each request:
+batch 1, 8 and 32 fused at the batch-1 mel bucket, in the pipeline's
+precision (``--compute_dtype`` and ``--vocoder_dtype``, f32 by default; K1's
+kernels in either mode are counted as K1).  For each request:
 
 * three warm calls, then seven timed calls: the median wall ms, rtf_w
   and per-stage ms (the pipeline's CUDA events);
@@ -69,6 +71,8 @@ def profile_request(pipe, texts, spks, **kw) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="chiprun_out/profile_slice.json")
+    ap.add_argument("--compute_dtype", choices=("f32", "bf16"), default="f32")
+    ap.add_argument("--vocoder_dtype", choices=("f32", "bf16"), default="f32")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_slice needs a CUDA device")
@@ -79,8 +83,10 @@ def main(argv=None) -> int:
     from emojivoice_tpu_torch.inference.pipeline import SynthesisPipeline
     from emojivoice_tpu_torch.utils.buckets import pick_bucket
 
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
     pipe = SynthesisPipeline.from_random(config.get_preset("emoji_multi"), seed=0, device="cuda",
-                                         cleaners=("basic_cleaners",))
+                                         cleaners=("basic_cleaners",), compute_dtype=dtypes[args.compute_dtype],
+                                         vocoder_dtype=dtypes[args.vocoder_dtype])
     kw = dict(n_timesteps=10, denoiser_strength=0.00025, keep_mel=False, pcm16=True)
     mel_length = pipe.synthesise([HEADLINE], spks=[79], seed=0, **kw)[0].mel_length
     bucket = pick_bucket(mel_length, pipe.mel_buckets)
@@ -92,11 +98,11 @@ def main(argv=None) -> int:
         texts, spks = [HEADLINE] * b, [79] * b
         for _ in range(3):
             pipe.synthesise(texts, spks=spks, seed=0, **kw, **extra)
-        row = dict(request=name, batch=b, mel_bucket=bucket, **time_request(pipe, texts, spks, REPEATS,
-                                                                           **kw, **extra))
+        row = dict(request=name, batch=b, mel_bucket=bucket, compute_dtype=args.compute_dtype,
+                   vocoder_dtype=args.vocoder_dtype, **time_request(pipe, texts, spks, REPEATS, **kw, **extra))
         row.update(profile_request(pipe, texts, spks, **kw, **extra))
         rows.append(row)
-        print(f"[profile] {name}: mel {row['mel_length']} @ {bucket}  wall {row['wall_ms']:.3f} ms  "
+        print(f"[profile] {name} (compute {args.compute_dtype}, vocoder {args.vocoder_dtype}): mel {row['mel_length']} @ {bucket}  wall {row['wall_ms']:.3f} ms  "
               f"rtf_w {row['rtf_w']:.5f}  stage ms "
               + " ".join(f"{k}={v:.3f}" for k, v in row["stage_ms"].items())
               + f"  | profiled call: {row['device_activities']} device activities, {row['device_ms']:.3f} ms "

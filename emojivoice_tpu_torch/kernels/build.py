@@ -74,14 +74,15 @@ def build_log(name: str, defines: tuple = ()) -> str:
 
 @functools.lru_cache(maxsize=None)
 def load_mrf(defines: tuple = ()) -> ctypes.CDLL:
-    """K1, the MRF res-block kernel (csrc/mrf.cu), built on first call."""
+    """K1, the MRF res-block kernel (csrc/mrf.cu) in its two modes, built on first call."""
     lib = ctypes.CDLL(str(build("mrf", defines)))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.mrf_resblock_f32.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, ctypes.POINTER(i), i,
-                                     ctypes.c_float, p]
-    lib.mrf_resblock_f32.restype = i
-    lib.mrf_conv_f32.argtypes = [p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, p]
-    lib.mrf_conv_f32.restype = i
+    for mode in ("f32", "bf16"):  # the 3xTF32 mode and the bf16 mode take the same arguments
+        resblock, conv = getattr(lib, f"mrf_resblock_{mode}"), getattr(lib, f"mrf_conv_{mode}")
+        resblock.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, ctypes.POINTER(i), i, ctypes.c_float, p]
+        resblock.restype = i
+        conv.argtypes = [p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, p]
+        conv.restype = i
     lib.mrf_error_string.argtypes = [i]
     lib.mrf_error_string.restype = ctypes.c_char_p
     return lib

@@ -36,9 +36,10 @@ class CFM(nn.Module):
 
         x1: target mel (B, T, n_feats); mask (B, T, 1); t (B, 1, 1) uniform
         draws and z (B, T, n_feats) normal draws, made by the caller in f32
-        (``utils/prng.py``) or injected by a test.  row_mask (B,) weights
-        whole rows (0 = a padding row that adds nothing to value or
-        gradient); None is the reference behaviour.
+        (``utils/prng.py``) or injected by a test, then cast to x1's dtype
+        (bf16 under mixed precision) as the JAX package casts its f32 draws.
+        row_mask (B,) weights whole rows (0 = a padding row that adds nothing
+        to value or gradient); None is the reference behaviour.
 
         Reference quirk kept: the squared error is summed over all positions.
         The estimator's output is masked but the target u is not, so padded
@@ -46,6 +47,7 @@ class CFM(nn.Module):
         The loss math is in f32.
         """
         sigma_min = self.cfg.sigma_min
+        t, z = t.to(x1.dtype), z.to(x1.dtype)
         y = (1 - (1 - sigma_min) * t) * z + t * x1
         u = x1 - (1 - sigma_min) * z
         pred = self.estimator(y, mask, mu, t[:, 0, 0], spks)

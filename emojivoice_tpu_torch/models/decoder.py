@@ -150,7 +150,11 @@ class TimestepEmbedding(nn.Module):
         self.linear_2 = nn.Linear(time_embed_dim, time_embed_dim)
 
     def forward(self, sample):
-        return self.linear_2(F.silu(self.linear_1(sample)))
+        """In the sample's dtype (f32) whatever the weights' dtype: the JAX
+        package's f32 input promotes bf16 weights to f32 there."""
+        def linear(layer, t):
+            return F.linear(t, layer.weight.to(t.dtype), layer.bias.to(t.dtype))
+        return linear(self.linear_2, F.silu(linear(self.linear_1, sample)))
 
 
 class Decoder(nn.Module):
@@ -192,7 +196,8 @@ class Decoder(nn.Module):
         self.final_proj = nn.Conv1d(up_chans[-1], out_channels, 1)
 
     def forward(self, x, mask, mu, t, spks=None):
-        temb = self.time_mlp(sinusoidal_pos_emb(t, self.in_channels))
+        # the time embedding in f32 for its phase, then in the compute dtype (bf16 runs stay bf16)
+        temb = self.time_mlp(sinusoidal_pos_emb(t, self.in_channels)).to(x.dtype)
         h = torch.cat([x, mu], dim=-1)
         if spks is not None:
             h = torch.cat([h, spks[:, None, :].expand(-1, h.shape[1], -1)], dim=-1)

@@ -10,6 +10,11 @@ the same names.
 Fork quirk kept: ``w_ceil = ceil(exp(logw)) * length_scale`` (scale after the
 ceil) and ``y_lengths = int(max(sum(w_ceil), 1))``.
 
+Reduced precision follows the JAX package's casts: the compute dtype is the
+parameters' (a bf16 copy of the model, or bf16 batch floats under
+``bf16-mixed``); masks follow it, while durations, the alignment path's
+construction and the losses stay f32.
+
 Training: ``forward`` returns ``(dur_loss, prior_loss, diff_loss, attn)``.
 MAS runs under ``torch.no_grad()`` on the detached log-prior (K2 on the
 card); the CFM draws ``t``/``z`` and the crop offsets come from the caller
@@ -66,11 +71,14 @@ class MatchaTTS(nn.Module):
                    z: torch.Tensor):
         """Stage B: alignment expansion + Euler CFM at mel capacity
         `y_max_length`, with the initial noise `z` (B, y_max_length, n_feats)
-        already scaled by the temperature."""
+        already scaled by the temperature.  Computes in mu_x's dtype (f32 or
+        bf16, the model's); the duration → path math stays f32."""
+        dtype = mu_x.dtype
         y_lengths = torch.clamp_max(y_lengths, y_max_length)
         y_mask = sequence_mask(y_lengths, y_max_length).float()[..., None]
-        attn_mask = x_mask * y_mask.transpose(1, 2)  # (B, T_x, T_y)
-        attn = generate_path(w_ceil[..., 0], attn_mask)
+        attn_mask = x_mask.float() * y_mask.transpose(1, 2)  # (B, T_x, T_y)
+        attn = generate_path(w_ceil[..., 0].float(), attn_mask).to(dtype)
+        y_mask = y_mask.to(dtype)
         mu_y = torch.einsum("bxy,bxc->byc", attn, mu_x)
         dec = self.decoder(mu_y, y_mask, n_timesteps, z, spk_e) * y_mask
         mel = dec * self.mel_std + self.mel_mean
@@ -105,7 +113,8 @@ class MatchaTTS(nn.Module):
         spk_e = self._embed_spks(spks)
         x_mask, y_mask, _, mu_x, logw, attn = self._encode_align(x, x_lengths, y, y_lengths, spk_e, durations)
 
-        logw_ = torch.log(1e-8 + attn.sum(-1))[..., None] * x_mask
+        # loss math in f32: bf16 duration counts round above 256
+        logw_ = torch.log(1e-8 + attn.float().sum(-1))[..., None] * x_mask
         dur_se = torch.square(logw.float() - logw_)
         if row_mask is None:
             dur_loss = dur_se.sum() / x_lengths.sum()
@@ -118,10 +127,12 @@ class MatchaTTS(nn.Module):
                 raise ValueError("out_size below the mel length needs crop_offsets")
             y, attn, y_mask = self._segment_crop(y, attn, y_lengths, out_size, crop_offsets)
 
-        mu_y = torch.einsum("bxy,bxc->byc", attn, mu_x)
-        diff_loss, _ = self.decoder.compute_loss(y, y_mask, mu_y, spk_e, t=t, z=z, row_mask=row_mask)
+        dtype = y.dtype  # the decoder computes in the batch's dtype (bf16 under mixed precision)
+        mu_y = torch.einsum("bxy,bxc->byc", attn.to(dtype), mu_x.to(dtype))
+        diff_loss, _ = self.decoder.compute_loss(y, y_mask.to(dtype), mu_y, spk_e, t=t, z=z, row_mask=row_mask)
 
         if cfg.prior_loss:
+            y, mu_y, y_mask = y.float(), mu_y.float(), y_mask.float()
             prior_se = 0.5 * (torch.square(y - mu_y) + math.log(2 * math.pi)) * y_mask
             if row_mask is None:
                 prior_loss = prior_se.sum() / (y_mask.sum() * cfg.n_feats)
@@ -183,7 +194,9 @@ class MatchaTTS(nn.Module):
         attn_cut = torch.gather(attn, 2, idx[:, None, :].expand(-1, attn.shape[1], -1))
         y_cut_lengths = torch.clamp_max(y_lengths, out_size)
         y_cut_mask = sequence_mask(y_cut_lengths, out_size).float()[..., None]
-        return y_cut * y_cut_mask, attn_cut * y_cut_mask.transpose(1, 2), y_cut_mask
+        # each operand masked in its own dtype (y may be bf16)
+        return (y_cut * y_cut_mask.to(y_cut.dtype), attn_cut * y_cut_mask.transpose(1, 2).to(attn_cut.dtype),
+                y_cut_mask)
 
     @torch.no_grad()
     def training_probe(self, x, x_lengths, y, y_lengths, spks=None, n_timesteps: int = 10, *,

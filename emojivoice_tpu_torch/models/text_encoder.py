@@ -150,8 +150,8 @@ class TextEncoder(nn.Module):
                                         duration_predictor.kernel_size, duration_predictor.p_dropout)
 
     def forward(self, x, x_mask, spks: Optional[torch.Tensor] = None):
-        m = x_mask.transpose(1, 2)  # (B, 1, T)
         h = (self.emb(x) * math.sqrt(self.n_channels)).transpose(1, 2)
+        m = x_mask.to(h.dtype).transpose(1, 2)  # (B, 1, T), in the compute dtype (the embedding's: f32 or bf16)
         if self.prenet_enabled:
             h = self.prenet(h, m)
         if spks is not None:

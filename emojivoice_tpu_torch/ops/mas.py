@@ -5,7 +5,9 @@
 (higher = more likely), mask (B, T_x, T_y) the attention mask from which the
 lengths are read (``t_x = Σ mask[:, :, 0]``, ``t_y = Σ mask[:, 0, :]``); it
 returns the most likely monotone path as a 0/1 tensor of value's shape and
-dtype.  The recurrence, with its boundary rules::
+dtype.  As in the JAX package, value may be of any float dtype (bf16 under
+mixed-precision training): it is cast to f32 and the search runs in f32.
+The recurrence, with its boundary rules::
 
     V[x, y] = value[x, y]·mask[x, y] + max(v_cur, v_prev)
       v_cur  = V[x, y−1]     (−1e9 where x == y)
@@ -144,6 +146,8 @@ def maximum_path(value: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         return maximum_path_reference(value, mask)
     if value.device.type != "cuda":
         raise ValueError(f"maximum_path: no kernel for device {value.device}")
+    if value.is_floating_point() and value.dtype != torch.float32:  # searched in f32, returned in value's dtype
+        return maximum_path(value.float().contiguous(), mask).to(value.dtype)
     _check(value, mask)
     from emojivoice_tpu_torch.kernels.build import load_mas
 

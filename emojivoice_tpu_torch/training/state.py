@@ -1,5 +1,5 @@
 """Train state and the train/eval steps (PyTorch port of
-``emojivoice_tpu.training.state``), one device, f32.
+``emojivoice_tpu.training.state``), one device, f32 or bf16-mixed.
 
 Adam (lr 1e-4) with global-norm clipping at 5.0, loss = dur + prior + diff,
 the gradient norm before clipping as a metric every step.  The learning rate
@@ -11,6 +11,14 @@ The update is held to the JAX package's optax chain: ``torch.optim.Adam`` and
 correction on both moments), ``AdamW`` the same as ``optax.adamw``; the clip
 is written by hand to optax's formula, ``g · max_norm / max(norm, max_norm)``,
 because ``torch.nn.utils.clip_grad_norm_`` divides by ``norm + 1e-6``.
+
+``precision="bf16-mixed"`` follows the JAX step (``_build_step_fn``): inside
+the loss every float parameter and every float batch entry is cast to bf16
+(``torch.func.functional_call`` on the cast parameters; the cast is
+differentiable, so the gradients land on the f32 parameters), while the loss
+terms, gradients, norm, clip and Adam stay f32, with no loss scaling.  Not
+``torch.autocast``: that keeps norms and softmax in f32 and computes something
+other than the JAX step.
 """
 
 from __future__ import annotations
@@ -25,6 +33,15 @@ import torch
 from emojivoice_tpu_torch.config import ModelConfig, OptimizerConfig
 from emojivoice_tpu_torch.models.matcha import MatchaTTS
 from emojivoice_tpu_torch.utils.prng import step_seed, training_draws
+
+
+def _dtype_for(precision: Optional[str]) -> torch.dtype:
+    """The compute dtype of a precision name, as the JAX trainer reads it."""
+    if precision in ("bf16-mixed", "bf16", "16-mixed"):
+        return torch.bfloat16
+    if precision in ("f32", "fp32", "32", "32-true", None):
+        return torch.float32
+    raise ValueError(f"Unknown precision: {precision!r}")
 
 
 def make_schedule(cfg: OptimizerConfig) -> Callable[[int], float]:
@@ -121,11 +138,19 @@ def batch_to_device(batch: dict, device) -> dict:
     return out
 
 
-def _losses(model: MatchaTTS, batch: dict, draws: dict, out_size: Optional[int]):
+def _losses(model: MatchaTTS, batch: dict, draws: dict, out_size: Optional[int], precision: Optional[str] = "f32"):
+    dtype = _dtype_for(precision)
     offsets = None
     if "crop_u" in draws:
         offsets = model.crop_offsets_from_uniform(draws["crop_u"], batch["y_lengths"], out_size)
-    dur, prior, diff, _ = model(batch["x"], batch["x_lengths"], batch["y"], batch["y_lengths"], batch.get("spks"),
+    forward = model
+    if dtype != torch.float32:
+        params = {name: p.to(dtype) if p.is_floating_point() else p for name, p in model.named_parameters()}
+        batch = {k: v.to(dtype) if v.is_floating_point() else v for k, v in batch.items()}
+
+        def forward(*args, **kwargs):
+            return torch.func.functional_call(model, params, args, kwargs)
+    dur, prior, diff, _ = forward(batch["x"], batch["x_lengths"], batch["y"], batch["y_lengths"], batch.get("spks"),
                                 batch.get("durations"), t=draws["t"], z=draws["z"], out_size=out_size,
                                 crop_offsets=offsets, row_mask=batch.get("row_mask"))
     return dur, prior, diff
@@ -145,12 +170,13 @@ def apply_gradients(state: TrainState):
     return grad_norm, lr
 
 
-def train_step(state: TrainState, batch: dict, seed: int, clock=None) -> dict:
+def train_step(state: TrainState, batch: dict, seed: int, clock=None, precision: Optional[str] = "f32") -> dict:
     """One optimizer step on a device batch → metrics as 0-d tensors (the
     caller decides when to read them, so the step itself does not wait for
     the device).  The CFM draws, the crop offsets and dropout are seeded from
     ``(seed, state.step)``.  `clock`, where given, has ``mark(name)`` called
-    after the forward, the backward and the update."""
+    after the forward, the backward and the update.  `precision`: "f32" or
+    "bf16-mixed" (the module docstring; the JAX names of each are taken)."""
     model, dev = state.model, state.device
     model.train()
     out_size = model.cfg.out_size
@@ -161,7 +187,7 @@ def train_step(state: TrainState, batch: dict, seed: int, clock=None) -> dict:
     # inside a fork, so the caller's random state is left alone
     with torch.random.fork_rng(devices=[dev] if dev.type == "cuda" else []):
         torch.manual_seed(step_seed(seed, state.step, "dropout"))
-        dur, prior, diff = _losses(model, batch, draws, out_size)
+        dur, prior, diff = _losses(model, batch, draws, out_size, precision)
     total = dur + prior + diff
     if clock is not None:
         clock.mark("forward")
@@ -177,16 +203,16 @@ def train_step(state: TrainState, batch: dict, seed: int, clock=None) -> dict:
 
 
 @torch.no_grad()
-def eval_step(model: MatchaTTS, batch: dict, seed: int = 0) -> dict:
+def eval_step(model: MatchaTTS, batch: dict, seed: int = 0, precision: Optional[str] = "f32") -> dict:
     """Validation losses: no dropout, no crop, and the same CFM draws on
     every call (seeded from `seed` alone), so the result depends only on the
-    weights and the batch."""
+    weights and the batch; `precision` casts as ``train_step`` does."""
     was_training = model.training
     model.eval()
     try:
         b, frames, n_feats = batch["y"].shape
         draws = training_draws(seed, 0, b, frames, n_feats, batch["y"].device)
-        dur, prior, diff = _losses(model, batch, draws, None)
+        dur, prior, diff = _losses(model, batch, draws, None, precision)
     finally:
         model.train(was_training)
     return {"dur_loss": dur, "prior_loss": prior, "diff_loss": diff, "loss": dur + prior + diff}

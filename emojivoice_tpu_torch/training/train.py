@@ -14,14 +14,18 @@ records where in the (seed, epoch)-deterministic shuffle the run was, so
 ``--resume`` continues on unseen batches, and every random draw is seeded
 from (seed, step), so a resumed run repeats an unbroken one exactly.
 
+``--precision bf16-mixed`` computes the forward and backward in bf16 with f32
+parameters, losses, gradients and Adam (``training/state.py``); the default is
+the preset's ``trainer.precision``.
+
 ``--from_torch_ckpt`` fine-tunes from a reference-format ``.ckpt`` (a
 released voice, or what ``io/export_torch.py`` wrote): the model takes the
 checkpoint's own architecture, and a checkpoint that does not fit the
 preset's data (mel width, speaker count) is refused by name.
 
-Flags keep the JAX trainer's names.  Not ported yet: ``--precision
-bf16-mixed``, ``--tp``, ``--num_devices``, ``--dcn_*``,
-``--render_val_samples`` and the tensorboard/csv/wandb loggers.
+Flags keep the JAX trainer's names.  Not ported yet: ``--tp``,
+``--num_devices``, ``--dcn_*``, ``--render_val_samples`` and the
+tensorboard/csv/wandb loggers.
 """
 
 from __future__ import annotations
@@ -58,6 +62,9 @@ def build_parser():
     p.add_argument("--decay_steps", type=int, default=100_000)
     p.add_argument("--scheduler_gamma", type=float, default=0.1)
     p.add_argument("--lr_end", type=float, default=0.0)
+    p.add_argument("--precision", default=None, choices=[None, "f32", "bf16-mixed"],
+                   help="bf16-mixed: bf16 compute, f32 parameters, losses and optimizer; default: the preset's "
+                        "trainer.precision")
     p.add_argument("--out_size", type=int, default=None, help="Grad-TTS segment crop (multiple of 4)")
     p.add_argument("--from_torch_ckpt", default=None, help="fine-tune from a reference-format .ckpt")
     p.add_argument("--resume", action="store_true", help="resume from the latest checkpoint in out_dir")
@@ -96,7 +103,8 @@ def _run(args) -> int:
     from emojivoice_tpu_torch import config as cfglib
     from emojivoice_tpu_torch.data.dataset import BucketBatcher, Prefetcher, TextMelDataset
     from emojivoice_tpu_torch.io.checkpoint import CheckpointManager
-    from emojivoice_tpu_torch.training.state import batch_to_device, create_train_state, eval_step, train_step
+    from emojivoice_tpu_torch.training.state import (_dtype_for, batch_to_device, create_train_state, eval_step,
+                                                     train_step)
     from emojivoice_tpu_torch.utils.prng import step_generator
 
     device = torch.device(args.device)
@@ -119,6 +127,9 @@ def _run(args) -> int:
             model=dataclasses.replace(root.model, data_statistics=ds_stats),
             data=dataclasses.replace(root.data, data_statistics=ds_stats),
         )
+    # the flag overrides the preset's trainer.precision (the reference trainer's `precision: 16-mixed`)
+    precision = args.precision or root.trainer.precision
+    _dtype_for(precision)  # an unknown name fails here, before any work
     model_cfg = dataclasses.replace(root.model, out_size=args.out_size)
     opt_cfg = dataclasses.replace(
         root.optimizer, lr=args.lr, scheduler=args.scheduler, warmup_steps=args.warmup_steps,
@@ -155,7 +166,7 @@ def _run(args) -> int:
 
     print(f"[train] device={device} preset={args.preset} params total={count(model) / 1e6:.2f}M "
           f"encoder={count(model.encoder) / 1e6:.2f}M decoder={count(model.decoder) / 1e6:.2f}M  "
-          f"lr={opt_cfg.lr} out_size={args.out_size}", flush=True)
+          f"lr={opt_cfg.lr} out_size={args.out_size} precision={precision}", flush=True)
     ckpt_dir = Path(args.out_dir) / "ckpts"
     mgr = CheckpointManager(str(ckpt_dir), max_to_keep=root.trainer.save_top_k)
     resumed_data_state = None
@@ -253,7 +264,7 @@ def _run(args) -> int:
               + "  ".join(f"{k}={v:.4f}" for k, v in m.items() if v is not None), flush=True)
 
     def run_eval(tag, eval_batcher, step):
-        ms = [eval_step(model, batch_to_device(vb, device)) for vb in eval_batcher]
+        ms = [eval_step(model, batch_to_device(vb, device), precision=precision) for vb in eval_batcher]
         if not ms:
             return None
         avg = {k: float(np.mean([float(m[k]) for m in ms])) for k in ms[0]}  # one wait, after the sweep
@@ -295,7 +306,7 @@ def _run(args) -> int:
         base = state.step
         shape_key = (int(batch_np["x"].shape[0]), int(batch_np["x"].shape[1]), int(batch_np["y"].shape[1]))
         seen_shapes.setdefault(shape_key, base)
-        m = train_step(state, batch_to_device(batch_np, device), args.seed)
+        m = train_step(state, batch_to_device(batch_np, device), args.seed, precision=precision)
         flush_log()  # the previous step's metrics
         pending_log = (state.step, m)
         step = state.step

@@ -19,6 +19,21 @@ Two forwards, chosen by the caller:
   ``F.conv_transpose1d`` for either parameterization, differentiable; the
   GAN step trains through it.
 
+**bf16 mode** (``forward(mel, compute_dtype=torch.bfloat16)``, what the
+pipeline's ``compute_dtype`` and ``vocoder_dtype`` switch on) is the JAX
+package's ``hifigan_apply_pallas(cfg, params, mel, compute_dtype=bf16,
+stages="all")``: only the MRF stages' tap products are bf16 (K1's bf16 mode on
+the card, its plain twin on the CPU); ``conv_pre``, the transposed upsample
+convs and ``conv_post`` stay f32, as do the input and the waveform.  That is a
+choice: the JAX pipeline's own ``vocoder_dtype=bf16`` runs every conv through
+XLA in bf16 (``emojivoice_tpu/inference/pipeline.py:172-180``), which has no
+kernel behind it.  The kernel-based function is the one reduced-precision
+vocoder the JAX package defines through its TPU kernel, so it is what K1's bf16
+mode ports; the MRF stages are 304 of the 317.7 GFLOP of HiFi-GAN v1 at 512
+frames, so the f32 convs around them cost little.  The port is held to the
+kernel-based function within 2e-4 and to the JAX pipeline's all-bf16 waveform
+within the JAX package's own 2e-2 (``tests/test_torch_precision*.py``).
+
 Two parameterizations: plain weights (the reference generator's names after
 ``remove_weight_norm``), or ``weight_norm=True``, the reference's training
 form with its names ``weight_g`` / ``weight_v``: ``w = g · v / ‖v‖`` with the
@@ -152,38 +167,51 @@ class HiFiGANGenerator(nn.Module):
                 self.resblocks.append(res_cls(ch, rk, tuple(rd), weight_norm))
         self.conv_post = _conv1d(weight_norm, cfg.upsample_initial_channel // (2 ** len(cfg.upsample_rates)), 1, 7,
                                  padding=3)
-        self._stacked, self._stacked_key = None, None
+        self._stacked, self._stacked_key = {}, None
 
-    def stage_weights(self, stage: int):
-        """The MRF weights of `stage` as ``mrf_stage`` takes them: the contract's
-        stacked tuples on the CPU, K1's packed operands (c_in fastest, split in
-        two TF32 parts) on the card.  They are made once and again only after a
-        res-block parameter moves (``.to``) or is written in place
-        (``load_state_dict``), not on every call.  Plain ResBlock1 weights
-        only: a weight-norm generator is folded first."""
+    def stage_weights(self, stage: int, dtype: torch.dtype = torch.float32):
+        """The MRF weights of `stage` as ``mrf_stage`` takes them, in K1's
+        mode `dtype` (f32, or bf16 with w1/w2 rounded to nearest even): the
+        contract's stacked tuples on the CPU, K1's packed operands (c_in
+        fastest; in f32 mode split in two TF32 parts) on the card.  They are
+        made once per mode and again only after a res-block parameter moves
+        (``.to``) or is written in place (``load_state_dict``), not on every
+        call.  Plain ResBlock1 weights only: a weight-norm generator is folded
+        first."""
         if self.weight_norm or self.cfg.resblock != "1":
             raise RuntimeError("stage_weights: the fused MRF stage takes plain ResBlock1 weights; call "
                                "fold_weight_norm() on a weight-norm generator and serve the result")
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"stage_weights: K1 has an f32 and a bf16 mode, not {dtype}")
         key = tuple((p.data_ptr(), p._version) for p in self.resblocks.parameters())
         with _STACK_LOCK:
             if key != self._stacked_key:
+                self._stacked, self._stacked_key = {}, key
+            if dtype not in self._stacked:
                 n = self.num_kernels
                 stacked = [[rb.stacked_weights() for rb in self.resblocks[s * n:(s + 1) * n]]
                            for s in range(len(self.ups))]
+                if dtype != torch.float32:
+                    stacked = [[(w1.detach().to(dtype), b1, w2.detach().to(dtype), b2) for w1, b1, w2, b2 in st]
+                               for st in stacked]
                 on_card = self.conv_pre.weight.device.type == "cuda"
-                self._stacked = [pack_weights(stage) for stage in stacked] if on_card else stacked
-                self._stacked_key = key
-            return self._stacked[stage]
+                self._stacked[dtype] = [pack_weights(st) for st in stacked] if on_card else stacked
+            return self._stacked[dtype][stage]
 
     @torch.no_grad()
-    def forward(self, mel: torch.Tensor) -> torch.Tensor:
+    def forward(self, mel: torch.Tensor, compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """mel (B, T, num_mels) f32 → waveform f32; `compute_dtype` bf16 runs
+        the MRF stages in K1's bf16 mode (the module docstring)."""
         cfg = self.cfg
         if self.weight_norm:
             raise RuntimeError("HiFiGANGenerator.forward serves plain weights: call fold_weight_norm() and serve "
                                "the generator it returns (forward_train runs either parameterization)")
         if cfg.resblock != "1":
+            if compute_dtype != torch.float32:
+                raise ValueError("HiFiGANGenerator.forward: the bf16 mode is K1's, which runs ResBlock1 stages; "
+                                 "ResBlock2 serves in f32")
             return self.forward_train(mel)
-        return _serve(self, mel, [self.stage_weights(i) for i in range(len(self.ups))])
+        return _serve(self, mel, [self.stage_weights(i, compute_dtype) for i in range(len(self.ups))])
 
     def for_export(self) -> nn.Module:
         """The serving forward as ``torch.export`` can trace it: a ResBlock1
@@ -237,7 +265,8 @@ class PackedGenerator(nn.Module):
     stacked weights on the CPU), made once here, held as buffers in place of
     the res-block convs: under ``torch.export`` the parameters have no storage
     to pack from, and an exported program then carries each weight once.
-    Shares the other convs with the generator it was made from."""
+    Shares the other convs with the generator it was made from.  f32 only, as
+    the JAX package's export, which ignores the pipeline's precision."""
 
     def __init__(self, gen: HiFiGANGenerator):
         super().__init__()

@@ -7,7 +7,8 @@ where the port runs:
     python -m pytest --noconftest -m cuda tests/test_torch_mas_cuda.py -q
 
 Tolerance: none.  The arithmetic is one f32 add and one max per cell with no
-reduction, so kernel and plain version must be equal (``torch.equal``).
+reduction, so kernel and plain version must be equal (``torch.equal``), on a
+bf16 log-prior (ties common) as on an f32 one.
 """
 
 import pytest
@@ -67,10 +68,28 @@ def test_k2_text_longer_than_mel_and_empty_items(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,t_x,t_y", [(16, 256, 768), (4, 512, 2048)])
+def test_k2_on_a_bf16_log_prior(cuda, b, t_x, t_y):
+    """Under bf16-mixed training the log-prior is bf16 (large magnitudes on a
+    coarse grid: ties are common): K2 searches its f32 value and returns the
+    path in bf16, equal to the plain search to the bit."""
+    value, mask = ragged_mas_problem(b, t_x, t_y, seed=t_x)
+    value = (value * 40 - 300).to(torch.bfloat16)
+    before = mas.launches
+    got = mas.maximum_path(value, mask)
+    torch.cuda.synchronize()
+    assert mas.launches == before + 1 and got.dtype == torch.bfloat16
+    assert torch.equal(got, mas.maximum_path_reference(value, mask))
+    assert mas.path_faults(got.float(), mask) == []
+
+
+@pytest.mark.cuda
 def test_k2_rejects_what_it_cannot_run(cuda):
     value, mask = ragged_mas_problem(2, 8, 16, seed=0)
+    # any float dtype is searched in f32, as in the JAX package; an integer value is refused
+    assert torch.equal(mas.maximum_path(value.double(), mask), mas.maximum_path(value, mask).double())
     with pytest.raises(ValueError, match="float32"):
-        mas.maximum_path(value.double(), mask)
+        mas.maximum_path(value.long(), mask)
     with pytest.raises(ValueError, match="contiguous"):
         mas.maximum_path(value.transpose(1, 2).contiguous().transpose(1, 2), mask)
     with pytest.raises(ValueError, match="mask"):
