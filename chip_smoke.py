@@ -160,8 +160,14 @@ DEVICE, PRESET = "cuda", "emoji_multi"
 TOL = 2e-4  # the bound tests/test_pallas_mrf.py holds the Pallas kernel to
 # K1's bf16 mode against its twin: within TOL on at least BF16_WITHIN of the outputs, and BF16_FLIP_TOL on all.
 # The two sum in other orders, and an intermediate that close to a bf16 rounding boundary rounds to neighbouring
-# bf16 numbers in the two: one bf16 step of it, |w|·step on each output that reads it (tests/test_torch_mrf_cuda.py)
-BF16_WITHIN, BF16_FLIP_TOL = 0.99, 2e-3
+# bf16 numbers in the two: one bf16 step of it, |w|·step on each output that reads it (tests/test_torch_mrf_cuda.py;
+# the float64 twin with the same rounding points is the witness).  Where the stage rounds: on one dilation unit
+# (conv, lrelu, round, conv), where flips stay sparse, the median error against the twin must stay under
+# BF16_GAP_SHARE of the median bf16-against-f32 gap; over a whole stage flips cascade through nine units, so there
+# the bound is BF16_STAGE_SHARE.  A kernel that never rounded the activation sits ~0.7 of the gap away in both
+# (the twin on the bf16 weights in f32 activations, printed beside it)
+BF16_WITHIN, BF16_FLIP_TOL, BF16_GAP_SHARE, BF16_STAGE_SHARE = 0.99, 2e-3, 0.1, 0.35
+BF16_TILE_TOL = 1e-5  # one bf16 convolution against float64 on the same rounded operands, of the largest output
 KERNELS = (3, 7, 11)
 DILATIONS = ((1, 3, 5), (1, 3, 5), (1, 3, 5))
 MEL = 512
@@ -1433,32 +1439,99 @@ def bf16_weights(w) -> list:
     return [(w1.to(torch.bfloat16), b1, w2.to(torch.bfloat16), b2) for w1, b1, w2, b2 in w]
 
 
+def quantile(v: torch.Tensor, q: float) -> float:
+    """The q-quantile of v's elements (``torch.quantile`` stops at 2^24)."""
+    v = v.flatten()
+    return float(v.kthvalue(max(1, min(v.numel(), round(q * v.numel())))).values)
+
+
 def bf16_tile_check(mrf) -> float:
-    """K1's bf16 product alone: one k = 1 convolution on one 64-frame tile of
-    bf16-exact positive x against float64 on the same operands; a bf16
-    product is exact in f32, so only the f32 sum's error remains."""
+    """K1's bf16 product alone: one convolution on one 64-frame tile against
+    float64 on the same operands.  x is signed and not bf16-exact, so where
+    the activation is rounded shows: the kernel must match
+    ``round_bf16(lrelu(x)) ∗ w + bias`` (a bf16 product is exact in f32; only
+    the f32 sum's error remains) within BF16_TILE_TOL of the largest output,
+    and ``lrelu(round_bf16(x)) ∗ w`` (rounding before the lrelu) and
+    ``lrelu(x) ∗ w`` (no rounding) must both miss that bound."""
+    import torch.nn.functional as F
+
     worst = 0.0
-    for c in (64, 256):
-        g = torch.Generator().manual_seed(c + 1)
-        x = (torch.rand((1, 64, c), generator=g) + 0.1).to(torch.bfloat16).float().cuda()
-        w = (torch.randn((1, c, c), generator=g) * 0.1).to(torch.bfloat16).cuda()
-        bias = torch.randn((c,), generator=g).cuda()
-        got = mrf.conv_taps(x, w, bias)
+    for c, k, d in ((64, 1, 1), (256, 1, 1), (40, 11, 5), (256, 11, 1)):
+        g = torch.Generator().manual_seed(c + k)
+        x = torch.randn((1, 64, c), generator=g).cuda()
+        w = (torch.randn((k, c, c), generator=g) * 0.1).to(torch.bfloat16).cuda()
+        bias = (torch.randn((c,), generator=g) * 0.1).cuda()
+        got = mrf.conv_taps(x, w, bias, d).double()
         torch.cuda.synchronize()
-        ref = torch.matmul(x[0].double(), w[0].double()) + bias.double()
-        rel = float((got[0].double() - ref).abs().max() / ref.abs().max())
-        print(f"[precision] K1 bf16 one tile, 64 x {c} x {c}, wgmma bf16 against float64 matmul of the same bf16 "
-              f"operands: max error {rel:.3e} of the largest output")
-        if not rel <= 1e-5:
-            raise RuntimeError(f"K1's bf16 product is off by {rel:.3e} at C={c}")
-        worst = max(worst, rel)
+
+        def conv(a):
+            return F.conv1d(a.double().transpose(1, 2), w.double().permute(2, 1, 0), bias.double(),
+                            padding=(k // 2) * d, dilation=d).transpose(1, 2)
+
+        def lrelu(a):
+            return F.leaky_relu(a, mrf.LRELU_SLOPE)
+
+        refs = {"after": conv(lrelu(x).to(torch.bfloat16)), "before": conv(lrelu(x.to(torch.bfloat16).float())),
+                "none": conv(lrelu(x))}
+        scale = float(refs["after"].abs().max())
+        rel = {name: float((got - ref).abs().max()) / scale for name, ref in refs.items()}
+        # how the f32 sums round: the mean error toward zero over its mean size (-1: every sum truncated toward
+        # zero; ~0: rounded to nearest), the kernel's tensor-core sums beside cuDNN's f32 conv on the same operands
+        plain = F.conv1d(lrelu(x).to(torch.bfloat16).float().transpose(1, 2), w.float().permute(2, 1, 0), bias,
+                         padding=(k // 2) * d, dilation=d).transpose(1, 2).double()
+
+        def toward_zero(e):
+            return float((e * refs["after"].sign()).mean() / e.abs().mean().clamp_min(1e-300))
+
+        e_k, e_p = got - refs["after"], plain - refs["after"]
+        print(f"[precision] K1 bf16 one conv, 64 x {c} x {c}, k={k} d={d}, signed x: wgmma bf16 against float64 of "
+              f"the activation rounded after the lrelu {rel['after']:.3e}, before it {rel['before']:.3e}, "
+              f"not rounded {rel['none']:.3e} (of the largest output; bound {BF16_TILE_TOL}); the f32 sums' error: "
+              f"kernel mean {float(e_k.abs().mean()):.3e}, signed toward zero {toward_zero(e_k):+.3f}; cuDNN f32 mean "
+              f"{float(e_p.abs().mean()):.3e}, {toward_zero(e_p):+.3f}")
+        if not (rel["after"] <= BF16_TILE_TOL < min(rel["before"], rel["none"])):
+            raise RuntimeError(f"K1's bf16 product does not round where _conv_same does at C={c}: {rel}")
+        worst = max(worst, rel["after"])
     return worst
+
+
+def unrounded_gap_share(mrf, x, w16, ref, gap, kernels, dilations) -> float:
+    """Median distance from the bf16 twin, over the median bf16-against-f32
+    gap, of what a kernel that never rounded the activation would give: the
+    twin on the bf16 weights with f32 activations."""
+    unrounded = mrf.mrf_stage_reference(x, [(w1.float(), b1, w2.float(), b2) for w1, b1, w2, b2 in w16],
+                                        kernels, dilations)
+    return quantile((unrounded - ref).abs(), 0.5) / quantile(gap, 0.5)
+
+
+def unit_check(mrf, x, w) -> dict:
+    """K1's bf16 mode on one dilation unit, the k = 11, d = 1 unit of the
+    third res-block: x + conv(round(lrelu(conv(round(lrelu(x)))))).  A flip
+    there moves only the outputs that read the flipped activation, so the
+    bulk of the error is the f32 sum order's, and rounding the intermediate
+    anywhere but after its lrelu moves the median by a share of the gap."""
+    w32 = [tuple(t[:1].contiguous() for t in w[KERNELS.index(11)])]
+    one = bf16_weights(w32)
+    got = mrf.mrf_stage(x, one, (11,), ((1,),))
+    ref = mrf.mrf_stage_reference(x, one, (11,), ((1,),))
+    gap = (ref - mrf.mrf_stage_reference(x, w32, (11,), ((1,),))).abs()
+    diff = (got - ref).abs()
+    out = dict(gap_share=quantile(diff, 0.5) / quantile(gap, 0.5), max_abs_err=float(diff.max()),
+               within=float((diff <= TOL + TOL * ref.abs()).float().mean()),
+               unrounded_share=unrounded_gap_share(mrf, x, one, ref, gap, (11,), ((1,),)))
+    out["ok"] = out["gap_share"] <= BF16_GAP_SHARE < out["unrounded_share"]
+    return out
 
 
 def precision_kernel(mrf) -> list:
     """K1's bf16 mode against its plain twin at the four stage shapes of a
     512-frame utterance and at batch 8; its time beside the plain twin's and,
-    timed alternately in the same call, K1's f32 mode's."""
+    timed alternately in the same call, K1's f32 mode's.
+
+    Beside the error against the twin it prints the stage's bf16-against-f32
+    gap (the twin on bf16 weights against the twin on the f32 weights) and
+    the witness of the rounding flips: the twin summed in float64 with the
+    same rounding points, against the f32 twin and against the kernel."""
     rows = []
     for i, (b, c, t) in enumerate(BF16_SHAPES):
         x, w = random_stage(b, c, t, seed=100 + i)
@@ -1471,7 +1544,19 @@ def precision_kernel(mrf) -> list:
         diff = (got - ref).abs()
         err = float(diff.max())
         within = float((diff <= TOL + TOL * ref.abs()).float().mean())
-        ok = bool(torch.isfinite(got).all()) and within >= BF16_WITHIN and err <= BF16_FLIP_TOL and same_bits
+        gap = (ref - mrf.mrf_stage_reference(x, w, KERNELS, DILATIONS)).abs()
+        gap_share = quantile(diff, 0.5) / quantile(gap, 0.5)
+        unrounded_share = unrounded_gap_share(mrf, x, w16, ref, gap, KERNELS, DILATIONS)
+        unit = unit_check(mrf, x, w)
+        ref64 = mrf.mrf_stage_reference(x.double(), w16, KERNELS, DILATIONS)
+        twin_vs_64, kernel_vs_64 = (ref.double() - ref64).abs(), (got.double() - ref64).abs()
+        tol64 = TOL + TOL * ref64.abs()
+        witness = dict(twin_within=float((twin_vs_64 <= tol64).double().mean()), twin_max=float(twin_vs_64.max()),
+                       kernel_within=float((kernel_vs_64 <= tol64).double().mean()),
+                       kernel_max=float(kernel_vs_64.max()))
+        del ref64, twin_vs_64, kernel_vs_64, tol64
+        ok = bool(torch.isfinite(got).all()) and within >= BF16_WITHIN and err <= BF16_FLIP_TOL and same_bits \
+            and gap_share <= BF16_STAGE_SHARE < unrounded_share and unit["ok"]
         plain_ms, bf16_ms = abba_ms(lambda: mrf.mrf_stage_reference(x, w16, KERNELS, DILATIONS),
                                     lambda: mrf.mrf_stage(x, packed16, KERNELS, DILATIONS))
         f32_ms, bf16_ms_again = abba_ms(lambda: mrf.mrf_stage(x, packed32, KERNELS, DILATIONS),
@@ -1483,17 +1568,28 @@ def precision_kernel(mrf) -> list:
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = gflop * 1e9 / BF16_FLOPS * 1e3
         rows.append(dict(B=b, C=c, T=t, max_abs_err=err, within_tol=within, ok=ok, ms=bf16_ms, plain_ms=plain_ms,
-                         f32_ms=f32_ms,
-                         ms_beside_f32=bf16_ms_again, gflop=gflop, tflops=gflop / bf16_ms,
+                         f32_ms=f32_ms, ms_beside_f32=bf16_ms_again, gflop=gflop, tflops=gflop / bf16_ms,
                          bound_ms=max(ops_ms, bytes_ms), bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-                         bytes_ms=bytes_ms))
+                         bytes_ms=bytes_ms, err_median=quantile(diff, 0.5), err_p99=quantile(diff, 0.99),
+                         gap_median=quantile(gap, 0.5), gap_p99=quantile(gap, 0.99), gap_max=float(gap.max()),
+                         gap_share=gap_share, unrounded_share=unrounded_share, witness=witness, unit=unit))
         print(f"[precision] K1 bf16 B={b} C={c:3d} T={t:6d}  max_abs_err={err:.3e} against the twin, "
               f"{100 * within:.3f} % within {TOL}  "
               f"bf16 {bf16_ms:9.3f} ms ({gflop / bf16_ms:6.2f} TFLOP/s)  plain {plain_ms:9.3f} ms  "
               f"f32 (3xTF32) {f32_ms:9.3f} ms against bf16 {bf16_ms_again:9.3f} ms, alternated  "
               f"bound {rows[-1]['bound_ms']:.3f} ms by {rows[-1]['bound_by']} (bf16 at 989 TFLOP/s; bytes alone "
               f"{bytes_ms:.4f} ms)  packed = contract bits: {same_bits}  {'ok' if ok else 'MISMATCH'}")
-        del x, w, w16, got, ref, packed16, packed32
+        print(f"[precision]   error against the twin: median {rows[-1]['err_median']:.3e} p99 "
+              f"{rows[-1]['err_p99']:.3e}; the bf16-against-f32 gap of the stage: median {rows[-1]['gap_median']:.3e} "
+              f"p99 {rows[-1]['gap_p99']:.3e} max {rows[-1]['gap_max']:.3e}; median error / median gap "
+              f"{gap_share:.4f} (bound {BF16_STAGE_SHARE}; unrounded activations would give "
+              f"{unrounded_share:.4f}); one dilation unit (k=11, d=1): median error / median gap "
+              f"{unit['gap_share']:.4f} (bound {BF16_GAP_SHARE}; unrounded {unit['unrounded_share']:.4f}), "
+              f"{100 * unit['within']:.3f} % within {TOL}; flip witness, against the twin summed in float64 with the "
+              f"same rounding points: the f32 twin {100 * witness['twin_within']:.4f} % within {TOL}, max "
+              f"{witness['twin_max']:.3e}; the kernel {100 * witness['kernel_within']:.4f} %, max "
+              f"{witness['kernel_max']:.3e}")
+        del x, w, w16, got, ref, packed16, packed32, diff, gap
     if not all(r["ok"] for r in rows):
         raise RuntimeError("K1's bf16 mode disagrees with its plain twin")
     return rows
@@ -1742,6 +1838,9 @@ def main() -> int:
         "f32_mode_ms_b8_c128": bf16_rows[-1]["f32_ms"],
         "bound_ms_b8_c128": bf16_rows[-1]["bound_ms"],
         "tile_rel_err_vs_float64": bf16_tile_err,
+        "within_tol_min": min(r["within_tol"] for r in bf16_rows),
+        "gap_share_stage_max": max(r["gap_share"] for r in bf16_rows),  # median error / median bf16-f32 gap
+        "gap_share_unit_max": max(r["unit"]["gap_share"] for r in bf16_rows),
     }, {
         "name": "K2 mas_path_f32 (monotonic alignment search)",
         "route": "cuda",

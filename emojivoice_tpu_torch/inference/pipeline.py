@@ -138,9 +138,12 @@ class SynthesisPipeline:
         self.model_cfg = model_cfg
         self.model = model.to(self.device).eval()
         self.compute_dtype, self.vocoder_dtype = compute_dtype, vocoder_dtype
-        # the acoustic model in the compute dtype: a copy made once, or the model itself
-        self.compute_model = (copy.deepcopy(self.model).to(compute_dtype) if compute_dtype != torch.float32
-                              else self.model)
+        # the acoustic model in the compute dtype: a copy made once, or the model itself.  The time MLP computes
+        # in f32 on the rounded weights, as JAX's f32 input promotes them, so it holds them as f32 and casts nothing
+        self.compute_model = self.model
+        if compute_dtype != torch.float32:
+            self.compute_model = copy.deepcopy(self.model).to(compute_dtype)
+            self.compute_model.decoder.estimator.time_mlp.float()
         # K1's mode: bf16 whenever either switch is
         self.vocode_dtype = torch.bfloat16 if torch.bfloat16 in (compute_dtype, vocoder_dtype) else torch.float32
         self.vocoder_cfg = vocoder_cfg

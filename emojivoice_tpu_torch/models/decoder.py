@@ -151,7 +151,10 @@ class TimestepEmbedding(nn.Module):
 
     def forward(self, sample):
         """In the sample's dtype (f32) whatever the weights' dtype: the JAX
-        package's f32 input promotes bf16 weights to f32 there."""
+        package's f32 input promotes bf16 weights to f32 there.  The
+        pipeline's bf16 copy holds these weights as f32 (their bf16 values),
+        so there ``.to`` is a no-op; only ``bf16-mixed`` training, which hands
+        every parameter over in bf16, casts here."""
         def linear(layer, t):
             return F.linear(t, layer.weight.to(t.dtype), layer.bias.to(t.dtype))
         return linear(self.linear_2, F.silu(linear(self.linear_1, sample)))

@@ -146,20 +146,26 @@ def mrf_stage_reference(x: torch.Tensor, weights, kernel_sizes: Sequence[int],
     mode: each conv's input, the lrelu'd activation, is rounded to bf16 and
     both operands are convolved in f32.  A product of two bf16 numbers is exact
     in f32, so this differs from the kernel only in the order of the sums (on
-    the card that needs cuDNN's TF32 off, or it rounds the operands again)."""
+    the card that needs cuDNN's TF32 off, or it rounds the operands again).
+
+    It computes in x's dtype: a float64 x gives the same function with the
+    same rounding points summed in float64, the witness of what the f32 sum
+    order alone moves."""
     xc = x.transpose(1, 2)
+    dt = x.dtype
     out = None
     for (w1, b1, w2, b2), k, dils in zip(weights, kernel_sizes, dilation_sizes):
         bf16 = w1.dtype == torch.bfloat16
 
         def act(t):
             t = F.leaky_relu(t, LRELU_SLOPE)
-            return t.to(torch.bfloat16).float() if bf16 else t
+            return t.to(torch.bfloat16).to(dt) if bf16 else t
 
         cur = xc
         for di, d in enumerate(dils):
-            t = F.conv1d(act(cur), w1[di].float().permute(2, 1, 0), b1[di], padding=(k * d - d) // 2, dilation=d)
-            t = F.conv1d(act(t), w2[di].float().permute(2, 1, 0), b2[di], padding=(k - 1) // 2)
+            t = F.conv1d(act(cur), w1[di].to(dt).permute(2, 1, 0), b1[di].to(dt), padding=(k * d - d) // 2,
+                         dilation=d)
+            t = F.conv1d(act(t), w2[di].to(dt).permute(2, 1, 0), b2[di].to(dt), padding=(k - 1) // 2)
             cur = cur + t
         out = cur if out is None else out + cur
     return (out / len(kernel_sizes)).transpose(1, 2)

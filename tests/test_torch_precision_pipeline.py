@@ -184,6 +184,10 @@ def test_compute_dtype_really_computes_in_bf16(pipes, fused):
     assert all(seen[k] == {torch.float32} for k in expect_f32)
     assert all(not seen[k] for k in expect_idle)
     assert all(p.dtype == torch.float32 for p in pipe.model.parameters())  # parameters at rest stay f32
+    # the time MLP holds the bf16 values of its weights as f32, so a request casts none of them
+    mlp = pipe.compute_model.decoder.estimator.time_mlp
+    for (name, p), ref in zip(mlp.named_parameters(), pipe.model.decoder.estimator.time_mlp.parameters()):
+        assert p.dtype == torch.float32 and torch.equal(p, ref.to(BF16).float()), name
 
 
 def test_streaming_and_the_engine_follow_the_mode(pipes, rng):
