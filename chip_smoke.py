@@ -2,8 +2,9 @@
 (text → pcm16), acoustic-model training, the vocoder's fine-tune on the
 acoustic model's own mels, the serving front ends (batching engine,
 streaming vocoder, long-form, CLI, webapp, and trained checkpoints served),
-the export artifact, and the reduced-precision paths (bf16 serving through
-K1's bf16 mode, bf16-mixed training).
+the export artifact, the reduced-precision paths (bf16 serving through
+K1's bf16 mode, bf16-mixed training), the conformer configuration (served,
+trained, served again and exported), a from-scratch proof and a sweep.
 
     python3 chip_smoke.py
 
@@ -122,7 +123,33 @@ Phases (each one failing fails the run, exit code ≠ 0):
      within 2e-2 of f32's (``vocoder_dtype``, the mel unchanged within 1e-5)
      and the mel within MAE 0.1 and 2 frames of f32's (``compute_dtype``); one
      streamed utterance in bf16 mode, ms per chunk and max-abs against its
-     monolithic call.
+     monolithic call;
+ 10. conformer — emoji_multi with all three decoder block types
+     ``"conformer"`` and HiFi-GAN v1, random weights (seed 0): (a) batch 1
+     two-stage and batch 8 fused through K1 (four launches each), a short
+     request against the CPU on the same weights and noise (lengths equal, mel
+     MAE and wav max error under 1e-3), one request with ``strict_mask=True``
+     (equal to the default's to the bit: conformer attention masks whatever
+     it says) and one with ``vocoder_dtype=bf16`` (K1's bf16 mode, wav within
+     2e-2 of f32's); (b) ``training.train.main`` fine-tuning those weights from
+     a reference-format file, batch 16, 20 steps on one overfit batch with
+     ``--loggers csv,tensorboard --render_val_samples 1 --val_every_steps
+     10``: K2 once per step and validation batch, the BatchNorm statistics
+     moved and finite, each render in eval mode leaving them equal; one step
+     card against CPU (BatchNorm in train mode, its statistics held too); the
+     step by stage beside the transformer model's; (c) the run's ``ckpts/``
+     served through ``from_checkpoint`` (K1 on four stages) and exported to one
+     bundle key, the bundle within 1e-5 of the live fused call;
+ 11. scratch — ``run_scratch_proof("emoji_multi")`` from random init, 800
+     steps at batch 8 (cosine 5e-4 → 5e-5), its emergence asserts on and its
+     free-synthesis budget off; diagonality and MAS drift must improve from
+     the first probe to the last, K2 once per step and probe;
+ 12. sweep — ``emojivoice-sweep-torch``'s ``main`` in process: three trials of
+     10 steps at emoji_multi over ``out_size`` 128, 256 and 31 (no multiple of
+     4, so that trial fails in its first forward after its model is built):
+     the ranking and each record's ``objective_from``, and
+     ``torch.cuda.memory_allocated()`` back within 64 MB of its value before
+     the first trial (garbage collected) after every trial.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 ``nvidia-smi``'s card name and power limit, and the one before that the
@@ -139,6 +166,8 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import gc
+import importlib.util
 import json
 import math
 import random
@@ -208,6 +237,7 @@ PRECISION_TIMED = 3  # timed calls per request, after one warm call; the median 
 VOCODER_TOL = 2e-2  # bf16 vocoder against f32 (tests/test_pipeline.py::test_vocoder_bf16_close_to_f32)
 MEL_MAE_TOL, MEL_LENGTH_TOL = 0.1, 2  # compute_dtype=bf16 against f32 (tests/test_export_and_obs.py)
 TRAIN_RTOL = 0.05  # bf16-mixed step loss against f32 (tests/test_training.py::test_bf16_mixed_precision_step)
+SCRATCH_STEPS = 800  # the [scratch] phase's from-scratch run, 65-100 s at batch 8 on an H100 (8-13 steps/s)
 
 
 def cuda_ms(fn, iters: int = 5, warmup: int = 1) -> list:
@@ -308,7 +338,7 @@ def check_wavs(results, name: str) -> None:
             raise RuntimeError(f"{name} row {i}: wav outside [-1, 1]")
 
 
-def cpu_reference_check(pipe) -> dict:
+def cpu_reference_check(pipe, tag: str = "synth") -> dict:
     """A short request on the card (K1) against the same weights and noise
     on the CPU (plain twin): mel lengths equal, mel MAE and wav max error small."""
     from emojivoice_tpu_torch.utils.buckets import pick_bucket
@@ -332,9 +362,9 @@ def cpu_reference_check(pipe) -> dict:
     out = dict(mel_length=ml, same_lengths=bool(torch.equal(dev["mel_lengths"].cpu(), ref["mel_lengths"])),
                mel_mae=float((dev["mel"].cpu()[0, :ml] - ref["mel"][0, :ml]).abs().mean()),
                wav_max_abs_err=float((wav - ref_wav).abs().max()))
-    print(f"[synth] card vs CPU on the same weights and noise: {out}")
+    print(f"[{tag}] card vs CPU on the same weights and noise: {out}")
     if not (out["same_lengths"] and out["mel_mae"] < 1e-3 and out["wav_max_abs_err"] < 1e-3):
-        raise RuntimeError(f"card and CPU disagree: {out}")
+        raise RuntimeError(f"[{tag}] card and CPU disagree: {out}")
     return out
 
 
@@ -1081,9 +1111,8 @@ def phase_training(mas, mrf) -> dict:
     from emojivoice_tpu_torch.io.checkpoint import CheckpointManager
     from emojivoice_tpu_torch.models import matcha
     from emojivoice_tpu_torch.training import train
-    from emojivoice_tpu_torch.training.state import batch_to_device, create_train_state, eval_step, train_step
+    from emojivoice_tpu_torch.training.state import batch_to_device, create_train_state, eval_step
     from emojivoice_tpu_torch.training.synthetic import make_alignable_dataset
-    from emojivoice_tpu_torch.utils.timing import StageClock
 
     seed = 1234
     with tempfile.TemporaryDirectory(prefix="emojivoice_smoke_") as tmp:
@@ -1169,48 +1198,57 @@ def phase_training(mas, mrf) -> dict:
         if not path_row["exact"]:
             raise RuntimeError("K2 disagrees with its plain version on the training batch's log-prior")
 
-        # one step by stage (CUDA events), MAS timed inside the forward; then steps per second
-        mas_events = []
-
-        def timed(value, mask):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            path = real(value, mask)
-            end.record()
-            mas_events.append((start, end))
-            return path
         state.load_state_dict(mgr.restore(RESUME_STEPS, map_location=DEVICE))
-        stage_ms = []
-        matcha.maximum_path = timed
-        try:
-            for _ in range(2 + 5):  # two to warm
-                clock = StageClock(torch.device(DEVICE))
-                train_step(state, batch, seed, clock=clock)
-                torch.cuda.synchronize()
-                stage_ms.append(clock.elapsed_ms())
-        finally:
-            matcha.maximum_path = real
-        med = {k: statistics.median(m[k] for m in stage_ms[2:]) for k in stage_ms[0]}
-        med["mas"] = statistics.median(a.elapsed_time(b) for a, b in mas_events[2:])
-        n = 10
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(n):
-            train_step(state, batch, seed)
-        torch.cuda.synchronize()
-        steps_per_s = n / (time.perf_counter() - t)
-        print("[train] step " + json.dumps({"steps_per_s": steps_per_s, "forward_ms": med["forward"],
-                                             "mas_ms": med["mas"], "backward_ms": med["backward"],
-                                             "optimizer_ms": med["optimizer"], "batch": TRAIN_BATCH,
-                                             "t_text": batch["x"].shape[1], "t_mel": batch["y"].shape[1],
-                                             "peak_gb": torch.cuda.max_memory_allocated() / 1e9}))
-        precision = precision_training(matcha, mas, state, batch, seed, steps_per_s)
+        step = step_by_stage(matcha, state, batch, seed)
+        print("[train] step " + json.dumps(step))
+        precision = precision_training(matcha, mas, state, batch, seed, step["steps_per_s"])
 
         card_vs_cpu(matcha, state, batch, mas)
         served = serve_trained(mrf, out / "ckpts")
         vocoder = phase_vocoder_training(mas, mrf, matcha, tmp, train_list, out / "ckpts")
     return dict(launches=launches + vocoder["k2_launches"] + precision["k2_launches"], row=path_row,
-                k1_launches=served + vocoder["k1_launches"], vocoder=vocoder, precision=precision)
+                k1_launches=served + vocoder["k1_launches"], vocoder=vocoder, precision=precision, step=step)
+
+
+def step_by_stage(matcha, state, batch, seed: int) -> dict:
+    """One train step by stage (CUDA events; two to warm, the median of five),
+    MAS timed inside the forward, then steps per second over ten steps on the
+    host clock, and the peak memory of these steps."""
+    from emojivoice_tpu_torch.training.state import train_step
+    from emojivoice_tpu_torch.utils.timing import StageClock
+
+    mas_events = []
+    real = matcha.maximum_path
+
+    def timed(value, mask):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        path = real(value, mask)
+        end.record()
+        mas_events.append((start, end))
+        return path
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stage_ms = []
+    matcha.maximum_path = timed
+    try:
+        for _ in range(2 + 5):  # two to warm
+            clock = StageClock(torch.device(DEVICE))
+            train_step(state, batch, seed, clock=clock)
+            torch.cuda.synchronize()
+            stage_ms.append(clock.elapsed_ms())
+    finally:
+        matcha.maximum_path = real
+    med = {k: statistics.median(m[k] for m in stage_ms[2:]) for k in stage_ms[0]}
+    n = 10
+    t = time.perf_counter()
+    for _ in range(n):
+        train_step(state, batch, seed)
+    torch.cuda.synchronize()
+    return {"steps_per_s": n / (time.perf_counter() - t), "forward_ms": med["forward"],
+            "mas_ms": statistics.median(a.elapsed_time(b) for a, b in mas_events[2:]), "backward_ms": med["backward"],
+            "optimizer_ms": med["optimizer"], "batch": batch["y"].shape[0], "t_text": batch["x"].shape[1],
+            "t_mel": batch["y"].shape[1], "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
 def phase_vocoder_training(mas, mrf, matcha, tmp: Path, filelist: Path, ckpt_dir: Path) -> dict:
@@ -1372,10 +1410,12 @@ def phase_vocoder_training(mas, mrf, matcha, tmp: Path, filelist: Path, ckpt_dir
                 durations_utt_per_s=len(rows) / durations_s, card_vs_cpu_rel=rel, folded_vs_plain=err)
 
 
-def card_vs_cpu(matcha, state, batch, mas) -> None:
+def card_vs_cpu(matcha, state, batch, mas, tag: str = "train") -> None:
     """One train step (forward, loss, backward) on four rows of the batch from
     the same weights, t and z, dropout off: the card (K2) against the CPU
-    (plain MAS).
+    (plain MAS).  The model is in train mode but for its dropout, so that a
+    conformer decoder's BatchNorm normalises with the batch's statistics and
+    updates its running ones: those are held against the CPU's too.
 
     The two devices round the log-prior differently (about 1e-5 on values
     near −100), and over a thousand mel frames some decisions of the search
@@ -1383,14 +1423,19 @@ def card_vs_cpu(matcha, state, batch, mas) -> None:
     a few frames.  The check therefore gives the CPU's plain MAS the card's
     log-prior: its path must equal K2's to the bit, and with that path the
     CPU's losses must agree within rtol 1e-4 and the gradient norm within
-    1e-3 (f32 summation order).  How far the CPU's own log-prior and path
-    lie from the card's is printed beside it."""
+    1e-3 (f32 summation order), and BatchNorm's updated statistics within
+    rtol 1e-4.  How far the CPU's own log-prior and path lie from the card's
+    is printed beside it."""
     rows = {k: v[:4] for k, v in batch.items()}
     g = torch.Generator().manual_seed(11)
     t = torch.rand((4, 1, 1), generator=g)
     z = torch.randn(rows["y"].shape, generator=g)
-    model_cpu = copy.deepcopy(state.model).cpu().eval()
-    state.model.eval()
+    model_cpu = copy.deepcopy(state.model).cpu()
+    for m in (model_cpu, state.model):
+        m.train()
+        for d in m.modules():
+            if isinstance(d, torch.nn.Dropout):
+                d.eval()
     seen = {}
     real = matcha.maximum_path
 
@@ -1426,12 +1471,16 @@ def card_vs_cpu(matcha, state, batch, mas) -> None:
     cpu, cpu_norm = step(model_cpu, "cpu", on_cpu)
     state.model.train()
     rel = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
-    print(f"[train] card vs CPU, 4 rows, same weights and draws: plain MAS on the CPU equals K2 on the card's "
+    stats = {k: v for k, v in model_cpu.state_dict().items() if "running_" in k}
+    card_stats = state.model.state_dict()
+    bn_rel = max((float((card_stats[k].cpu() - v).abs().max() / v.abs().max()) for k, v in stats.items()), default=0.0)
+    print(f"[{tag}] card vs CPU, 4 rows, same weights and draws: plain MAS on the CPU equals K2 on the card's "
           f"log-prior: {seen['plain_equal']}; losses card {card} cpu {cpu} (max rel {rel:.2e}); grad norm card "
           f"{card_norm:.6f} cpu {cpu_norm:.6f}; the CPU's own log-prior differs by at most {seen['logp_err']:.2e} "
-          f"and its own path in {seen['own_frames_differ']} of {seen['frames']} frames")
-    if not (seen["plain_equal"] and rel < 1e-4 and abs(card_norm - cpu_norm) / cpu_norm < 1e-3):
-        raise RuntimeError("card and CPU train steps disagree")
+          f"and its own path in {seen['own_frames_differ']} of {seen['frames']} frames; BatchNorm statistics of "
+          f"{len(stats)} buffers within rel {bn_rel:.2e}")
+    if not (seen["plain_equal"] and rel < 1e-4 and abs(card_norm - cpu_norm) / cpu_norm < 1e-3 and bn_rel < 1e-4):
+        raise RuntimeError(f"[{tag}] card and CPU train steps disagree")
 
 
 def bf16_weights(w) -> list:
@@ -1750,6 +1799,325 @@ def precision_training(matcha, mas, state, batch, seed: int, f32_steps_per_s: fl
     return out
 
 
+def conformer_root():
+    """emoji_multi with all three decoder block types conformer, HiFi-GAN v1."""
+    from emojivoice_tpu_torch import config
+
+    root = config.get_preset(PRESET)
+    dec = dataclasses.replace(root.model.decoder, down_block_type="conformer", mid_block_type="conformer",
+                              up_block_type="conformer")
+    return dataclasses.replace(root, model=dataclasses.replace(root.model, decoder=dec))
+
+
+def bn_buffers(model) -> dict:
+    return {k: v.detach().clone() for k, v in model.state_dict().items() if ".conv.net.5.running_" in k}
+
+
+def conformer_serving(mrf) -> tuple:
+    """(a) The conformer model served on the card: batch 1 two-stage and batch
+    8 fused through K1, the card against the CPU, one request with
+    ``strict_mask=True`` and one with ``vocoder_dtype=bf16``."""
+    from emojivoice_tpu_torch.apps.emoji import EMOJI_MAPPING
+    from emojivoice_tpu_torch.inference.pipeline import SynthesisPipeline
+    from emojivoice_tpu_torch.models.matcha import MatchaTTS
+    from emojivoice_tpu_torch.utils.buckets import pick_bucket
+
+    root = conformer_root()
+    t = time.perf_counter()
+    pipe = SynthesisPipeline.from_random(root, seed=0, device=DEVICE, cleaners=("basic_cleaners",))
+    print(f"[conformer] {PRESET} with conformer down/mid/up blocks + HiFi-GAN v1, random weights (seed 0), "
+          f"{sum(p.numel() for p in pipe.model.parameters()) / 1e6:.2f} M parameters, built in "
+          f"{time.perf_counter() - t:.2f} s")
+    cpu_reference_check(pipe, tag="conformer")
+    kw = dict(n_timesteps=STEPS, denoiser_strength=STRENGTH, keep_mel=True, pcm16=True)
+    emoji8 = list(EMOJI_MAPPING.values())[:8]
+    texts8 = [f"{TEXT11} Request number {i}." for i in range(8)]
+
+    def request(p, name, texts, spks, seed, mode="f32", **extra):
+        before = dict(mrf.launches)
+        t = time.perf_counter()
+        res = p.synthesise(texts, spks=spks, seed=seed, **{**kw, **extra})
+        wall_ms = (time.perf_counter() - t) * 1e3
+        delta = {c: mrf.launches[(c, mode)] - before.get((c, mode), 0) for c in (256, 128, 64, 32)}
+        if any(n != 1 for n in delta.values()) or sum(mrf.launches.values()) - sum(before.values()) != 4:
+            raise RuntimeError(f"[conformer] {name}: K1 launches per stage width {delta} in mode {mode}, expected "
+                               f"one on each of four")
+        check_wavs(res, name)
+        print(f"[conformer] (a) {name}: batch {len(res)}  mel_lengths {[r.mel_length for r in res]}  wall "
+              f"{wall_ms:.3f} ms  rtf_w {res[0].rtf_w:.5f}  stage ms "
+              + " ".join(f"{k}={v:.3f}" for k, v in res[0].stage_ms.items()) + f"  K1 launches ({mode}) {delta}")
+        return res
+
+    def serve():
+        first = request(pipe, "batch 1 two-stage, the headline", [HEADLINE], [79], 0)[0]
+        request(pipe, "batch 8 fused", texts8, emoji8, list(range(8)), fused=True,
+                fused_mel_bucket=pick_bucket(first.mel_length, pipe.mel_buckets))
+        return first
+
+    serve()  # first-call allocations and plans for these shapes
+    mrf.launches.clear()  # the main path's run: only these requests move the counts
+    first = serve()
+    launches = sum(mrf.launches.values())
+
+    strict = MatchaTTS(root.model, strict_mask=True)
+    strict.load_state_dict(pipe.model.state_dict(), strict=True)
+    strict_pipe = SynthesisPipeline(root.model, strict, root.vocoder, pipe.vocoder, device=DEVICE,
+                                    cleaners=("basic_cleaners",))
+    mrf.launches.clear()
+    got = request(strict_pipe, "strict_mask=True, batch 1", [HEADLINE], [79], 0)[0]
+    launches += sum(mrf.launches.values())
+    strict_equal = got.mel_length == first.mel_length and bool((got.mel == first.mel).all())
+    print(f"[conformer] (a) strict_mask=True: every decoder block is a conformer, whose attention masks with "
+          f"-finfo.max whatever strict_mask says, so the mel equals the default's to the bit: {strict_equal}")
+    if not strict_equal:
+        raise RuntimeError("[conformer] strict_mask changed a conformer U-Net's output")
+
+    bf16_pipe = SynthesisPipeline(root.model, pipe.model, root.vocoder, pipe.vocoder, device=DEVICE,
+                                  cleaners=("basic_cleaners",), vocoder_dtype=torch.bfloat16)
+    request(bf16_pipe, "vocoder_dtype=bf16, batch 1 (warm)", [HEADLINE], [79], 0, mode="bf16")
+    mrf.launches.clear()
+    got = request(bf16_pipe, "vocoder_dtype=bf16, batch 1", [HEADLINE], [79], 0, mode="bf16", pcm16=False)[0]
+    bf16_launches = sum(mrf.launches.values())
+    f32 = pipe.synthesise([HEADLINE], spks=[79], seed=0, n_timesteps=STEPS, denoiser_strength=STRENGTH)[0]
+    wav_err = float(abs(got.wav - f32.wav).max()) if got.wav.shape == f32.wav.shape else float("inf")
+    mel_err = float(abs(got.mel - f32.mel).max()) if got.mel.shape == f32.mel.shape else float("inf")
+    print(f"[conformer] (a) vocoder_dtype=bf16 against f32 on the same mel: wav max-abs {wav_err:.3e} (bound "
+          f"{VOCODER_TOL}), mel max-abs {mel_err:.3e}")
+    if not (wav_err < VOCODER_TOL and mel_err < 1e-5):
+        raise RuntimeError(f"[conformer] bf16 vocoder off f32: wav {wav_err}, mel {mel_err}")
+    return pipe, launches, bf16_launches
+
+
+def conformer_training(mas, mrf, matcha, pipe, transformer_step: dict) -> dict:
+    """(b) 20 steps of the trainer on the conformer model, fine-tuned from a
+    reference-format file of (a)'s weights, with the loggers and a validation
+    render; K2 every step, the BatchNorm statistics moving, finite, and left
+    alone by each render; one step card against CPU; the step by stage beside
+    the transformer model's.  (c) The run's ``ckpts/`` served through
+    ``from_checkpoint`` and exported to one bundle key, held against the live
+    pipeline."""
+    import warnings
+
+    import numpy as np
+
+    from emojivoice_tpu_torch.apps.emoji import EMOJI_MAPPING
+    from emojivoice_tpu_torch.data.dataset import BucketBatcher, TextMelDataset
+    from emojivoice_tpu_torch.inference.export import LoadedBundle, export_bundle
+    from emojivoice_tpu_torch.inference.pipeline import SynthesisPipeline
+    from emojivoice_tpu_torch.io.checkpoint import CheckpointManager
+    from emojivoice_tpu_torch.io.export_torch import export
+    from emojivoice_tpu_torch.training import train
+    from emojivoice_tpu_torch.training.state import batch_to_device, create_train_state
+    from emojivoice_tpu_torch.training.synthetic import make_alignable_dataset
+
+    seed, root = 1234, conformer_root()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="emojivoice_conformer_") as tmp:
+        tmp = Path(tmp)
+        train_list, val_list, _ = make_alignable_dataset(tmp / "corpus", list(EMOJI_MAPPING.values()),
+                                                         n_utts=2 * TRAIN_BATCH, seed=0, long_texts=True)
+        CheckpointManager(str(tmp / "start")).save(0, {"model": pipe.model.state_dict(), "step": 0}, cfg=root)
+        ckpt = export(str(tmp / "start"), str(tmp / "conformer.ckpt"))
+        start_bn = bn_buffers(pipe.model)
+
+        renders = []
+        real_synth = SynthesisPipeline.synthesise
+
+        def watched(self, texts, **kw):
+            before = bn_buffers(self.model)
+            res = real_synth(self, texts, **kw)
+            after = bn_buffers(self.model)
+            renders.append(all(torch.equal(v, before[k]) for k, v in after.items()) and not self.model.training)
+            return res
+
+        run = tmp / "run"
+        args = ["--preset", PRESET, "--device", DEVICE, "--train_filelist", str(train_list), "--valid_filelist",
+                str(val_list), "--out_dir", str(run), "--batch_size", str(TRAIN_BATCH), "--overfit_batches", "1",
+                "--from_torch_ckpt", str(ckpt), "--max_steps", str(TRAIN_STEPS), "--val_every_steps", str(EVERY),
+                "--ckpt_every_steps", str(TRAIN_STEPS), "--log_every", "1", "--seed", str(seed),
+                "--loggers", "csv,tensorboard", "--render_val_samples", "1"]
+        SynthesisPipeline.synthesise = watched
+        mas.launches = 0  # the main path's run: only the trainer moves K2's count
+        try:
+            t = time.perf_counter()
+            if train.main(args) != 0:
+                raise RuntimeError("[conformer] training run failed")
+            train_s = time.perf_counter() - t
+        finally:
+            SynthesisPipeline.synthesise = real_synth
+        out["k2_launches"] = mas.launches
+        steps, vals = read_metrics(run, "train"), read_metrics(run, "val")
+        expect = TRAIN_STEPS + len(vals)  # one val batch a pass
+        if mas.launches != expect or len(vals) != TRAIN_STEPS // EVERY:
+            raise RuntimeError(f"[conformer] K2 launches {mas.launches}, expected {expect} ({TRAIN_STEPS} steps + "
+                               f"{len(vals)} val batches)")
+        bad = [r["step"] for r in steps if not all(math.isfinite(r[k]) for k in ("loss", "grad_norm"))]
+        restored = CheckpointManager(str(run / "ckpts")).restore(TRAIN_STEPS)["model"]
+        trained_bn = {k: v for k, v in restored.items() if k in start_bn}
+        bn_moved = min(float((v.cpu() - start_bn[k].cpu()).abs().max()) for k, v in trained_bn.items())
+        bn_finite = all(bool(torch.isfinite(v).all()) for v in trained_bn.values())
+        tb = run / "tb"
+        # a render's image goes to a PNG where matplotlib imports and into the event file where tensorboard does
+        logged = dict(csv=(tb / "metrics.csv").exists(), jsonl=(tb / "scalars.jsonl").exists(),
+                      events=len(list(tb.glob("events.out.tfevents.*"))), images=len(list(tb.glob("val_mel_0_*.png"))),
+                      matplotlib=importlib.util.find_spec("matplotlib") is not None)
+        print(f"[conformer] (b) train.main --from_torch_ckpt <conformer .ckpt>, batch {TRAIN_BATCH}, "
+              f"{TRAIN_STEPS} steps in {train_s:.2f} s with data, 2 val passes and renders: loss "
+              f"{steps[0]['loss']:.4f} -> {steps[-1]['loss']:.4f}; K2 launches {mas.launches}; BatchNorm statistics "
+              f"({len(trained_bn)} buffers) moved by at least {bn_moved:.3e}, finite {bn_finite}; renders "
+              f"{len(renders)}, each in eval mode and leaving the statistics equal: {all(renders)}; loggers "
+              f"{json.dumps(logged)}")
+        images_ok = logged["images"] == len(renders) if logged["matplotlib"] else logged["events"] == 1
+        if bad or not (bn_finite and bn_moved > 0 and len(renders) == TRAIN_STEPS // EVERY and all(renders)
+                       and logged["csv"] and logged["jsonl"] and images_ok):
+            raise RuntimeError(f"[conformer] training run: non-finite steps {bad}, statistics moved {bn_moved} "
+                               f"finite {bn_finite}, renders {renders}, loggers {logged}")
+
+        data_cfg = dataclasses.replace(root.data, train_filelist_path=str(train_list),
+                                       valid_filelist_path=str(val_list), batch_size=TRAIN_BATCH, seed=seed)
+        batch = batch_to_device(next(iter(BucketBatcher(TextMelDataset(str(train_list), data_cfg), TRAIN_BATCH,
+                                                        seed=seed))), DEVICE)
+        state = create_train_state(root.model, root.optimizer, device=DEVICE,
+                                   model=copy.deepcopy(pipe.model).train())
+        state.model.load_state_dict(restored)
+        card_vs_cpu(matcha, state, batch, mas, tag="conformer")
+        step = step_by_stage(matcha, state, batch, seed)
+        out["step"] = step
+        print("[conformer] (b) step " + json.dumps(step))
+        print("[conformer] (b) transformer model's step, same batch size and bucket " + json.dumps(transformer_step))
+        del state
+
+        # (c) the trained checkpoint served through K1, and exported to one bundle key
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            served = SynthesisPipeline.from_checkpoint(str(run / "ckpts"), device=DEVICE, cleaners=("basic_cleaners",))
+        served.synthesise([TEXT11], spks=[79], seed=0, n_timesteps=STEPS, denoiser_strength=STRENGTH)
+        mrf.launches.clear()
+        res = served.synthesise([TEXT11], spks=[79], seed=0, n_timesteps=STEPS, denoiser_strength=STRENGTH,
+                                pcm16=True)
+        out["k1_launches"] = sum(mrf.launches.values())
+        check_wavs(res, "(c) trained conformer checkpoint")
+        if out["k1_launches"] != 4:
+            raise RuntimeError(f"[conformer] serving the trained checkpoint made {out['k1_launches']} mrf_stage calls")
+        m_bucket = min(EXPORT_MEL_BUCKETS)
+        bundle_dir = tmp / "bundle"
+        t = time.perf_counter()
+        export_bundle(served, str(bundle_dir), text_buckets=[EXPORT_TEXT_BUCKET], mel_buckets=[m_bucket],
+                      batches=(1,), n_timesteps=STEPS, denoiser_strength=STRENGTH)
+        export_s = time.perf_counter() - t
+        bundle = LoadedBundle(str(bundle_dir), device=DEVICE)
+        mrf.launches.clear()
+        got, _ = bundle.synthesise([HEADLINE], spks=[79], seed=[0])
+        out["k1_launches"] += sum(mrf.launches.values())
+        want = served.synthesise([HEADLINE], spks=[79], seed=[0], n_timesteps=STEPS, denoiser_strength=STRENGTH,
+                                 fused=True, fused_mel_bucket=m_bucket, keep_mel=False)[0]
+        same = got[0]["mel_length"] == want.mel_length and got[0]["wav"].shape == want.wav.shape
+        err = float(np.abs(got[0]["wav"].astype(np.float32) - want.wav).max()) if same else float("inf")
+        print(f"[conformer] (c) from_checkpoint(ckpts/, step {TRAIN_STEPS}): mel_length {res[0].mel_length}, K1 "
+              f"launches 4; exported at batch 1 x text {EXPORT_TEXT_BUCKET} x mel {m_bucket} in {export_s:.2f} s "
+              f"(BatchNorm in eval mode, the gather's index static at the bucket): the headline's mel_length "
+              f"{got[0]['mel_length']} against the live {want.mel_length}, wav max-abs {err:.3e} (bound {EXPORT_TOL})")
+        if not err <= EXPORT_TOL:
+            raise RuntimeError(f"[conformer] bundle against the live pipeline: {err}")
+    return out
+
+
+def phase_conformer(mas, mrf, matcha, transformer_step: dict) -> dict:
+    """Phase 10: the conformer configuration on the card (serving, training,
+    serving what was trained)."""
+    t = time.perf_counter()
+    pipe, k1, k1_bf16 = conformer_serving(mrf)
+    trained = conformer_training(mas, mrf, matcha, pipe, transformer_step)
+    print(f"[conformer] phase in {time.perf_counter() - t:.1f} s")
+    return dict(k1_launches=k1 + trained["k1_launches"], k1_bf16_launches=k1_bf16, k2_launches=trained["k2_launches"],
+                step=trained["step"])
+
+
+def phase_scratch(mas) -> dict:
+    """Phase 11: ``run_scratch_proof`` at emoji_multi from random init on the
+    card, the emergence asserts on (the free-synthesis budget off): the
+    diagonality and the MAS drift must improve from the first probe to the
+    last."""
+    from emojivoice_tpu_torch.training.scratch_proof import run_scratch_proof
+
+    with tempfile.TemporaryDirectory(prefix="emojivoice_scratch_") as tmp:
+        mas.launches = 0  # the main path's run
+        t = time.perf_counter()
+        s = run_scratch_proof(PRESET, tmp, steps=SCRATCH_STEPS, batch_size=8, probe_every=SCRATCH_STEPS // 4,
+                              lr=5e-4, scheduler="cosine", warmup_steps=50, lr_end=5e-5, log_every=20,
+                              assert_free_synth=False, device=DEVICE)
+        wall = time.perf_counter() - t
+    expect = SCRATCH_STEPS + len(s["probe_steps"])
+    first, last = 0, -1
+    print(f"[scratch] run_scratch_proof({PRESET}) from random init, {SCRATCH_STEPS} steps at batch 8 in {wall:.1f} s "
+          f"({s['step_rate']}): diagonality {s['diagonality'][first]} -> {s['diagonality'][last]}, MAS drift "
+          f"{s['mas_drift_l1'][first]} -> {s['mas_drift_l1'][last]}, dur_mse_log {s['dur_mse_log'][first]} -> "
+          f"{s['dur_mse_log'][last]}; free synthesis {s['free_synth']['frames_pred']} frames against "
+          f"{s['free_synth']['frames_gt']} (length_err {s['free_synth']['length_err']}, not held at this length); "
+          f"K2 launches {mas.launches}")
+    if not (s["diagonality"][last] > s["diagonality"][first] and s["mas_drift_l1"][last] < s["mas_drift_l1"][first]):
+        raise RuntimeError("[scratch] diagonality and MAS drift did not both improve")
+    if mas.launches != expect:
+        raise RuntimeError(f"[scratch] K2 launches {mas.launches}, expected {expect} (steps + probes)")
+    return dict(k2_launches=mas.launches, wall_s=wall)
+
+
+def phase_sweep(mas) -> dict:
+    """Phase 12: ``emojivoice-sweep-torch`` in process, three trials of 10
+    steps at emoji_multi, the third with ``--out_size 31`` (no multiple of
+    4: its U-Net fails in the first forward, after its model is built).  The
+    card's memory must come back after every trial, the failed one included."""
+    from emojivoice_tpu_torch.apps.emoji import EMOJI_MAPPING
+    from emojivoice_tpu_torch.training import sweep, train
+    from emojivoice_tpu_torch.training.synthetic import make_alignable_dataset
+
+    with tempfile.TemporaryDirectory(prefix="emojivoice_sweep_") as tmp:
+        tmp = Path(tmp)
+        train_list, val_list, _ = make_alignable_dataset(tmp / "corpus", list(EMOJI_MAPPING.values()), n_utts=16,
+                                                         seed=0)
+        real = train.main
+        # the baseline with no garbage of the earlier phases left in it: the sweep collects after every trial
+        gc.collect()
+        torch.cuda.empty_cache()
+        allocated = [torch.cuda.memory_allocated()]
+
+        def trial(argv):  # the memory each trial starts from: the previous trial's release is behind it
+            allocated.append(torch.cuda.memory_allocated())
+            return real(argv)
+
+        train.main = trial
+        mas.launches = 0  # the main path's run
+        try:
+            t = time.perf_counter()
+            rc = sweep.main(["--out_dir", str(tmp / "sweep"), "--grid", "--space", "out_size=choice:128,256,31",
+                             "--objective", "val/loss", "--", "--preset", PRESET, "--device", DEVICE,
+                             "--train_filelist", str(train_list), "--valid_filelist", str(val_list),
+                             "--batch_size", "8", "--max_steps", "10", "--val_every_steps", "10",
+                             "--ckpt_every_steps", "0", "--log_every", "5", "--render_val_samples", "0",
+                             "--loggers", "csv"])
+            wall = time.perf_counter() - t
+        finally:
+            train.main = real
+        allocated.append(torch.cuda.memory_allocated())
+        summary = json.loads((tmp / "sweep" / "summary.json").read_text())
+        recs = [json.loads(line) for line in (tmp / "sweep" / "trials.jsonl").read_text().splitlines()]
+    grew = [(a - allocated[0]) / 2**20 for a in allocated[2:]]  # [0] the baseline, [1] trial 0's start, then after each
+    print(f"[sweep] emojivoice-sweep-torch in process, 3 trials x 10 steps at {PRESET} in {wall:.1f} s: ranking "
+          f"{json.dumps(summary['ranking'])}; records " + json.dumps(
+              [{k: r[k] for k in ("trial", "status", "objective", "objective_from")} for r in recs])
+          + f"; memory_allocated after each trial against before the first: {[round(g, 2) for g in grew]} MB; "
+          f"K2 launches {mas.launches}")
+    if rc != 0 or summary["n_failed"] != 1 or not recs[2]["status"].startswith("error") \
+            or [r["trial"] for r in summary["ranking"]] != sorted((0, 1), key=lambda i: recs[i]["objective"]) \
+            or any(r["objective_from"] != "val" for r in summary["ranking"]):
+        raise RuntimeError(f"[sweep] rc {rc}, summary {summary}")
+    if max(abs(g) for g in grew) > 64:
+        raise RuntimeError(f"[sweep] the card's memory did not come back after a trial: {grew} MB")
+    if mas.launches < 2 * 10:
+        raise RuntimeError(f"[sweep] {mas.launches} K2 launches in two trials of 10 steps")
+    return dict(k2_launches=mas.launches, wall_s=wall, memory_mb=grew)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU", file=sys.stderr)
@@ -1763,9 +2131,17 @@ def main() -> int:
           f"{torch.backends.cudnn.allow_tf32} cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
 
     from emojivoice_tpu_torch.kernels.build import build_log, build_many, load_mas, load_mrf
+    from emojivoice_tpu_torch.models import matcha
     from emojivoice_tpu_torch.ops import mas, mrf
 
-    t = time.perf_counter()
+    t0 = t = time.perf_counter()
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        print(f"[time] {name}: {time.perf_counter() - t:.1f} s (the smoke at {time.perf_counter() - t0:.1f} s)")
+        return out
+
     build_many(("mrf", "mas"))
     load_mrf()
     load_mas()
@@ -1776,22 +2152,27 @@ def main() -> int:
                 print(f"[build] {name}.cu: {line.strip()}")
 
     tile_err = tile_check(mrf)
-    rows = phase_kernel(mrf)
+    rows = timed("kernel K1", phase_kernel, mrf)
     if not all(r["ok"] for r in rows):
         raise RuntimeError("K1 disagrees with its plain twin")
-    pipe, launches = phase_synthesis(mrf)
-    mas_rows = phase_kernel_mas(mas)
-    training = phase_training(mas, mrf)
-    serving = phase_serving(pipe, mrf)
-    exported = phase_export(pipe, mrf)
+    pipe, launches = timed("synth", phase_synthesis, mrf)
+    mas_rows = timed("kernel K2", phase_kernel_mas, mas)
+    training = timed("train + vocoder", phase_training, mas, mrf)
+    serving = timed("serve", phase_serving, pipe, mrf)
+    exported = timed("export", phase_export, pipe, mrf)
     bf16_tile_err = bf16_tile_check(mrf)
-    bf16_rows = precision_kernel(mrf)
-    precision = precision_pipeline(mrf, pipe)
+    bf16_rows = timed("precision kernel", precision_kernel, mrf)
+    precision = timed("precision pipeline", precision_pipeline, mrf, pipe)
+    conformer = timed("conformer", phase_conformer, mas, mrf, matcha, training["step"])
+    scratch = timed("scratch", phase_scratch, mas)
+    swept = timed("sweep", phase_sweep, mas)
     # K1 on the main paths: the synthesis requests, the engine's and the webapp's batches, the trained checkpoint,
-    # the vocoder proof's two renders, the fine-tuned generator served, the exported bundle's program runs and the
-    # live dispatch under sync debug; K2: the trainer's steps and get_durations
+    # the vocoder proof's two renders, the fine-tuned generator served, the exported bundle's program runs, the
+    # live dispatch under sync debug, and the conformer model's requests, its trained checkpoint and bundle; K2:
+    # the trainer's steps and get_durations, the conformer's training, the scratch proof and the sweep's trials
     launches += serving["k1_launches"] + training["k1_launches"] + exported["k1_launches"] \
-        + exported["k1_launches_live"]
+        + exported["k1_launches_live"] + conformer["k1_launches"]
+    k2_launches = training["launches"] + conformer["k2_launches"] + scratch["k2_launches"] + swept["k2_launches"]
 
     stage_rows = rows[:len(STAGE_SHAPES)]
     window_rows = rows[-len(WINDOW_SHAPES):]
@@ -1822,7 +2203,7 @@ def main() -> int:
         "route": "cuda",
         "source": "emojivoice_tpu_torch/csrc/mrf.cu",
         "replaces": "emojivoice_tpu/ops/pallas_mrf.py:183",
-        "launches": precision["k1_bf16_launches"],
+        "launches": precision["k1_bf16_launches"] + conformer["k1_bf16_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in bf16_rows),
         "ms": sum(r["ms"] for r in bf16_rows[:len(STAGE_SHAPES)]),
         "plain_ms": sum(r["plain_ms"] for r in bf16_rows[:len(STAGE_SHAPES)]),
@@ -1846,7 +2227,7 @@ def main() -> int:
         "route": "cuda",
         "source": "emojivoice_tpu_torch/csrc/mas.cu",
         "replaces": "emojivoice_tpu/ops/mas_pallas.py:51",
-        "launches": training["launches"],
+        "launches": k2_launches,
         "max_abs_err": max(r["max_abs_err"] for r in mas_rows + [k2]),
         "exact": all(r["exact"] for r in mas_rows + [k2]),
         "ms": k2["ms"],

@@ -6,8 +6,11 @@ arrays and return a reference-named state dict of numpy arrays that the
 port's modules load with strict names:
 
 * ``matcha_state_dict_from_flax`` follows the naming of
-  ``emojivoice_tpu.io.torch_ckpt.export_matcha_state_dict`` (transformer
-  decoder blocks), including the ``mel_mean``/``mel_std`` buffers;
+  ``emojivoice_tpu.io.torch_ckpt.export_matcha_state_dict`` (transformer or
+  conformer decoder blocks), including the ``mel_mean``/``mel_std`` buffers
+  and, for conformer blocks, the BatchNorm statistics of the tree's
+  ``batch_stats`` collection with ``num_batches_tracked`` 0 (the JAX package
+  counts no batches);
 * ``hifigan_state_dict_from_flax`` is the inverse of
   ``convert_hifigan_state_dict``, folded or in the weight-norm training form;
 * ``mpd_state_dict_from_flax`` / ``msd_state_dict_from_flax`` carry the
@@ -22,7 +25,8 @@ Any tree that mirrors the parameter tree goes through the same mapping: a
 ``jax.grad`` tree gives reference-named gradients to hold ``.grad`` against,
 and the ``mu``/``nu`` trees of an ``optax.adam`` state give
 ``torch.optim.Adam``'s ``exp_avg``/``exp_avg_sq`` (``buffers=False`` leaves
-out the ``mel_mean``/``mel_std`` buffers, which are no parameters).
+out the ``mel_mean``/``mel_std`` buffers and the BatchNorm statistics, which
+are no parameters).
 """
 
 from __future__ import annotations
@@ -54,8 +58,7 @@ def _dense(w, as_conv1x1: bool = False) -> np.ndarray:
 def matcha_state_dict_from_flax(params: dict, cfg: ModelConfig, buffers: bool = True) -> Dict[str, np.ndarray]:
     p = params["params"]
     dec = cfg.decoder
-    if {dec.down_block_type, dec.mid_block_type, dec.up_block_type} != {"transformer"}:
-        raise NotImplementedError("only transformer decoder blocks are ported")
+    stats = (params.get("batch_stats") or {}).get("decoder", {}).get("estimator", {})
     sd: Dict[str, np.ndarray] = {}
 
     def put_conv(name, node, conv1x1=False):
@@ -125,12 +128,18 @@ def matcha_state_dict_from_flax(params: dict, cfg: ModelConfig, buffers: bool = 
         put_linear(f"{name}.ff.net.2", ours["ff"]["proj_out"])
 
     n_down = len(dec.channels)
+    kinds = {"down": dec.down_block_type, "mid": dec.mid_block_type, "up": dec.up_block_type}
     for region, count in (("down", n_down), ("mid", dec.num_mid_blocks), ("up", n_down)):
         for i in range(count):
             name = f"{pre_est}.{region}_blocks.{i}"
             resnet(est[f"{region}_{i}_resnet"], f"{name}.0")
             for j in range(dec.n_blocks):
-                tblock(est[f"{region}_{i}_tblock_{j}"], f"{name}.1.{j}")
+                key = f"{region}_{i}_tblock_{j}"
+                if kinds[region] == "conformer":
+                    sd.update(conformer_block_state_dict_from_flax(
+                        {"params": est[key], "batch_stats": stats.get(key, {})}, f"{name}.1.{j}.", buffers))
+                else:
+                    tblock(est[key], f"{name}.1.{j}")
             if region == "mid":
                 continue
             node = est[f"{region}_{i}_{'downsample' if region == 'down' else 'upsample'}"]
@@ -149,6 +158,50 @@ def matcha_state_dict_from_flax(params: dict, cfg: ModelConfig, buffers: bool = 
     if buffers:
         sd["mel_mean"] = np.asarray(cfg.data_statistics.mel_mean, np.float32)
         sd["mel_std"] = np.asarray(cfg.data_statistics.mel_std, np.float32)
+    return sd
+
+
+def conformer_block_state_dict_from_flax(variables: dict, prefix: str = "", buffers: bool = True
+                                         ) -> Dict[str, np.ndarray]:
+    """One ``ConformerBlock``'s flax variables (``params`` and, for the
+    BatchNorm statistics, ``batch_stats``) → the reference's ConformerWrapper
+    names under `prefix`.  Without statistics the buffers are torch's initial
+    ones (mean 0, variance 1); ``num_batches_tracked`` is 0."""
+    p, bn = variables["params"], (variables.get("batch_stats") or {}).get("conv", {}).get("bn", {})
+    sd: Dict[str, np.ndarray] = {}
+
+    def linear(name, node):
+        sd[f"{prefix}{name}.weight"] = _dense(node["kernel"])
+        if "bias" in node:
+            sd[f"{prefix}{name}.bias"] = _np(node["bias"])
+
+    def affine(name, node):
+        sd[f"{prefix}{name}.weight"] = _np(node["scale"])
+        sd[f"{prefix}{name}.bias"] = _np(node["bias"])
+
+    for ff in ("ff1", "ff2"):
+        affine(f"{ff}.fn.norm", p[ff]["norm"])
+        linear(f"{ff}.fn.fn.net.0", p[ff]["in_proj"])
+        linear(f"{ff}.fn.fn.net.3", p[ff]["out_proj"])
+    affine("attn.norm", p["attn"]["norm"])
+    for proj in ("to_q", "to_kv", "to_out"):
+        linear(f"attn.fn.{proj}", p["attn"][proj])
+    sd[f"{prefix}attn.fn.rel_pos_emb.weight"] = _np(p["attn"]["rel_pos_emb"])
+    cv = p["conv"]
+    affine("conv.net.0", cv["norm"])
+    sd[f"{prefix}conv.net.2.weight"] = _dense(cv["pointwise_in"]["kernel"], as_conv1x1=True)
+    sd[f"{prefix}conv.net.2.bias"] = _np(cv["pointwise_in"]["bias"])
+    sd[f"{prefix}conv.net.4.conv.weight"] = _conv(cv["depthwise_kernel"])
+    sd[f"{prefix}conv.net.4.conv.bias"] = _np(cv["depthwise_bias"])
+    affine("conv.net.5", cv["bn"])
+    if buffers:
+        width = _np(cv["bn"]["scale"]).shape
+        sd[f"{prefix}conv.net.5.running_mean"] = _np(bn["mean"]) if "mean" in bn else np.zeros(width, np.float32)
+        sd[f"{prefix}conv.net.5.running_var"] = _np(bn["var"]) if "var" in bn else np.ones(width, np.float32)
+        sd[f"{prefix}conv.net.5.num_batches_tracked"] = np.zeros((), np.int64)
+    sd[f"{prefix}conv.net.7.weight"] = _dense(cv["pointwise_out"]["kernel"], as_conv1x1=True)
+    sd[f"{prefix}conv.net.7.bias"] = _np(cv["pointwise_out"]["bias"])
+    affine("post_norm", p["post_norm"])
     return sd
 
 

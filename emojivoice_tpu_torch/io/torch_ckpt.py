@@ -14,7 +14,10 @@ is transposed here.  This module:
 * recovers the ``ModelConfig`` from tensor shapes plus the checkpoint's own
   ``hyper_parameters``, plain dicts or pickled omegaconf objects (the
   reference's released voices), with a cross-check for every dimension both
-  determine;
+  determine; a decoder level's block type (transformer or conformer) comes
+  from its key names, and a conformer block's BatchNorm statistics load into
+  its buffers (``conv.net.5.running_*``; a file without
+  ``num_batches_tracked``, as the JAX package writes it, loads with 0);
 * folds HiFi-GAN weight norm (``weight_g``/``weight_v``) into plain weights,
   as the reference's ``remove_weight_norm`` does at load, or keeps it for
   training (``load_hifigan(path, fold=False)``);

@@ -13,11 +13,11 @@ from emojivoice_tpu_torch.models.decoder import Decoder
 
 class CFM(nn.Module):
     def __init__(self, cfg: CFMConfig, decoder: DecoderConfig, n_feats: int, n_spks: int = 1,
-                 spk_emb_dim: int = 64):
+                 spk_emb_dim: int = 64, strict_mask: bool = False):
         super().__init__()
         self.cfg = cfg
         in_channels = 2 * n_feats + (spk_emb_dim if n_spks > 1 else 0)
-        self.estimator = Decoder(decoder, in_channels, n_feats)
+        self.estimator = Decoder(decoder, in_channels, n_feats, strict_mask=strict_mask)
 
     def forward(self, mu, mask, n_timesteps: int, z: torch.Tensor, spks=None):
         """Sample a mel given the prior `mu` (B, T, n_feats) and the initial

@@ -1,12 +1,15 @@
 """CFM estimator: 1-D U-Net over mel time (PyTorch port of
-``emojivoice_tpu.models.decoder``, transformer blocks only).
+``emojivoice_tpu.models.decoder``).
 
 Structure for ``channels=(256, 256)``: down₀ resnet → transformer → stride-2
 conv; down₁ resnet → transformer → k3 conv; mid blocks; up blocks with skip
 concat and a k4 s2 p1 transposed upsample; final Block1D → 1×1 proj → mask.
 The time embedding has dimension ``in_channels``; attention adds the 0/1
 float mask to the scores (the diffusers float-mask quirk), so padded frames
-get a −1 bias, not −inf.  ``cfg.dropout`` acts after the attention's output
+get a −1 bias, not −inf; ``strict_mask=True`` gives them −1e9 instead (for
+training from scratch).  Where a level's block type is ``"conformer"`` its
+blocks are ``models/conformer.py``'s, whose attention masks with
+``-finfo.max`` whatever ``strict_mask`` says.  ``cfg.dropout`` acts after the attention's output
 projection and inside the feed-forward (after SnakeBeta), as ``nn.Dropout``
 in the slots ``to_out.1`` and ``ff.net.1`` of the reference.  Internals are channels-first with reference
 parameter names; ``Decoder.forward`` keeps the JAX package's channels-last
@@ -22,6 +25,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from emojivoice_tpu_torch.config import DecoderConfig
+from emojivoice_tpu_torch.models.conformer import ConformerBlock
 from emojivoice_tpu_torch.models.modules import mish, snake_beta
 
 
@@ -86,12 +90,13 @@ class FeedForward(nn.Module):
 
 class Attention(nn.Module):
     """diffusers Attention numerics: bias-free q/k/v, biased out proj, scale
-    head_dim^-0.5, float mask added to the scores."""
+    head_dim^-0.5, float mask added to the scores (or, with `strict_mask`,
+    −1e9 on the masked keys)."""
 
-    def __init__(self, dim: int, heads: int, head_dim: int, dropout: float = 0.0):
+    def __init__(self, dim: int, heads: int, head_dim: int, dropout: float = 0.0, strict_mask: bool = False):
         super().__init__()
         inner = heads * head_dim
-        self.heads, self.head_dim = heads, head_dim
+        self.heads, self.head_dim, self.strict_mask = heads, head_dim, strict_mask
         self.to_q = nn.Linear(dim, inner, bias=False)
         self.to_k = nn.Linear(dim, inner, bias=False)
         self.to_v = nn.Linear(dim, inner, bias=False)
@@ -105,7 +110,10 @@ class Attention(nn.Module):
 
         q, k, v = split(self.to_q(x)), split(self.to_k(x)), split(self.to_v(x))
         scores = torch.matmul(q, k.transpose(-2, -1)) / math.sqrt(self.head_dim)
-        scores = scores + mask_bt[:, None, None, :]
+        if self.strict_mask:
+            scores = scores.masked_fill(mask_bt[:, None, None, :] <= 0, -1e9)
+        else:
+            scores = scores + mask_bt[:, None, None, :]
         out = torch.matmul(torch.softmax(scores, dim=-1), v)
         return self.to_out[1](self.to_out[0](out.transpose(1, 2).reshape(b, t, -1)))
 
@@ -113,10 +121,11 @@ class Attention(nn.Module):
 class BasicTransformerBlock(nn.Module):
     """Pre-norm self-attention + SnakeBeta FFN, on (B, T, C)."""
 
-    def __init__(self, dim: int, heads: int, head_dim: int, dropout: float = 0.0, ff_mult: int = 4):
+    def __init__(self, dim: int, heads: int, head_dim: int, dropout: float = 0.0, ff_mult: int = 4,
+                 strict_mask: bool = False):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn1 = Attention(dim, heads, head_dim, dropout)
+        self.attn1 = Attention(dim, heads, head_dim, dropout, strict_mask)
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
         self.ff = FeedForward(dim, dim * ff_mult, dropout)
 
@@ -164,29 +173,31 @@ class Decoder(nn.Module):
     """forward(x, mask, mu, t, spks): x, mu (B, T, n_feats), mask (B, T, 1),
     t (B,), spks (B, spk_emb_dim) or None → (B, T, out_channels)."""
 
-    def __init__(self, cfg: DecoderConfig, in_channels: int, out_channels: int):
+    def __init__(self, cfg: DecoderConfig, in_channels: int, out_channels: int, strict_mask: bool = False):
         super().__init__()
-        for kind in (cfg.down_block_type, cfg.mid_block_type, cfg.up_block_type):
-            if kind != "transformer":
-                raise NotImplementedError(f"block type {kind!r} is not ported yet; only 'transformer'")
         chans = tuple(cfg.channels)
         tdim = chans[0] * 4
         self.in_channels = in_channels
         self.time_mlp = TimestepEmbedding(in_channels, tdim)
 
-        def tblocks(ch):
-            return nn.ModuleList([BasicTransformerBlock(ch, cfg.num_heads, cfg.attention_head_dim, cfg.dropout)
-                                  for _ in range(cfg.n_blocks)])
+        def tblocks(ch, kind):
+            if kind == "conformer":
+                return nn.ModuleList([ConformerBlock(ch, cfg.num_heads, cfg.attention_head_dim, cfg.dropout)
+                                      for _ in range(cfg.n_blocks)])
+            if kind == "transformer":
+                return nn.ModuleList([BasicTransformerBlock(ch, cfg.num_heads, cfg.attention_head_dim, cfg.dropout,
+                                                            strict_mask=strict_mask) for _ in range(cfg.n_blocks)])
+            raise ValueError(f"Unknown block type {kind!r}")
 
         self.down_blocks = nn.ModuleList()
         prev = in_channels
         for i, ch in enumerate(chans):
             is_last = i == len(chans) - 1
             down = nn.Conv1d(ch, ch, 3, padding=1) if is_last else Downsample1D(ch)
-            self.down_blocks.append(nn.ModuleList([ResnetBlock1D(prev, ch, tdim), tblocks(ch), down]))
+            self.down_blocks.append(nn.ModuleList([ResnetBlock1D(prev, ch, tdim), tblocks(ch, cfg.down_block_type), down]))
             prev = ch
         self.mid_blocks = nn.ModuleList(
-            [nn.ModuleList([ResnetBlock1D(chans[-1], chans[-1], tdim), tblocks(chans[-1])])
+            [nn.ModuleList([ResnetBlock1D(chans[-1], chans[-1], tdim), tblocks(chans[-1], cfg.mid_block_type)])
              for _ in range(cfg.num_mid_blocks)])
         up_chans = chans[::-1] + (chans[0],)
         self.up_blocks = nn.ModuleList()
@@ -194,7 +205,7 @@ class Decoder(nn.Module):
             ch = up_chans[i + 1]
             is_last = i == len(up_chans) - 2
             up = nn.Conv1d(ch, ch, 3, padding=1) if is_last else Upsample1D(ch)
-            self.up_blocks.append(nn.ModuleList([ResnetBlock1D(2 * up_chans[i], ch, tdim), tblocks(ch), up]))
+            self.up_blocks.append(nn.ModuleList([ResnetBlock1D(2 * up_chans[i], ch, tdim), tblocks(ch, cfg.up_block_type), up]))
         self.final_block = Block1D(up_chans[-1], up_chans[-1])
         self.final_proj = nn.Conv1d(up_chans[-1], out_channels, 1)
 

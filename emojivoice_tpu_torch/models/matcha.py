@@ -38,13 +38,15 @@ from emojivoice_tpu_torch.utils.masks import generate_path, sequence_mask
 
 
 class MatchaTTS(nn.Module):
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, strict_mask: bool = False):
+        """`strict_mask`: −1e9, not the reference's −1 bias, on padded keys in
+        the decoder's transformer blocks (``models/decoder.py``)."""
         super().__init__()
         self.cfg = cfg
         if cfg.n_spks > 1:
             self.spk_emb = nn.Embedding(cfg.n_spks, cfg.spk_emb_dim)
         self.encoder = TextEncoder(cfg.encoder, cfg.duration_predictor, cfg.n_vocab, cfg.n_spks, cfg.spk_emb_dim)
-        self.decoder = CFM(cfg.cfm, cfg.decoder, cfg.n_feats, cfg.n_spks, cfg.spk_emb_dim)
+        self.decoder = CFM(cfg.cfm, cfg.decoder, cfg.n_feats, cfg.n_spks, cfg.spk_emb_dim, strict_mask)
         stats = cfg.data_statistics
         self.register_buffer("mel_mean", torch.tensor(stats.mel_mean, dtype=torch.float32))
         self.register_buffer("mel_std", torch.tensor(stats.mel_std, dtype=torch.float32))

@@ -18,9 +18,10 @@ synthesise with the new voices):
    voice.
 
 It runs on the card unless ``--device cpu`` is given, and fails if the card is
-missing.  Not ported: the JAX tool's ``--num_devices``,
-``--steps_per_dispatch``, ``--wire_f16``, ``--render_val_samples`` (the
-port's trainer has none of them yet) and its compilation-cache switch.
+missing.  ``--render_val_samples`` is the trainer's (default 0 here, as in
+the JAX tool).  Not ported: the JAX tool's ``--num_devices`` (waits for
+parallelism), ``--steps_per_dispatch`` and ``--wire_f16`` (remote-TPU
+workarounds) and its compilation-cache switch.
 """
 
 from __future__ import annotations
@@ -72,7 +73,7 @@ def make_dataset(root: Path, n_spks_pool, n_utts: int = 22, seconds: float = 2.0
 
 def run_proof(preset: str, out_dir: str, steps: int = 40, batch_size: int = 4, out_size: int = 172, seed: int = 0,
               window: int = 5, utts: int = 22, val_every_steps: int = 0, ckpt_every_steps: int = 0,
-              log_every: int = 1, device="cuda") -> dict:
+              render_val_samples: int = 0, log_every: int = 1, device="cuda") -> dict:
     import torch
 
     from emojivoice_tpu_torch import config as cfglib
@@ -115,6 +116,7 @@ def run_proof(preset: str, out_dir: str, steps: int = 40, batch_size: int = 4, o
         "--ckpt_every_steps", str(ckpt_every_steps),
         # log_every 1 gives a per-step loss curve but reads the device's metrics every step
         "--log_every", str(log_every),
+        "--render_val_samples", str(render_val_samples),
         "--seed", str(seed),
         # proof data is always fine-tune scale (tens of utterances): keep decoded mels so that
         # epochs >= 2 don't pay host-side mel extraction
@@ -184,13 +186,14 @@ def main(argv=None) -> int:
     p.add_argument("--utts", type=int, default=22)
     p.add_argument("--val_every_steps", type=int, default=0)
     p.add_argument("--ckpt_every_steps", type=int, default=0)
+    p.add_argument("--render_val_samples", type=int, default=0)
     p.add_argument("--artifact_dir", default=None, help="copy metrics.jsonl + summary.json here")
     p.add_argument("--log_every", type=int, default=1,
                    help="metric cadence; 1 = per-step loss curve (reads the device each step)")
     args = p.parse_args(argv)
     run_proof(args.preset, args.out_dir, steps=args.steps, batch_size=args.batch_size, out_size=args.out_size,
               utts=args.utts, val_every_steps=args.val_every_steps, ckpt_every_steps=args.ckpt_every_steps,
-              log_every=args.log_every, device=args.device)
+              render_val_samples=args.render_val_samples, log_every=args.log_every, device=args.device)
     if args.artifact_dir:
         art = Path(args.artifact_dir)
         art.mkdir(parents=True, exist_ok=True)

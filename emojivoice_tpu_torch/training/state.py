@@ -19,6 +19,15 @@ differentiable, so the gradients land on the f32 parameters), while the loss
 terms, gradients, norm, clip and Adam stay f32, with no loss scaling.  Not
 ``torch.autocast``: that keeps norms and softmax in f32 and computes something
 other than the JAX step.
+
+Conformer blocks carry BatchNorm running statistics as buffers.  A training
+forward updates them in place and an eval forward (``eval_step``, the probe,
+a render) reads them only.  Under ``bf16-mixed`` only the parameters are cast:
+the buffers stay the module's own f32 tensors, so the update lands on them
+(a cast copy would take it and be thrown away).  The update itself is
+computed in bf16 from the statistics rounded to bf16 and stored back in f32,
+as the JAX step casts its ``batch_stats`` with the parameters and keeps the
+updated ones in f32.  Checkpoints hold the buffers with the weights.
 """
 
 from __future__ import annotations

@@ -23,9 +23,20 @@ released voice, or what ``io/export_torch.py`` wrote): the model takes the
 checkpoint's own architecture, and a checkpoint that does not fit the
 preset's data (mel width, speaker count) is refused by name.
 
+``--loggers`` (default ``tensorboard``) picks the metric writers of
+``utils/observability.py`` under ``<out_dir>/tb``: tensorboard event files
+where the ``tensorboard`` package imports and the ``scalars.jsonl`` sidecar
+always, ``csv``, ``wandb`` (skipped with a warning without the package); they
+get the ``train/``, ``val/``, ``probe/`` and ``test/`` scalars and are closed
+however the run ends.  ``--render_val_samples N`` (default 2) synthesises the
+first N validation texts after each validation pass and logs their mels as
+images (``val/mel_<i>``): through one mel-only ``SynthesisPipeline`` for the
+run, built on the live model (no copy of the weights), in eval mode and
+without gradients, train mode restored after, so a render moves no BatchNorm
+statistic of a conformer decoder.
+
 Flags keep the JAX trainer's names.  Not ported yet: ``--tp``,
-``--num_devices``, ``--dcn_*``, ``--render_val_samples`` and the
-tensorboard/csv/wandb loggers.
+``--num_devices`` and ``--dcn_*`` (parallelism).
 """
 
 from __future__ import annotations
@@ -82,40 +93,55 @@ def build_parser():
                         "alignment-emergence diagnostics under tag 'probe'; 0 disables")
     p.add_argument("--cache_data", action="store_true",
                    help="keep decoded items (text ids + mels) in memory after epoch 1")
+    p.add_argument("--render_val_samples", type=int, default=2,
+                   help="synthesise N validation texts after each validation pass and log their mels as images; "
+                        "0 disables")
+    p.add_argument("--loggers", default="tensorboard",
+                   help="comma list of metric writers: tensorboard | csv | wandb (wandb is skipped with a warning "
+                        "without the package); metrics.jsonl is always written")
     return p
 
 
 def main(argv=None) -> int:
     """Run the loop; on any failure write the traceback to
     out_dir/exception.log and re-raise."""
+    from emojivoice_tpu_torch.utils.observability import make_logger
+
     args = build_parser().parse_args(argv)
+    tb = None
     try:
-        return _run(args)
+        tb = make_logger(args.loggers, str(Path(args.out_dir) / "tb"))
+        return _run(args, tb)
     except Exception:
         out = Path(args.out_dir)
         out.mkdir(parents=True, exist_ok=True)
         (out / "exception.log").write_text(traceback.format_exc())
         print(f"[train] FAILED — traceback written to {out / 'exception.log'}", file=sys.stderr, flush=True)
         raise
+    finally:
+        if tb is not None:
+            tb.close()  # the metric writers are closed however the run ends
 
 
-def _run(args) -> int:
+def _run(args, tb) -> int:
     from emojivoice_tpu_torch import config as cfglib
     from emojivoice_tpu_torch.data.dataset import BucketBatcher, Prefetcher, TextMelDataset
     from emojivoice_tpu_torch.io.checkpoint import CheckpointManager
     from emojivoice_tpu_torch.training.state import (_dtype_for, batch_to_device, create_train_state, eval_step,
                                                      train_step)
+    from emojivoice_tpu_torch.utils.observability import enable_nan_checks
     from emojivoice_tpu_torch.utils.prng import step_generator
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available (pass --device cpu to train on the CPU)")
     if args.detect_anomaly:
-        torch.autograd.set_detect_anomaly(True)
+        enable_nan_checks(True)
     if args.fast_dev_run:
         args.max_steps = 1
         args.val_every_steps = 1
         args.ckpt_every_steps = 0
+        args.render_val_samples = 0
 
     root = cfglib.get_preset(args.preset)
     if args.mel_stats:
@@ -200,6 +226,28 @@ def _run(args) -> int:
 
     metrics_path = Path(args.out_dir) / "metrics.jsonl"
     metrics_path.parent.mkdir(parents=True, exist_ok=True)
+    render_cache: dict = {}
+
+    def render_val_samples(step):
+        """The first N validation texts synthesised by the live model, their
+        mels logged as images."""
+        if args.render_val_samples <= 0 or len(valid_ds) == 0:
+            return
+        from emojivoice_tpu_torch.inference.pipeline import SynthesisPipeline
+
+        pipe = render_cache.get("pipe")
+        try:
+            if pipe is None:  # one mel-only pipeline for the run, on the live model
+                pipe = render_cache["pipe"] = SynthesisPipeline(model_cfg, model, device=device,
+                                                                cleaners=data_cfg.cleaners)
+            model.eval()
+            for i in range(min(args.render_val_samples, len(valid_ds))):
+                _, spk, text = valid_ds.items[i]
+                res = pipe.synthesise([text], spks=[spk], n_timesteps=10, seed=0, vocode=False)[0]
+                tb.image(f"val/mel_{i}", res.mel, step)
+        finally:
+            model.train()
+        tb.flush()
 
     def log_metrics(tag, step, m, extra=None):
         rec = {"tag": tag, "step": int(step), "time": dt.datetime.now().isoformat(),
@@ -208,6 +256,9 @@ def _run(args) -> int:
             rec.update(extra)
         with open(metrics_path, "a") as f:
             f.write(json.dumps(rec) + "\n")
+        for k, v in m.items():  # the JAX trainer's rule: a probe metric only where it is finite
+            if v is not None and (tag != "probe" or np.isfinite(float(v))):
+                tb.scalar(f"{tag}/{k}", float(v), step)
         if tag == "train":
             print(f"[train] step {int(step)}  " + "  ".join(f"{k}={float(v):.4f}" for k, v in m.items()),
                   flush=True)
@@ -269,6 +320,8 @@ def _run(args) -> int:
             return None
         avg = {k: float(np.mean([float(m[k]) for m in ms])) for k in ms[0]}  # one wait, after the sweep
         log_metrics(tag, step, avg)
+        if tag == "val":
+            render_val_samples(step)
         return avg
 
     overfit_set = None

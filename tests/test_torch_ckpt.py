@@ -412,3 +412,70 @@ def test_load_hifigan_discriminators_makes_every_weight_plain(tmp_path):
     torch.save({"generator": {"conv_pre.bias": torch.zeros(2)}}, tmp_path / "g_only")
     with pytest.raises(ValueError, match="not a HiFi-GAN do_"):
         torch_ckpt.load_hifigan_discriminators(str(path.parent / "g_only"))
+
+
+def test_jax_written_conformer_checkpoint_loads_strictly_and_serves(tmp_path):
+    """A conformer model's reference-format ``.ckpt`` as the JAX package
+    writes it (``export_matcha_state_dict``: the BatchNorm statistics of its
+    ``batch_stats`` under ``conv.net.5``, no ``num_batches_tracked``) loads with
+    ``strict=True``, keeps its block types, and reproduces the JAX mel."""
+    from tests.test_torch_conformer import ALL, matcha_pair, with_blocks
+    from tests.test_torch_serving import tiny_root
+
+    jax_root = tiny_root()
+    cfg = with_blocks(jax_root.model, ALL)
+    model, variables, _ = matcha_pair(cfg, seed=21)
+    sd = jax_ckpt.export_matcha_state_dict(variables, cfg)
+    assert "decoder.estimator.mid_blocks.0.1.0.conv.net.5.running_var" in sd
+    assert not any(k.endswith("num_batches_tracked") for k in sd)
+    torch.save({"state_dict": as_tensors(sd), "hyper_parameters": jax_ckpt.export_matcha_hparams(cfg)},
+               tmp_path / "conformer.ckpt")
+    loaded, inferred = torch_ckpt.load_matcha(str(tmp_path / "conformer.ckpt"))
+    assert (inferred.decoder.down_block_type, inferred.decoder.mid_block_type, inferred.decoder.up_block_type) == ALL
+    assert cfglib.to_dict(inferred) == jax_cfglib.to_dict(cfg)
+    with pytest.warns(UserWarning, match="random HiFi-GAN"):
+        pipe = SynthesisPipeline.from_torch_checkpoints(str(tmp_path / "conformer.ckpt"), device="cpu",
+                                                        vocoder_cfg=port_root(jax_root).vocoder,
+                                                        cleaners=("basic_cleaners",), **BUCKETS)
+    bn = pipe.model.decoder.estimator.mid_blocks[0][1][0].conv.net[5]
+    np.testing.assert_array_equal(bn.running_var.numpy(),
+                                  sd["decoder.estimator.mid_blocks.0.1.0.conv.net.5.running_var"])
+    assert int(bn.num_batches_tracked) == 0
+
+    texts, spks, ty = ["hello there", "a longer sentence here"], [1, 3], 128
+    x, xl, _, _ = pipe.encode_texts(texts)
+    z = np.random.default_rng(22).normal(size=(2, ty, 12)).astype(np.float32) * 0.667
+    ref = jax.device_get(model.apply(variables, jnp.asarray(x, jnp.int32), jnp.asarray(xl, jnp.int32), ty, 2, 0.667,
+                                     jnp.asarray(spks, jnp.int32), 1.0, None, jnp.asarray(z),
+                                     method=FlaxMatcha.synthesise))
+    got = pipe.model.synthesise(torch.from_numpy(x), torch.from_numpy(xl), ty, 2, torch.from_numpy(z),
+                                torch.tensor(spks))
+    np.testing.assert_array_equal(got["mel_lengths"].numpy(), ref["mel_lengths"])
+    assert np.abs(got["mel"].numpy() - ref["mel"]).mean() < 1e-4
+    res = pipe.synthesise(texts, spks=spks, n_timesteps=2, seed=0)
+    assert all(np.isfinite(r.wav).all() and r.wav.shape == (r.mel_length * 16,) for r in res)
+
+
+def test_port_export_of_a_trained_conformer_keeps_its_batch_stats(tmp_path):
+    """``io/export_torch.py`` writes the BatchNorm statistics under the
+    reference's names with ``num_batches_tracked``, and the file serves the
+    statistics the trainer left."""
+    from emojivoice_tpu_torch.io.export_torch import export
+    from tests.test_torch_train_cli import _conformer_ckpt
+
+    ckpt, start = _conformer_ckpt(tmp_path)
+    train, val, _ = make_alignable_dataset(tmp_path / "corpus", [0, 1], n_utts=2, seed=0)
+    assert train_main(["--preset", "tiny", "--device", "cpu", "--train_filelist", str(train), "--valid_filelist",
+                       str(val), "--out_dir", str(tmp_path / "run"), "--batch_size", "2", "--max_steps", "2",
+                       "--val_every_steps", "0", "--from_torch_ckpt", ckpt]) == 0
+    out = export(str(tmp_path / "run" / "ckpts"), str(tmp_path / "trained.ckpt"))
+    saved = torch.load(out, weights_only=True)["state_dict"]
+    key = "decoder.estimator.up_blocks.1.1.0.conv.net.5"
+    assert saved[f"{key}.num_batches_tracked"].dtype == torch.int64 and int(saved[f"{key}.num_batches_tracked"]) == 2
+    assert float((saved[f"{key}.running_mean"] - start.model.state_dict()[f"{key}.running_mean"]).abs().max()) > 1e-4
+    with pytest.warns(UserWarning, match="random HiFi-GAN"):
+        pipe = SynthesisPipeline.from_torch_checkpoints(str(out), device="cpu", cleaners=("basic_cleaners",),
+                                                        **BUCKETS)
+    served = pipe.model.state_dict()
+    for suffix in ("running_mean", "running_var", "num_batches_tracked"):
+        assert torch.equal(served[f"{key}.{suffix}"].to(saved[f"{key}.{suffix}"].dtype), saved[f"{key}.{suffix}"])

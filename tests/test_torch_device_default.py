@@ -261,3 +261,47 @@ def test_a_card_bundle_refuses_the_cpu(name, tmp_path):
     a bundle made on the card says to export one with --cpu."""
     with pytest.raises(ValueError, match="exported on cuda.*--cpu"):
         EXPORT_SIDE[name](tmp_path, device="cpu")
+
+
+def _run_scratch_proof(tmp_path, **kw):
+    from emojivoice_tpu_torch.training.scratch_proof import run_scratch_proof
+
+    return run_scratch_proof("tiny", str(tmp_path / "scratch"), steps=1, **kw)
+
+
+def _scratch_proof_main(tmp_path, **kw):
+    from emojivoice_tpu_torch.training import scratch_proof
+
+    return scratch_proof.main(["--preset", "tiny", "--out_dir", str(tmp_path / "scratch"), "--steps", "1"]
+                              + [f"--{k}={v}" for k, v in kw.items()])
+
+
+TRAINING_TOOLS = {"run_scratch_proof": _run_scratch_proof, "scratch_proof.main": _scratch_proof_main}
+
+
+@pytest.mark.parametrize("name", sorted(TRAINING_TOOLS))
+def test_training_tool_without_a_card_raises_and_names_the_cpu(name, tmp_path, monkeypatch):
+    """The scratch proof runs on the card unless asked: without one it stops
+    before it writes its corpus."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device is available .*cpu"):
+        TRAINING_TOOLS[name](tmp_path)
+    assert not list(tmp_path.iterdir())
+
+
+def test_sweep_trials_run_on_the_card_unless_asked(tmp_path, monkeypatch):
+    """The sweep's trials are the trainer's runs: without ``--device cpu`` among
+    the shared flags each trial asks for the card, and without one each is
+    recorded with the trainer's refusal (no trial carries on on the CPU)."""
+    import json
+
+    from emojivoice_tpu_torch.training import sweep
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = tmp_path / "sweep"
+    rc = sweep.main(["--out_dir", str(out), "--grid", "--space", "lr=choice:1e-4,1e-3", "--", "--preset", "tiny",
+                     "--train_filelist", str(tmp_path / "none.txt"), "--valid_filelist", str(tmp_path / "none.txt")])
+    assert rc == 1
+    recs = [json.loads(line) for line in (out / "trials.jsonl").read_text().splitlines()]
+    assert [r["status"] for r in recs] == ["error: RuntimeError: --device cuda: no CUDA device is available (pass "
+                                           "--device cpu to train on the CPU)"] * 2

@@ -5,13 +5,17 @@ A fresh interpreter imports every module of ``emojivoice_tpu_torch`` and
 everything ``chip_smoke.py`` imports, runs a tiny CPU synthesis, the serving
 front ends on it (batching engine, streaming vocoder, long-form, the CLI, the
 webapp over HTTP, a checkpoint written and served, a bundle exported and
-run), a ``--fast_dev_run`` of
-the trainer, and the vocoder's training side with its tools (data statistics,
-export, ``--from_torch_ckpt``, durations and teacher-forced mels, two GAN
-steps), and then ``sys.modules`` must hold no
+run), a conformer model's synthesis, a ``--fast_dev_run`` of the trainer and
+a run with its loggers and a validation render, a sweep of it in process, a
+short scratch proof, and the vocoder's training side with its tools (data
+statistics, export, ``--from_torch_ckpt``, durations and teacher-forced mels,
+two GAN steps), and then ``sys.modules`` must hold no
 ``emojivoice_tpu`` (or ``emojivoice_tpu.*``) and none of jax, jaxlib, flax,
 optax, orbax.  A second test holds the port's own copies of the presets and
-the emoji mapping equal to the JAX package's, so they cannot drift unnoticed.
+the emoji mapping equal to the JAX package's, so they cannot drift unnoticed
+(the port's copies of ``utils/observability.py`` and ``training/sweep.py`` are
+held to the originals by ``tests/test_torch_observability.py`` and
+``tests/test_torch_sweep.py``).
 """
 
 import dataclasses
@@ -42,7 +46,8 @@ for want in ("ops.mas", "ops.mel", "data.dataset", "data.audio_np", "training.tr
              "inference.serving", "inference.streaming", "inference.longform", "inference.cli", "apps.webapp",
              "io.torch_ckpt", "utils.assets", "vocoder.discriminators", "training.vocoder_train",
              "training.vocoder_proof", "training.proof", "training.get_durations", "data.stats", "io.export_torch",
-             "inference.export", "io.torch_pickle"):
+             "inference.export", "io.torch_pickle", "models.conformer", "utils.observability",
+             "training.scratch_proof", "training.sweep"):
     assert "emojivoice_tpu_torch." + want in names, want
 for name in names:
     importlib.import_module(name)
@@ -58,6 +63,15 @@ pipe = SynthesisPipeline.from_random(cfglib.RootConfig(model=model, vocoder=voc)
 res = pipe.synthesise(["no jax here"], spks=[1], n_timesteps=2, seed=0, pcm16=True)[0]
 assert res.mel_length > 0 and res.wav.shape == (res.mel_length * 16,), res.wav.shape
 assert np.isfinite(res.wav).all()
+# the conformer decoder: a tiny synthesis with every block type conformer
+import dataclasses
+conf = dataclasses.replace(model, decoder=dataclasses.replace(
+    model.decoder, down_block_type="conformer", mid_block_type="conformer", up_block_type="conformer"))
+from emojivoice_tpu_torch.models.matcha import MatchaTTS
+conf_pipe = SynthesisPipeline(conf, MatchaTTS(conf, strict_mask=True), voc, pipe.vocoder, device="cpu",
+                              mel_buckets=(64, 128, 256), text_buckets=(64, 128))
+assert conf_pipe.synthesise(["a conformer"], spks=[1], n_timesteps=2, seed=0)[0].mel_length > 0
+assert not foreign(), foreign()
 
 # the serving front ends, each run once on the tiny pipeline
 import json, threading, urllib.request
@@ -105,12 +119,28 @@ with tempfile.TemporaryDirectory() as tmp:
     assert list(Path(tmp).glob("utterance_*.wav"))
 assert not foreign(), foreign()
 
+
 from emojivoice_tpu_torch.training.synthetic import make_alignable_dataset
 from emojivoice_tpu_torch.training.train import main
 with tempfile.TemporaryDirectory() as tmp:
     train, val, _ = make_alignable_dataset(Path(tmp), [0, 1], n_utts=2, seed=0)
     assert main(["--preset", "tiny", "--device", "cpu", "--train_filelist", str(train), "--valid_filelist", str(val),
                  "--out_dir", tmp + "/run", "--batch_size", "2", "--fast_dev_run"]) == 0
+    # the loggers, a validation render, and a sweep of the trainer in process
+    assert main(["--preset", "tiny", "--device", "cpu", "--train_filelist", str(train), "--valid_filelist", str(val),
+                 "--out_dir", tmp + "/logged", "--batch_size", "2", "--max_steps", "1", "--val_every_steps", "1",
+                 "--ckpt_every_steps", "0", "--render_val_samples", "1", "--loggers", "tensorboard,csv,wandb"]) == 0
+    assert (Path(tmp) / "logged" / "tb" / "metrics.csv").exists()
+    from emojivoice_tpu_torch.training import sweep
+    assert sweep.main(["--out_dir", tmp + "/sweep", "--grid", "--space", "lr=choice:1e-4", "--", "--preset", "tiny",
+                       "--device", "cpu", "--train_filelist", str(train), "--valid_filelist", str(val),
+                       "--batch_size", "2", "--max_steps", "1", "--val_every_steps", "1", "--ckpt_every_steps", "0",
+                       "--render_val_samples", "0"]) == 0
+from emojivoice_tpu_torch.training.scratch_proof import run_scratch_proof
+with tempfile.TemporaryDirectory() as tmp:
+    run_scratch_proof("tiny", tmp, steps=2, batch_size=2, probe_every=1, utts=2, n_speakers=2, log_every=1,
+                      assert_emergence=False, assert_free_synth=False, device="cpu")
+assert not foreign(), foreign()
 
 # the vocoder's training side and the tools around it: every console script's main, once, at a tiny size
 import tomllib
@@ -118,7 +148,7 @@ scripts = tomllib.load(open("pyproject.toml", "rb"))["project"]["scripts"]
 ported = {k: v for k, v in scripts.items() if v.startswith("emojivoice_tpu_torch.")}
 for want in ("emojivoice-get-durations-torch", "emojivoice-data-stats-torch", "emojivoice-export-torch-torch",
              "emojivoice-train-proof-torch", "emojivoice-vocoder-proof-torch", "emojivoice-export-bundle-torch",
-             "emojivoice-run-exported-torch"):
+             "emojivoice-run-exported-torch", "emojivoice-scratch-proof-torch", "emojivoice-sweep-torch"):
     assert want in ported, (want, sorted(ported))
 for target in ported.values():
     mod, fn = target.split(":")

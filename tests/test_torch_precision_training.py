@@ -189,3 +189,26 @@ def test_trainer_cli_bf16_mixed(corpus, tmp_path, monkeypatch):  # noqa: F811
     assert train[0]["grad_norm"] > 0 and np.isfinite(val[0]["loss"])
     with pytest.raises(SystemExit):
         main(_args(corpus, tmp_path / "bad", "--fast_dev_run", "--precision", "fp16"))
+
+
+def test_bf16_mixed_train_step_updates_the_f32_batch_stats():
+    """``train_step(precision="bf16-mixed")`` on a conformer decoder: the
+    BatchNorm buffers stay f32 on the module and take the update (a cast copy
+    would swallow it), within bf16's rounding of the f32 step's update."""
+    from tests.test_torch_training import _bn_buffers, _conformer_state
+
+    b = _batch(21)
+    batch = dict(zip(("x", "x_lengths", "y", "y_lengths", "spks"), _targs(b)))
+    after = {}
+    for precision in ("f32", "bf16-mixed"):
+        state = _conformer_state()
+        start = _bn_buffers(state.model)
+        port_state.train_step(state, batch, seed=3, precision=precision)
+        after[precision] = _bn_buffers(state.model)
+        for k, v in after[precision].items():
+            if "running" in k:
+                assert v.dtype == torch.float32 and not torch.equal(v, start[k]), k
+    for k, v in after["bf16-mixed"].items():
+        if "running" in k:
+            assert not torch.equal(v, after["f32"][k]), k  # bf16 arithmetic really ran
+            np.testing.assert_allclose(v.numpy(), after["f32"][k].numpy(), rtol=2e-2, atol=2e-3, err_msg=k)

@@ -166,3 +166,117 @@ def test_from_torch_ckpt_then_resume_repeats_an_unbroken_fine_tune(corpus, tmp_p
     # a run without the flag starts elsewhere: the file's weights did arrive
     assert main(_args(corpus, tmp_path / "scratch", "--max_steps", "1", "--val_every_steps", "0", "--seed", "1234")) == 0
     assert _records(tmp_path / "scratch", "train")[0]["loss"] != _records(whole, "train")[0]["loss"]
+
+
+def _conformer_ckpt(tmp_path):
+    """A tiny model whose decoder is all conformer blocks, written as a
+    reference-format file: how a conformer voice reaches the trainer (the
+    presets are transformer models)."""
+    import dataclasses
+
+    from emojivoice_tpu_torch.io.export_torch import export
+
+    root = cfglib.tiny()
+    dec = dataclasses.replace(root.model.decoder, down_block_type="conformer", mid_block_type="conformer",
+                              up_block_type="conformer")
+    root = dataclasses.replace(root, model=dataclasses.replace(root.model, decoder=dec))
+    start = create_train_state(root.model, root.optimizer, seed=9, device="cpu")
+    CheckpointManager(str(tmp_path / "released")).save(0, start.state_dict(), cfg=root)
+    return str(export(str(tmp_path / "released"), str(tmp_path / "conformer.ckpt"))), start
+
+
+def _bn(state_dict):
+    return {k: v.clone() for k, v in state_dict.items() if ".conv.net.5." in k and "running" in k}
+
+
+def test_loggers_and_val_renders_leave_the_batch_stats_alone(corpus, tmp_path, monkeypatch):
+    """``--loggers csv,tensorboard`` and ``--render_val_samples 1`` on a
+    conformer fine-tune: the writers get the train/val/probe scalars and one
+    mel image per validation pass; each render runs in eval mode without
+    gradients on the live model and leaves its BatchNorm statistics as it found
+    them, while the training steps move them."""
+    from emojivoice_tpu_torch.inference.pipeline import SynthesisPipeline
+    from emojivoice_tpu_torch.utils.observability import TensorBoardWriter
+
+    ckpt, start = _conformer_ckpt(tmp_path)
+    renders = []
+    real = SynthesisPipeline.synthesise
+
+    def watched(self, texts, **kw):
+        before = _bn(self.model.state_dict())
+        out = real(self, texts, **kw)
+        renders.append(dict(training=self.model.training, grad=torch.is_grad_enabled(), vocode=kw.get("vocode"),
+                            same=all(torch.equal(v, before[k]) for k, v in _bn(self.model.state_dict()).items()),
+                            model=id(self.model)))
+        return out
+
+    monkeypatch.setattr(SynthesisPipeline, "synthesise", watched)
+    out = tmp_path / "run"
+    assert main(_args(corpus, out, "--from_torch_ckpt", ckpt, "--max_steps", "4", "--val_every_steps", "2",
+                      "--probe_every", "2", "--ckpt_every_steps", "0", "--render_val_samples", "1",
+                      "--loggers", "csv,tensorboard")) == 0
+    assert len(renders) == 2 and len({r["model"] for r in renders}) == 1  # one pipeline, on one model
+    assert all(r["same"] and not r["training"] and r["vocode"] is False for r in renders), renders
+    final = CheckpointManager(str(out / "ckpts")).restore(4)["model"]
+    assert int(final["decoder.estimator.mid_blocks.0.1.0.conv.net.5.num_batches_tracked"]) == 4
+    assert any(float((final[k] - v).abs().max()) > 1e-4 for k, v in _bn(start.model.state_dict()).items())
+
+    tb = out / "tb"
+    assert {p.name for p in tb.glob("val_mel_0_*.png")} == {"val_mel_0_2.png", "val_mel_0_4.png"}
+    header = (tb / "metrics.csv").read_text().splitlines()[0].split(",")
+    for tag in ("train/loss", "train/grad_norm", "val/loss", "probe/diagonality"):
+        assert tag in header, tag
+    scalars = [json.loads(line) for line in (tb / "scalars.jsonl").read_text().splitlines()]
+    assert [r["step"] for r in scalars if r["tag"] == "train/loss"] == [1, 2, 3, 4]
+    assert not any(r["tag"] == "probe/mas_drift_l1" and r["step"] == 0 for r in scalars)  # null at step 0
+    if TensorBoardWriter(str(tmp_path / "probe_tb")).event_files:
+        assert list(tb.glob("events.out.tfevents.*"))
+
+
+def test_default_loggers_fall_back_to_the_jsonl_sidecar_without_tensorboard(corpus, tmp_path, monkeypatch):
+    import sys
+
+    monkeypatch.setitem(sys.modules, "tensorboard.compat.proto.event_pb2", None)  # an image without tensorboard
+    out = tmp_path / "run"
+    assert main(_args(corpus, out, "--max_steps", "2", "--val_every_steps", "2", "--ckpt_every_steps", "0")) == 0
+    tb = out / "tb"
+    assert not list(tb.glob("events.out.tfevents.*"))
+    tags = {json.loads(line)["tag"] for line in (tb / "scalars.jsonl").read_text().splitlines()}
+    assert {"train/loss", "val/loss"} <= tags
+    assert {p.name for p in tb.glob("*.png")} == {"val_mel_0_2.png", "val_mel_1_2.png"}  # default: two renders
+
+
+def test_loggers_are_closed_when_the_run_fails(corpus, tmp_path, monkeypatch):
+    from emojivoice_tpu_torch.utils import observability
+
+    closed = []
+    real = observability.make_logger
+
+    def made(kinds, log_dir):
+        w = real(kinds, log_dir)
+        close = w.close
+        w.close = lambda: (closed.append(kinds), close())
+        return w
+
+    monkeypatch.setattr(observability, "make_logger", made)
+    with pytest.raises(RuntimeError):  # --out_size 31: the U-Net's skip shapes disagree in the first forward
+        main(_args(corpus, tmp_path / "bad", "--max_steps", "2", "--out_size", "31", "--loggers", "csv"))
+    assert closed == ["csv"]
+
+
+def test_conformer_fine_tune_resumes_exactly(corpus, tmp_path):
+    """The BatchNorm statistics travel in the checkpoints: a conformer run
+    resumed midway ends bit for bit where an unbroken one ends, statistics and
+    ``num_batches_tracked`` included."""
+    ckpt, _ = _conformer_ckpt(tmp_path)
+    common = ("--from_torch_ckpt", ckpt, "--val_every_steps", "0")
+    whole, broken = tmp_path / "whole", tmp_path / "broken"
+    assert main(_args(corpus, whole, "--max_steps", "4", "--ckpt_every_steps", "0", *common)) == 0
+    assert main(_args(corpus, broken, "--max_steps", "2", "--ckpt_every_steps", "2", *common)) == 0
+    assert main(_args(corpus, broken, "--max_steps", "4", "--ckpt_every_steps", "2", "--resume", *common)) == 0
+    a = CheckpointManager(str(whole / "ckpts")).restore(4)["model"]
+    b = CheckpointManager(str(broken / "ckpts")).restore(4)["model"]
+    assert sorted(a) == sorted(b) and len(_bn(a)) == 2 * 5
+    for name, value in a.items():
+        assert torch.equal(value, b[name]), name
+    assert [r["loss"] for r in _records(broken, "train")] == [r["loss"] for r in _records(whole, "train")]

@@ -276,3 +276,35 @@ def test_schedule_matches_optax(kind, warmup):
 def test_unknown_scheduler_raises():
     with pytest.raises(ValueError, match="Unknown scheduler"):
         port_state.make_schedule(cfglib.OptimizerConfig(scheduler="step"))
+
+
+def _conformer_state(seed=0):
+    cfg = dataclasses.replace(CFG, decoder=dataclasses.replace(CFG.decoder, down_block_type="conformer",
+                                                               mid_block_type="conformer", up_block_type="conformer"))
+    return port_state.create_train_state(cfg, cfglib.OptimizerConfig(), seed=seed, device="cpu")
+
+
+def _bn_buffers(model):
+    return {k: v.clone() for k, v in model.state_dict().items() if ".conv.net.5." in k}
+
+
+def test_train_step_threads_conformer_batch_stats():
+    """``train_step`` (dropout and draws seeded from the step) updates the
+    BatchNorm buffers of a conformer decoder in place, the same way from the
+    same state; ``eval_step`` reads them only; the state dict carries them."""
+    b = _batch(20)
+    batch = dict(zip(("x", "x_lengths", "y", "y_lengths", "spks"), _targs(b)))
+    runs = []
+    for _ in range(2):
+        state = _conformer_state()
+        start = _bn_buffers(state.model)
+        port_state.eval_step(state.model, batch)
+        assert all(torch.equal(v, start[k]) for k, v in _bn_buffers(state.model).items())
+        port_state.train_step(state, batch, seed=3)
+        runs.append(_bn_buffers(state.model))
+        moved = [k for k, v in runs[-1].items() if "running" in k and not torch.equal(v, start[k])]
+        assert len(moved) == 2 * 5, moved  # mean and variance of the five blocks
+        assert all(int(v) == 1 for k, v in runs[-1].items() if k.endswith("num_batches_tracked"))
+        saved = state.state_dict()["model"]
+        assert all(torch.equal(saved[k], v) for k, v in runs[-1].items())
+    assert all(torch.equal(runs[0][k], runs[1][k]) for k in runs[0])
