@@ -68,21 +68,9 @@
 // weights, never in the activations in global memory; C that is no multiple
 // of 4 (rows not 16-byte aligned) takes scalar copies of x instead of TMA.
 //
-// bf16 mode (mrf_resblock_bf16, mrf_conv_bf16).  The Pallas kernel's second
-// numeric mode: with bf16 weights, _conv_same (pallas_mrf.py:64-86) rounds the
-// masked, leaky-ReLU'd activation to bf16 at each tap product and multiplies
-// once, bf16 × bf16 → f32; bias, residual, the res-block mean, x and out stay
-// f32.  The same kernel, instantiated with BF16 = true, does that: each thread
-// still reads its f32 activations from the x ring, applies the lrelu and packs
-// two values per register with cvt.rn.bf16x2.f32 (round to nearest even, as
-// JAX's astype(bf16)); one wgmma m64nNk16 bf16 per 16 input channels takes the
-// place of three m64nNk8 TF32 products per 8.  The conv's intermediate h stays
-// f32 in global memory and is rounded only as the next conv's input.  The
-// weights are packed once outside the kernel as one bf16 part, K-major, in the
-// same core-matrix layout: [c_in slice][tap][8-c_in group][c_out][8], so a
-// stage of the ring is a quarter of the TF32 one's bytes and the descriptor's
-// offsets are unchanged (a k16 bf16 step spans 32 bytes of K, as a k8 TF32
-// step does).  Bound: 2·MACs at 989 TFLOP/s, a sixth of the 3xTF32 mode's.
+// K1's bf16 mode (mrf_resblock_bf16, mrf_conv_bf16) is a kernel of its own,
+// csrc/mrf_bf16.cu; the primitives and the epilogue modes both use are in
+// csrc/k1_common.cuh.
 //
 // Plain C interface (built with nvcc into a shared library, bound through
 // ctypes); launches on the caller's stream and returns cudaGetLastError().
@@ -92,6 +80,8 @@
 #include <algorithm>
 #include <cstdint>
 #include <cstring>
+
+#include "k1_common.cuh"
 
 // -DK1_PHASE_CLOCKS: one consumer thread of block 0 sums clock64() cycles per phase (waiting for x, waiting for
 // weights, loading and splitting fragments, products in flight, epilogue) and prints them when the block ends.
@@ -109,52 +99,10 @@ namespace {
 
 enum Phase : int { kWaitX = 0, kWaitW, kFragments, kProducts, kEpilogue, kPhases };
 
-constexpr int KC = 32;            // input channels per staged slice: four k8 TF32 steps, or two k16 bf16 steps
-constexpr float SLOPE = 0.1f;
+constexpr int KC = 32;            // input channels per staged slice: four k8 TF32 steps
+constexpr int KSTEPS = KC / 8;    // wgmma k8 steps per slice
+constexpr int W_GROUPS = 2 * (KC / 4);  // 16-byte groups per c_out row of one (slice, tap) weight stage: hi and lo
 
-// wgmma k-steps per slice: each spans 32 bytes of K (8 TF32 or 16 bf16 input channels)
-__host__ __device__ constexpr int k_steps(bool bf16) { return bf16 ? KC / 16 : KC / 8; }
-// 16-byte groups per c_out row of one (slice, tap) weight stage: 4 c_in each of hi and lo TF32, or 8 c_in of bf16
-__host__ __device__ constexpr int w_groups(bool bf16) { return bf16 ? KC / 8 : 2 * (KC / 4); }
-constexpr int kSmemLimit = 232448;  // 227 KB a block can use on sm_90
-
-enum Epilogue : int {
-  kStore = 0,      // out = conv
-  kResidual = 1,   // out = res + conv          (res may alias out)
-  kMeanFirst = 2,  // out = (res + conv) * scale
-  kMeanAcc = 3,    // out += (res + conv) * scale
-};
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// mbarrier and bulk-copy (TMA, one dimension) primitives
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-// bytes (a multiple of 16, both addresses 16-byte aligned) from global to shared memory; the barrier counts them
-__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
-  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
-               "l"(src), "r"(bytes), "r"(bar)
-               : "memory");
-}
 // one box of a 3-D tensor map (x: channels, frames, batch) into shared memory; the barrier counts its bytes
 __device__ __forceinline__ void tensor_copy_3d(uint32_t dst, const CUtensorMap* map, int c0, int c1, int c2,
                                                uint32_t bar) {
@@ -163,25 +111,10 @@ __device__ __forceinline__ void tensor_copy_3d(uint32_t dst, const CUtensorMap* 
       ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
       : "memory");
 }
-__device__ __forceinline__ void fence_barrier_init() { asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory"); }
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_wait0() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
 
 // f32 → the nearest TF32 number, ties away from zero (what cvt.rna.tf32.f32 gives, and the packer's rule for the
 // weights), by integer arithmetic on the bit pattern: conversions run at a fraction of the integer rate
 __device__ __forceinline__ uint32_t round_tf32(float v) { return (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u; }
-
-// Shared-memory matrix descriptor, no swizzle, K-major: 8 rows × 16 bytes per
-// core matrix; lbo = bytes between core matrices along K, sbo = along N.
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32);
-}
-
-#define K1_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
-#define K1_D16(i) K1_D4(i), K1_D4(i + 4), K1_D4(i + 8), K1_D4(i + 12)
 
 // d (64 × N, f32, in registers) += a (64 × 8 TF32, registers) · b (8 × N TF32, shared memory, K-major)
 template <int N>
@@ -224,57 +157,6 @@ __device__ __forceinline__ void wgmma_tf32<128>(float (&d)[64], const uint32_t (
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
-// d (64 × N, f32) += a (64 × 16 bf16, registers, two a register) · b (16 × N bf16, shared memory, K-major:
-// imm-trans-b 0)
-template <int N>
-__device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc);
-
-template <>
-__device__ __forceinline__ void wgmma_bf16<32>(float (&d)[16], const uint32_t (&a)[4], uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
-      : K1_D16(0)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_bf16<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, "
-      "%21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-      : K1_D16(0), K1_D16(16)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_bf16<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, "
-      "%21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, "
-      "%59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
-      : K1_D16(0), K1_D16(16), K1_D16(32), K1_D16(48)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-
-// lrelu of two f32 values, rounded to nearest even into one bf16x2 register: `lo` (the lower K index) in the low half
-__device__ __forceinline__ uint32_t lrelu_bf16x2(float lo, float hi) {
-  lo = lo > 0.f ? lo : lo * SLOPE;
-  hi = hi > 0.f ? hi : hi * SLOPE;
-  uint32_t r;
-  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
-  return r;
-}
-
 constexpr int kMaxStages = 6;   // weight ring depth, at most
 constexpr int kBarBytes = 1024;  // the mbarriers, and the x ring behind them aligned for the 128-byte swizzle
 constexpr int ABOX = 64;         // rows of x per tensor copy
@@ -283,19 +165,16 @@ constexpr int ABOX = 64;         // rows of x per tensor copy
 __host__ __device__ constexpr int a_rows(int bm, int halo) { return (bm + 2 * halo + ABOX - 1) / ABOX * ABOX; }
 
 // One instantiation: BN output channels (one wgmma tile wide), NWG consumer
-// warpgroups of MT 64-row subtiles, KG k-steps per wgmma commit group, and the
-// mode (BF16: one bf16 product per k16 step; else three TF32 products per k8
-// step).  The blocks are persistent: each walks over tiles blockIdx.x,
-// + gridDim.x, ..., the copying warp running ahead into the next tile while
+// warpgroups of MT 64-row subtiles, KG k-steps per wgmma commit group (three
+// TF32 products per k8 step).  The blocks are persistent: each walks over
+// tiles blockIdx.x, + gridDim.x, ..., the copying warp running ahead into the next tile while
 // the consumers finish and store the current one.
-template <int BN, int NWG, int MT, int KG, bool BF16>
+template <int BN, int NWG, int MT, int KG>
 __global__ void __launch_bounds__(128 * (NWG + 1), 1)
 conv_taps_kernel(const __grid_constant__ CUtensorMap x_map, const float* __restrict__ x,
                  const void* __restrict__ w, const float* __restrict__ bias, const float* res, float* out,
                  int B, int T, int C, int k, int dil, int mode, float scale, int n_stages) {
   constexpr int BM = 64 * NWG * MT;
-  constexpr int KSTEPS = k_steps(BF16);
-  constexpr int W_GROUPS = w_groups(BF16);
   constexpr int STAGE_BYTES = W_GROUPS * BN * 16;  // one tap's [W_GROUPS][BN][16 bytes] slice
   static_assert(KSTEPS % KG == 0, "whole commit groups per channel slice");
   extern __shared__ __align__(1024) float4 smem4[];
@@ -366,8 +245,8 @@ conv_taps_kernel(const __grid_constant__ CUtensorMap x_map, const float* __restr
         for (int j = 0; j < k; ++j) {
           if (w_round > 0) mbar_wait(empty_w(slot), (w_round - 1) & 1);
           if (lane == 0) {
-            // tiled weights: [slice][tap][W_GROUPS][C][16 bytes] (TF32: [hi, lo][KC/4][C][4] floats; bf16:
-            // [KC/8][C][8]); this tile's c_out rows are BN·16 bytes apart in the ring
+            // tiled weights: [slice][tap][W_GROUPS][C][16 bytes] ([hi, lo][KC/4][C][4] floats); this tile's c_out
+            // rows are BN·16 bytes apart in the ring
             const char* src = w_bytes + ((static_cast<size_t>(c) * k + j) * W_GROUPS * C + co0) * 16;
             const uint32_t dst = smem_u32(w_ring + static_cast<size_t>(slot) * STAGE_BYTES);
             if (BN == C) {
@@ -425,98 +304,49 @@ conv_taps_kernel(const __grid_constant__ CUtensorMap x_map, const float* __restr
         const float* ap = a_ring + (static_cast<size_t>(buf) * rows + row) * KC + frag_col;
         const uint32_t ws = smem_u32(w_ring + static_cast<size_t>(slot) * STAGE_BYTES);
 
-        if constexpr (BF16) {
-          // the m64k16 16-bit A fragment (the mma m16n8k16 layout, one 16-row slab per warp): this thread holds
-          // rows r, r + 8 at K = 2·(lane % 4), + 1 and 8 + 2·(lane % 4), + 1 of each k16 step, as f32 pairs at
-          // float offset 2·(lane % 2) of the 16-byte groups 4·s + (lane % 4) / 2 and 4·s + 2 + (lane % 4) / 2.
-          // (Two rows of a half-warp can share a bank here: tuning left.)
-          const float* ab = ap - frag_col;
-          const int pair_off = 2 * (frag_col & 1), grp = frag_col >> 1;
 #pragma unroll
-          for (int kg = 0; kg < KSTEPS / KG; ++kg) {
-            if (kg * KG < nks) {
-              K1_TIC();
-              uint32_t a[MT][KG][4];
+        for (int kg = 0; kg < KSTEPS / KG; ++kg) {
+          if (kg * KG < nks) {
+            K1_TIC();
+            uint32_t hi[MT][KG][4], lo[MT][KG][4];
 #pragma unroll
-              for (int g = 0; g < KG; ++g) {
-                const int s = kg * KG + g;
-                const int g0 = (((4 * s + grp) ^ sw) << 2) + pair_off, g1 = (((4 * s + 2 + grp) ^ sw) << 2) + pair_off;
+            for (int g = 0; g < KG; ++g) {
+              const int g0 = ((2 * (kg * KG + g)) ^ sw) << 2, g1 = ((2 * (kg * KG + g) + 1) ^ sw) << 2;
 #pragma unroll
-                for (int m = 0; m < MT; ++m) {
-                  const float* p = ab + m * 64 * KC;
-                  const float2 v0 = *reinterpret_cast<const float2*>(p + g0);
-                  const float2 v1 = *reinterpret_cast<const float2*>(p + 8 * KC + g0);
-                  const float2 v2 = *reinterpret_cast<const float2*>(p + g1);
-                  const float2 v3 = *reinterpret_cast<const float2*>(p + 8 * KC + g1);
-                  a[m][g][0] = lrelu_bf16x2(v0.x, v0.y);
-                  a[m][g][1] = lrelu_bf16x2(v1.x, v1.y);
-                  a[m][g][2] = lrelu_bf16x2(v2.x, v2.y);
-                  a[m][g][3] = lrelu_bf16x2(v3.x, v3.y);
-                  // complete in its registers before the asynchronous product reads them
-                  asm volatile("" : "+r"(a[m][g][0]), "+r"(a[m][g][1]), "+r"(a[m][g][2]), "+r"(a[m][g][3])::"memory");
+              for (int m = 0; m < MT; ++m) {
+                const float* p = ap + m * 64 * KC;
+                const float v[4] = {p[g0], p[8 * KC + g0], p[g1], p[8 * KC + g1]};
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                  const float a = v[e] > 0.f ? v[e] : v[e] * SLOPE;
+                  hi[m][g][e] = round_tf32(a);
+                  lo[m][g][e] = round_tf32(a - __uint_as_float(hi[m][g][e]));
+                  // complete in its register before the first asynchronous product reads it
+                  asm volatile("" : "+r"(hi[m][g][e]), "+r"(lo[m][g][e])::"memory");
                 }
               }
-              K1_TOC(kFragments);
-              K1_TIC();
-              wgmma_fence();
-#pragma unroll
-              for (int g = 0; g < KG; ++g) {
-                if (kg * KG + g < nks) {
-                  const uint64_t desc = make_desc(ws + 16u * (2 * (kg * KG + g) * BN), 16u * BN, 128u);
-#pragma unroll
-                  for (int m = 0; m < MT; ++m) wgmma_bf16<BN>(acc[m], a[m][g], desc);
-                }
-              }
-              wgmma_commit();
-              wgmma_wait0();  // before the fragments' registers are reused and, after the last tap, the accumulators read
-              K1_TOC(kProducts);
             }
-          }
-        } else {
+            K1_TOC(kFragments);
+            K1_TIC();
+            wgmma_fence();
 #pragma unroll
-          for (int kg = 0; kg < KSTEPS / KG; ++kg) {
-            if (kg * KG < nks) {
-              K1_TIC();
-              uint32_t hi[MT][KG][4], lo[MT][KG][4];
+            for (int g = 0; g < KG; ++g) {
+              if (kg * KG + g < nks) {
+                const uint32_t b_hi = ws + 16u * (2 * (kg * KG + g) * BN);
+                const uint64_t d_hi = make_desc(b_hi, 16u * BN, 128u);
+                const uint64_t d_lo = make_desc(b_hi + 16u * (KC / 4) * BN, 16u * BN, 128u);
+                // the subtiles' chains are independent: interleaved, they hide each other's latency
 #pragma unroll
-              for (int g = 0; g < KG; ++g) {
-                const int g0 = ((2 * (kg * KG + g)) ^ sw) << 2, g1 = ((2 * (kg * KG + g) + 1) ^ sw) << 2;
+                for (int m = 0; m < MT; ++m) wgmma_tf32<BN>(acc[m], lo[m][g], d_hi);
 #pragma unroll
-                for (int m = 0; m < MT; ++m) {
-                  const float* p = ap + m * 64 * KC;
-                  const float v[4] = {p[g0], p[8 * KC + g0], p[g1], p[8 * KC + g1]};
+                for (int m = 0; m < MT; ++m) wgmma_tf32<BN>(acc[m], hi[m][g], d_lo);
 #pragma unroll
-                  for (int e = 0; e < 4; ++e) {
-                    const float a = v[e] > 0.f ? v[e] : v[e] * SLOPE;
-                    hi[m][g][e] = round_tf32(a);
-                    lo[m][g][e] = round_tf32(a - __uint_as_float(hi[m][g][e]));
-                    // complete in its register before the first asynchronous product reads it
-                    asm volatile("" : "+r"(hi[m][g][e]), "+r"(lo[m][g][e])::"memory");
-                  }
-                }
+                for (int m = 0; m < MT; ++m) wgmma_tf32<BN>(acc[m], hi[m][g], d_hi);
               }
-              K1_TOC(kFragments);
-              K1_TIC();
-              wgmma_fence();
-#pragma unroll
-              for (int g = 0; g < KG; ++g) {
-                if (kg * KG + g < nks) {
-                  const uint32_t b_hi = ws + 16u * (2 * (kg * KG + g) * BN);
-                  const uint64_t d_hi = make_desc(b_hi, 16u * BN, 128u);
-                  const uint64_t d_lo = make_desc(b_hi + 16u * (KC / 4) * BN, 16u * BN, 128u);
-                  // the subtiles' chains are independent: interleaved, they hide each other's latency
-#pragma unroll
-                  for (int m = 0; m < MT; ++m) wgmma_tf32<BN>(acc[m], lo[m][g], d_hi);
-#pragma unroll
-                  for (int m = 0; m < MT; ++m) wgmma_tf32<BN>(acc[m], hi[m][g], d_lo);
-#pragma unroll
-                  for (int m = 0; m < MT; ++m) wgmma_tf32<BN>(acc[m], hi[m][g], d_hi);
-                }
-              }
-              wgmma_commit();
-              wgmma_wait0();  // before the fragments' registers are reused and, after the last tap, the accumulators read
-              K1_TOC(kProducts);
             }
+            wgmma_commit();
+            wgmma_wait<0>();  // before the fragments' registers are reused and, after the last tap, the accumulators read
+            K1_TOC(kProducts);
           }
         }
         __syncwarp();
@@ -571,7 +401,7 @@ conv_taps_kernel(const __grid_constant__ CUtensorMap x_map, const float* __restr
 #ifdef K1_PHASE_CLOCKS
   if (blockIdx.x == 0 && tid == 0)
     printf("K1 phases, block 0 thread 0, %s BN=%d NWG=%d MT=%d, %d tiles of %d, %d weight stages: wait_x %lld wait_w %lld "
-           "fragments %lld products %lld epilogue %lld of %lld cycles\n", BF16 ? "bf16" : "3xTF32", BN, NWG, MT,
+           "fragments %lld products %lld epilogue %lld of %lld cycles\n", "3xTF32", BN, NWG, MT,
            (n_tiles + gridDim.x - 1) / gridDim.x,
            n_tiles, n_stages, k1_t[kWaitX], k1_t[kWaitW], k1_t[kFragments], k1_t[kProducts], k1_t[kEpilogue],
            clock64() - k1_start);
@@ -580,7 +410,7 @@ conv_taps_kernel(const __grid_constant__ CUtensorMap x_map, const float* __restr
 
 struct ConvArgs {
   const float* x;
-  const void* w;  // tiled weights: TF32 parts (f32 mode) or bf16
+  const void* w;  // tiled weights: TF32 parts
   const float *bias, *res;
   float* out;
   int B, T, C, k, dil, mode;
@@ -605,16 +435,6 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-int sm_count() {
-  static int n = [] {
-    int dev = 0, v = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
-    return v > 0 ? v : 1;
-  }();
-  return n;
-}
-
 // x (B, T, C) as a tensor of boxes KC channels × ABOX frames, 128-byte
 // swizzled in shared memory; what a box holds outside the tensor is zero:
 // the conv's padding in time, and the channels beyond C.
@@ -630,11 +450,11 @@ cudaError_t make_x_map(CUtensorMap* map, const ConvArgs& a) {
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int BN, int NWG, int MT, int KG, bool BF16>
+template <int BN, int NWG, int MT, int KG>
 cudaError_t launch_conv(const ConvArgs& a) {
   constexpr int BM = 64 * NWG * MT;
   const size_t a_bytes = sizeof(float) * 2 * a_rows(BM, (a.k / 2) * a.dil) * KC;
-  const size_t stage_bytes = static_cast<size_t>(w_groups(BF16)) * BN * 16;
+  const size_t stage_bytes = static_cast<size_t>(W_GROUPS) * BN * 16;
   if (kBarBytes + a_bytes + 2 * stage_bytes > kSmemLimit) return cudaErrorInvalidValue;
   const int n_stages = static_cast<int>(std::min<size_t>(kMaxStages, (kSmemLimit - kBarBytes - a_bytes) / stage_bytes));
   const size_t smem = kBarBytes + a_bytes + n_stages * stage_bytes;
@@ -645,7 +465,7 @@ cudaError_t launch_conv(const ConvArgs& a) {
   } else {
     memset(&x_map, 0, sizeof(x_map));  // rows that are not 16-byte aligned take the scalar copies
   }
-  auto kernel = conv_taps_kernel<BN, NWG, MT, KG, BF16>;
+  auto kernel = conv_taps_kernel<BN, NWG, MT, KG>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const long tiles = static_cast<long>((a.T + BM - 1) / BM) * ((a.C + BN - 1) / BN) * a.B;
@@ -657,53 +477,49 @@ cudaError_t launch_conv(const ConvArgs& a) {
 
 // Tile choice: the narrowest channel tile that covers C (128 at most), and
 // the tallest block that still gives three quarters of the card's SMs a tile.
-template <int BN, int MT, int KG, bool BF16>
+template <int BN, int MT, int KG>
 cudaError_t conv_bn(const ConvArgs& a) {
-  constexpr int KSTEPS = k_steps(BF16);
   const long enough = 3L * sm_count() / 4;
   auto tiles = [&](int bm) { return static_cast<long>((a.T + bm - 1) / bm) * ((a.C + BN - 1) / BN) * a.B; };
-  if (tiles(128 * MT) >= enough) return launch_conv<BN, 2, MT, (KG < KSTEPS ? KG : KSTEPS), BF16>(a);
-  if (tiles(128) >= enough) return launch_conv<BN, 2, 1, KSTEPS, BF16>(a);
-  return launch_conv<BN, 1, 1, KSTEPS, BF16>(a);
+  if (tiles(128 * MT) >= enough) return launch_conv<BN, 2, MT, (KG < KSTEPS ? KG : KSTEPS)>(a);
+  if (tiles(128) >= enough) return launch_conv<BN, 2, 1, KSTEPS>(a);
+  return launch_conv<BN, 1, 1, KSTEPS>(a);
 }
 
-template <bool BF16>
 cudaError_t conv(const ConvArgs& a) {
-  if (a.C <= 32) return conv_bn<32, 4, 2, BF16>(a);
-  if (a.C <= 64) return conv_bn<64, 4, 1, BF16>(a);
-  return conv_bn<128, 2, 2, BF16>(a);
+  if (a.C <= 32) return conv_bn<32, 4, 2>(a);
+  if (a.C <= 64) return conv_bn<64, 4, 1>(a);
+  return conv_bn<128, 2, 2>(a);
 }
 
-template <bool BF16>
 int conv_checked(const ConvArgs& a) {
   if (a.B <= 0 || a.T <= 0 || a.C <= 0 || a.k <= 0 || (a.k % 2) == 0 || a.dil <= 0 || a.mode < kStore ||
       a.mode > kMeanAcc || (a.mode != kStore && a.res == nullptr))
     return cudaErrorInvalidValue;
-  return conv<BF16>(a);
+  return conv(a);
 }
 
-// bytes of one convolution's tiled weights: [ceil(C/32)][k][w_groups][C][16 bytes]
-size_t tiled_weight_bytes(int C, int k, bool bf16) {
-  return static_cast<size_t>((C + KC - 1) / KC) * k * w_groups(bf16) * C * 16;
+// bytes of one convolution's tiled weights: [ceil(C/32)][k][W_GROUPS][C][16 bytes]
+size_t tiled_weight_bytes(int C, int k) {
+  return static_cast<size_t>((C + KC - 1) / KC) * k * W_GROUPS * C * 16;
 }
 
-template <bool BF16>
 int resblock(const float* x, float* out, float* cur, float* h, const void* w1, const float* b1, const void* w2,
              const float* b2, int B, int T, int C, int k, int n_d, const int* dils, int accumulate, float scale,
              void* stream_ptr) {
   if (B <= 0 || T <= 0 || C <= 0 || n_d <= 0 || k <= 0 || (k % 2) == 0) return cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const size_t wstride = tiled_weight_bytes(C, k, BF16);
+  const size_t wstride = tiled_weight_bytes(C, k);
   const char *w1b = static_cast<const char*>(w1), *w2b = static_cast<const char*>(w2);
   const float* src = x;  // the res-block's running value: x, then cur
   for (int i = 0; i < n_d; ++i) {
     if (dils[i] <= 0) return cudaErrorInvalidValue;
-    cudaError_t err = conv<BF16>({src, w1b + i * wstride, b1 + static_cast<size_t>(i) * C, nullptr, h,
+    cudaError_t err = conv({src, w1b + i * wstride, b1 + static_cast<size_t>(i) * C, nullptr, h,
                                   B, T, C, k, dils[i], kStore, 1.f, stream});
     if (err != cudaSuccess) return err;
     const bool last = i == n_d - 1;
     const int mode = !last ? kResidual : (accumulate ? kMeanAcc : kMeanFirst);
-    err = conv<BF16>({h, w2b + i * wstride, b2 + static_cast<size_t>(i) * C, src, last ? out : cur,
+    err = conv({h, w2b + i * wstride, b2 + static_cast<size_t>(i) * C, src, last ? out : cur,
                       B, T, C, k, 1, mode, scale, stream});
     if (err != cudaSuccess) return err;
     src = cur;
@@ -717,7 +533,7 @@ extern "C" {
 
 // Floats of one convolution's tiled TF32 weights: [ceil(C/32)][k][2][8][C][4].
 long long mrf_tiled_weight_floats(int C, int k) {
-  return static_cast<long long>(tiled_weight_bytes(C, k, false) / 4);
+  return static_cast<long long>(tiled_weight_bytes(C, k) / 4);
 }
 
 // One convolution of the res-block: out = epilogue(conv_{k,dil}(lrelu(x)) + bias).
@@ -726,15 +542,7 @@ long long mrf_tiled_weight_floats(int C, int k) {
 // 1 add res, 2 (res + conv)·scale, 3 out += (res + conv)·scale.
 int mrf_conv_f32(const float* x, const float* w, const float* bias, const float* res, float* out,
                  int B, int T, int C, int k, int dil, int mode, float scale, void* stream_ptr) {
-  return conv_checked<false>({x, w, bias, res, out, B, T, C, k, dil, mode, scale, static_cast<cudaStream_t>(stream_ptr)});
-}
-
-// The same convolution in bf16 mode: w the tiled bf16 weights,
-// [ceil(C/32)][k][4][C][8] bf16; x rounded to bf16 after the lrelu, one
-// product per tap, f32 accumulation, bias and epilogue.
-int mrf_conv_bf16(const float* x, const void* w, const float* bias, const float* res, float* out,
-                  int B, int T, int C, int k, int dil, int mode, float scale, void* stream_ptr) {
-  return conv_checked<true>({x, w, bias, res, out, B, T, C, k, dil, mode, scale, static_cast<cudaStream_t>(stream_ptr)});
+  return conv_checked({x, w, bias, res, out, B, T, C, k, dil, mode, scale, static_cast<cudaStream_t>(stream_ptr)});
 }
 
 // One ResBlock1 over x (B, T, C) f32 channels-last, into out (B, T, C).
@@ -746,18 +554,7 @@ int mrf_resblock_f32(const float* x, float* out, float* cur, float* h,
                      const float* w1, const float* b1, const float* w2, const float* b2,
                      int B, int T, int C, int k, int n_d, const int* dils, int accumulate, float scale,
                      void* stream_ptr) {
-  return resblock<false>(x, out, cur, h, w1, b1, w2, b2, B, T, C, k, n_d, dils, accumulate, scale, stream_ptr);
+  return resblock(x, out, cur, h, w1, b1, w2, b2, B, T, C, k, n_d, dils, accumulate, scale, stream_ptr);
 }
-
-// The same res-block in bf16 mode: w1, w2 n_d tiled bf16 weight blocks
-// ([ceil(C/32)][k][4][C][8] bf16 each); x, h, cur, out and the biases f32.
-int mrf_resblock_bf16(const float* x, float* out, float* cur, float* h,
-                      const void* w1, const float* b1, const void* w2, const float* b2,
-                      int B, int T, int C, int k, int n_d, const int* dils, int accumulate, float scale,
-                      void* stream_ptr) {
-  return resblock<true>(x, out, cur, h, w1, b1, w2, b2, B, T, C, k, n_d, dils, accumulate, scale, stream_ptr);
-}
-
-const char* mrf_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
 
 }  // extern "C"

@@ -32,7 +32,7 @@ import torch
 
 HEADLINE = ("The quick brown fox jumped over the lazy dog, and everyone at the "
             "party cheered loudly for the brave little robot.")  # bench.py's headline text
-K1_KERNEL = "conv_taps_kernel"  # csrc/mrf.cu
+K1_KERNELS = ("conv_taps_kernel", "k1_bf16_unit_kernel")  # csrc/mrf.cu, csrc/mrf_bf16.cu
 REPEATS = 7
 
 
@@ -63,7 +63,7 @@ def profile_request(pipe, texts, spks, **kw) -> dict:
         wall_ms = (time.perf_counter() - t) * 1e3
     device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     device_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3
-    k1_ms = sum(e.time_range.elapsed_us() for e in device if K1_KERNEL in e.name) / 1e3
+    k1_ms = sum(e.time_range.elapsed_us() for e in device if any(name in e.name for name in K1_KERNELS)) / 1e3
     return dict(profiled_wall_ms=wall_ms, device_activities=len(device), device_ms=device_ms,
                 k1_device_ms=k1_ms, busy=device_ms / wall_ms if device else None)
 

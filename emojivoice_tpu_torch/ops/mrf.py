@@ -6,8 +6,9 @@ res-block a tuple (w1 (n_d, k, C, C), b1 (n_d, C), w2 (n_d, k, C, C),
 b2 (n_d, C)) in channels-last layout ([dilation][tap][c_in][c_out]); it
 returns the mean over res-blocks of ResBlock1(x), (B, T, C).
 
-On a CUDA tensor it launches K1 (``csrc/mrf.cu``, built at first use) and
-raises if the build or a launch fails; it never falls back.  On a CPU tensor
+On a CUDA tensor it launches K1 (``csrc/mrf.cu``, or ``csrc/mrf_bf16.cu`` in
+bf16 mode, built at first use) and raises if the build or a launch fails; it
+never falls back.  On a CPU tensor
 it runs ``mrf_stage_reference``, the same function written with
 ``F.conv1d`` from ``mrf_stage_unfused``.
 
@@ -27,8 +28,11 @@ K1 has two numeric modes, picked by the weights' dtype as the Pallas kernel's
 * bf16 weights (the JAX package's ``mrf_stage_pallas(compute_dtype=bf16)``):
   each conv's input, the leaky-ReLU'd activation (zero outside the sequence),
   is rounded to bf16 at the tap product and multiplied once, bf16 × bf16 →
-  f32 (``mrf_resblock_bf16``).  x, the output, the biases, the intermediate,
-  the residual adds and the mean over res-blocks stay f32.
+  f32 (``mrf_resblock_bf16``, a kernel of its own: the activation rounded
+  once per tile into shared memory, each tap's products summed from zero and
+  added in f32, one launch per dilation unit with the intermediate kept on
+  chip where the shape rule fuses it).  x, the output, the biases, the intermediate, the residual adds
+  and the mean over res-blocks stay f32.
 
 Its weight operands are the contract's weights transposed to
 [dilation][tap][c_out][c_in] (c_in fastest: the tensor cores take B K-major),
@@ -51,6 +55,7 @@ import torch.nn.functional as F
 
 LRELU_SLOPE = 0.1
 KC = 32  # input channels per slice of K1's tiled weights (csrc/mrf.cu)
+BF16_BM = 128  # frames of one conv pass of a block of K1's bf16 mode (csrc/mrf_bf16.cu)
 
 # K1 launches by (channel width, mode "f32" or "bf16"): one per ``mrf_stage`` call on a CUDA tensor
 launches: collections.Counter = collections.Counter()
@@ -65,8 +70,8 @@ _launch_lock = threading.Lock()
 class PackedResblock(NamedTuple):
     """One res-block's weights as K1's operands: per conv the tiled TF32
     parts (``tile_k_major``), (n_d, ⌈C/32⌉, k, 2, 8, C, 4) f32, or in bf16 mode
-    the tiled bf16 weights (``tile_k_major_bf16``), (n_d, ⌈C/32⌉, k, 4, C, 8);
-    biases (n_d, C) f32."""
+    the tiled bf16 weights (``tile_k_major_bf16``), (n_d, ⌈C/n⌉, k, ⌈C/n⌉,
+    n/8, n, 8) with n = ``bf16_tile(C)``; biases (n_d, C) f32."""
     w1: torch.Tensor
     b1: torch.Tensor
     w2: torch.Tensor
@@ -111,15 +116,25 @@ def tile_k_major(w_hi: torch.Tensor, w_lo: torch.Tensor) -> torch.Tensor:
     return parts.permute(0, 4, 1, 2, 5, 3, 6).contiguous()
 
 
+def bf16_tile(c: int) -> int:
+    """The n of K1's bf16 mode at C = c (``tile_n`` in csrc/mrf_bf16.cu):
+    output channels of a block's pass and input channels of a weight stage."""
+    return 32 if c <= 32 else 64
+
+
 def tile_k_major_bf16(w: torch.Tensor) -> torch.Tensor:
-    """K-major bf16 weights (n_d, k, c_out, c_in) → (n_d, ⌈c_in/32⌉, k, 4,
-    c_out, 8), the order K1's bf16 mode consumes them in: per 32-channel slice
-    of c_in and tap, 4 groups of 8 input channels × c_out rows of 16 bytes,
-    the core-matrix layout of the TF32 tiles with one 2-byte part in place of
-    two 4-byte ones.  c_in is zero-padded to whole slices."""
+    """K-major bf16 weights (n_d, k, c_out, c_in) → (n_d, ⌈c_out/n⌉, k,
+    ⌈c_in/n⌉, n/8, n, 8) with n = ``bf16_tile(c_in)``: the order K1's bf16
+    mode copies them in, one stage per (N chunk of n output channels, tap,
+    K slice of n input channels), each stage n/8 groups of 8 input channels
+    × n rows of 16 bytes, the no-swizzle K-major core-matrix layout the tensor
+    cores read B in, so a stage is one contiguous bulk copy.  Both channel
+    axes are zero-padded to whole chunks."""
     n_d, k, c_out, c_in = w.shape
-    w = F.pad(w, (0, -c_in % KC)).reshape(n_d, k, c_out, -1, KC // 8, 8)  # c_in → (slice, group, 8)
-    return w.permute(0, 3, 1, 4, 2, 5).contiguous()
+    n = bf16_tile(c_in)
+    w = F.pad(w, (0, -c_in % n, 0, -c_out % n))
+    w = w.reshape(n_d, k, -(-c_out // n), n, -1, n // 8, 8)  # c_out → (chunk, row), c_in → (slice, group, 8)
+    return w.permute(0, 2, 1, 4, 5, 3, 6).contiguous()
 
 
 def pack_conv(w: torch.Tensor) -> torch.Tensor:
@@ -189,7 +204,8 @@ def _check(x: torch.Tensor, packed, kernel_sizes, dilation_sizes) -> bool:
                 raise ValueError("mrf_stage: weights must be contiguous, 16-byte aligned on x's device, all float32 "
                                  "or w1 and w2 of every res-block bfloat16 (bf16 mode) with float32 biases")
         n_d = len(dils)
-        tiled = (n_d, -(-c // KC), k, KC // 8, c, 8) if bf16 else (n_d, -(-c // KC), k, 2, KC // 4, c, 4)
+        n = bf16_tile(c)
+        tiled = (n_d, -(-c // n), k, -(-c // n), n // 8, n, 8) if bf16 else (n_d, -(-c // KC), k, 2, KC // 4, c, 4)
         for w in (rb.w1, rb.w2):
             if tuple(w.shape) != tiled:
                 raise ValueError(f"mrf_stage: weight shape {tuple(w.shape)} != {tiled}, the tiling of {(n_d, k, c, c)}")
@@ -227,16 +243,21 @@ def _mrf_stage_fake(x, operands, kernel_sizes, dilations, n_dilations):
     return torch.empty_like(x)
 
 
+def _library(mode: str):
+    """The built kernel library of a mode: ``csrc/mrf.cu`` (f32) or ``csrc/mrf_bf16.cu`` (bf16)."""
+    from emojivoice_tpu_torch.kernels import build
+
+    return build.load_mrf() if mode == "f32" else build.load_mrf_bf16()
+
+
 def _launch_k1(x: torch.Tensor, weights, kernel_sizes, dilation_sizes) -> torch.Tensor:
     """K1 on a CUDA tensor: one ``mrf_resblock_f32`` (or, on bf16 weights,
-    ``mrf_resblock_bf16``) launch per res-block (each runs its convs), raising
-    on a failed build or launch."""
+    ``mrf_resblock_bf16``) call per res-block (each launches its convs or
+    dilation units), raising on a failed build or launch."""
     packed = pack_weights(weights) if all(rb[0].dim() == 4 for rb in weights) else weights
     packed = [PackedResblock(*rb) for rb in packed]
     mode = "bf16" if _check(x, packed, kernel_sizes, dilation_sizes) else "f32"
-    from emojivoice_tpu_torch.kernels.build import load_mrf
-
-    lib = load_mrf()
+    lib = _library(mode)
     resblock = getattr(lib, f"mrf_resblock_{mode}")
     b, t, c = x.shape
     out = torch.empty_like(x)
@@ -271,19 +292,18 @@ def mrf_stage(x: torch.Tensor, weights, kernel_sizes: Tuple[int, ...],
 def conv_taps(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, dilation: int = 1) -> torch.Tensor:
     """One of K1's convolutions alone, ``conv_{k,d}(lrelu(x)) + bias`` with
     'same' zero padding: x (B, T, C) f32 on the card, w (k, C, C) as
-    [tap][c_in][c_out], f32 (3xTF32 mode) or bf16 (bf16 mode: lrelu(x) rounded
-    to bf16, one product per tap), bias (C,).  For holding the tensor-core
-    product against a reference; it is no part of ``mrf_stage``'s count."""
+    [tap][c_in][c_out], f32 (3xTF32 mode) or bf16 (bf16 mode's one-conv
+    kernel: lrelu(x) rounded to bf16, one product per tap), bias (C,).  For
+    holding the tensor-core product against a reference; it is no part of
+    ``mrf_stage``'s count."""
     if x.device.type != "cuda" or x.dtype != torch.float32 or x.dim() != 3 or not x.is_contiguous():
         raise ValueError("conv_taps: x must be a contiguous (B, T, C) float32 CUDA tensor")
     b, t, c = x.shape
     k = w.shape[0]
     if tuple(w.shape) != (k, c, c) or tuple(bias.shape) != (c,) or k % 2 == 0:
         raise ValueError(f"conv_taps: w {tuple(w.shape)} and bias {tuple(bias.shape)} do not fit C={c}, odd k")
-    from emojivoice_tpu_torch.kernels.build import load_mrf
-
-    lib = load_mrf()
     mode = "bf16" if w.dtype == torch.bfloat16 else "f32"
+    lib = _library(mode)
     tiled = pack_conv(w[None] if mode == "bf16" else w.float()[None])
     bias = bias.float().contiguous()
     out = torch.empty_like(x)
@@ -293,3 +313,4 @@ def conv_taps(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, dilation: in
                                                ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     _raise_on(lib, err, f"mrf_conv_{mode} at B={b} T={t} C={c} k={k} d={dilation}")
     return out
+

@@ -14,12 +14,12 @@ rounding boundary is rounded to neighbouring bf16 numbers: one bf16 step
 read it by |w|·step.  At C = 256 that reached 4.8e-4 in 0.3 % of the outputs
 on the H100.  So a bf16 stage is held within 2e-4 on at least 99 % of its
 outputs and within 2e-3 (BF16_FLIP_TOL, a tenth of the 2e-2 of bf16 against
-f32) on all.  The tensor cores' f32 sums truncate toward zero (the smoke's
-one-conv witness: errors signed toward zero −0.87 to −0.91 of their size,
-cuDNN's ~0), so the kernel flips more often than cuDNN's f32 twin, and over
-the nine units of a stage the flips cascade: there its median error is held
-under 0.35 of the median gap between the twin on bf16 and on f32 weights
-(0.26 measured at C = 256).  On one dilation unit, where flips stay sparse,
+f32) on all.  The tensor cores' f32 sums truncate toward zero, so the kernel
+sums each tap's chain from zero and adds the taps in f32 (its one-conv mean
+error against float64 is held under 3× cuDNN f32's on the same operands);
+over the nine units of a stage flips still cascade: there its median error
+is held under 0.35 of the median gap between the twin on bf16 and on f32
+weights.  On one dilation unit, where flips stay sparse,
 it is held under a tenth of that gap (0.009 measured at C = 256).  A kernel
 that never rounded the activation sits ~0.7 of the gap away in both.  One
 convolution, which has no intermediate, on signed x that is not bf16-exact, is
@@ -104,10 +104,16 @@ def _median(v):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,c,t_len", [(1, 256, 4096), (1, 128, 32768), (1, 64, 65536), (1, 32, 131072),
-                                       (8, 128, 32768), (3, 40, 77), (3, 20, 50), (3, 6, 40)])
+                                       (8, 128, 32768), (8, 256, 4096), (32, 256, 4096), (8, 64, 65536),
+                                       (8, 32, 131072), (3, 40, 77), (3, 20, 50), (3, 6, 40),
+                                       (1, 256, 640), (1, 128, 5120), (1, 64, 10240), (1, 32, 20480),
+                                       (3, 40, 333), (3, 20, 1001)])
 def test_k1_bf16_matches_plain_twin(cuda_f32, b, c, t_len):
     """K1's bf16 mode (``mrf_resblock_bf16``) at the four HiFi-GAN v1 stage
-    shapes of a 512-frame utterance, at batch 8, and ragged."""
+    shapes of a 512-frame utterance, at batch 8 and at batch 32 with C = 256
+    (every route and block shape the launcher's rules pick on the serving
+    path: one-conv blocks of one or several N chunks, fused units), ragged,
+    and at the four stage shapes of one 80-frame streaming window."""
     x, w = _stage(b, c, t_len, seed=c + 7)
     w16 = _bf16(w)
     before = mrf.launches[(c, "bf16")]
@@ -165,6 +171,30 @@ def test_k1_bf16_product_against_float64(cuda_f32, c, k, d):
     assert float((got - ref).abs().max()) <= BF16_TILE_TOL * scale
     for wrong in (conv(lrelu(x.to(torch.bfloat16).float())), conv(lrelu(x))):  # rounded before the lrelu; not at all
         assert float((got - wrong).abs().max()) > BF16_TILE_TOL * scale
+
+
+@pytest.mark.cuda
+def test_k1_bf16_sums_are_promoted(cuda_f32):
+    """One bf16 convolution at (C, k, d) = (256, 11, 1), 4,096 frames, against
+    float64 on the same rounded operands: the kernel's mean error is at most
+    3× cuDNN f32's on the same operands (a single truncating chain per output
+    read ~6×).  Prints both, and the share of each error signed toward zero."""
+    g = torch.Generator().manual_seed(11)
+    c, k = 256, 11
+    x = torch.randn((1, 4096, c), generator=g).cuda()
+    w = (torch.randn((k, c, c), generator=g) * 0.1).to(torch.bfloat16).cuda()
+    bias = (torch.randn((c,), generator=g) * 0.1).cuda()
+    a = torch.nn.functional.leaky_relu(x, mrf.LRELU_SLOPE).to(torch.bfloat16)
+    ref = torch.nn.functional.conv1d(a.double().transpose(1, 2), w.double().permute(2, 1, 0), bias.double(),
+                                     padding=k // 2).transpose(1, 2)
+    cudnn = torch.nn.functional.conv1d(a.float().transpose(1, 2), w.float().permute(2, 1, 0), bias,
+                                       padding=k // 2).transpose(1, 2).double()
+    got = mrf.conv_taps(x, w, bias, 1).double()
+    e_k, e_c = got - ref, cudnn - ref
+    share = {name: float((e * ref.sign()).mean() / e.abs().mean()) for name, e in (("kernel", e_k), ("cudnn", e_c))}
+    print(f"one conv (256, 11, 1) against float64: kernel mean {float(e_k.abs().mean()):.3e} (signed toward zero "
+          f"{share['kernel']:+.3f}), cuDNN f32 mean {float(e_c.abs().mean()):.3e} ({share['cudnn']:+.3f})")
+    assert float(e_k.abs().mean()) <= 3 * float(e_c.abs().mean())
 
 
 @pytest.mark.cuda

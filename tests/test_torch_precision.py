@@ -93,16 +93,16 @@ def test_bf16_twin_rounds_after_the_lrelu():
 
 
 def test_bf16_packing_round_trips_and_rounds_to_nearest_even(rng):
-    """K1's bf16 operand is w.to(bf16) re-laid [slice][tap][8-c_in group][c_out][8]:
+    """K1's bf16 operand is w.to(bf16) re-laid [c_out chunk][tap][c_in slice][8-c_in group][c_out][8]:
     unpacked it gives those bits back.  Ties round to even, like JAX's
     astype(bf16) and the kernel's cvt.rn."""
-    n_d, k, c = 3, 5, 40  # c_in no multiple of 32: zero-padded to two slices
+    n_d, k, c = 3, 5, 40  # no multiple of 64: both channel axes zero-padded to one 64-wide chunk
     w = torch.from_numpy(rng.normal(size=(n_d, k, c, c)).astype(np.float32))
     (packed,) = mrf.pack_weights([(w.to(BF16), torch.zeros(n_d, c), w.to(BF16), torch.zeros(n_d, c))])
-    assert packed.w1.dtype == BF16 and packed.w1.shape == (n_d, 2, k, 4, c, 8)
-    back = packed.w1.permute(0, 2, 4, 1, 3, 5).reshape(n_d, k, c, 64)  # (n_d, k, c_out, c_in padded)
-    assert torch.equal(back[..., :c].transpose(-1, -2), w.to(BF16))
-    assert not back[..., c:].float().any()
+    assert packed.w1.dtype == BF16 and packed.w1.shape == (n_d, 1, k, 1, 8, 64, 8)
+    back = packed.w1.permute(0, 2, 1, 5, 3, 4, 6).reshape(n_d, k, 64, 64)  # (n_d, k, c_out padded, c_in padded)
+    assert torch.equal(back[..., :c, :c].transpose(-1, -2), w.to(BF16))
+    assert not back[..., c:].float().any() and not back[..., c:, :].float().any()
     ties = torch.tensor([1 + 2.0 ** -8, 1 + 3 * 2.0 ** -8, -(1 + 2.0 ** -8), 2 + 2.0 ** -7])
     assert ties.to(BF16).float().tolist() == [1.0, 1 + 2.0 ** -6, -1.0, 2.0]
     np.testing.assert_array_equal(np.asarray(jnp.asarray(ties.numpy()).astype(jnp.bfloat16).astype(jnp.float32)),
