@@ -2,6 +2,8 @@
 (text → pcm16), acoustic-model training, the vocoder's fine-tune on the
 acoustic model's own mels, the serving front ends (batching engine,
 streaming vocoder, long-form, CLI, webapp, and trained checkpoints served),
+the apps (the FeelMe agent with Whisper and a chat LM on the card, the case
+studies, the Pepper relay and the recording tools),
 the export artifact, the reduced-precision paths (bf16 serving through
 K1's bf16 mode, bf16-mixed training), the conformer configuration (served,
 trained, served again and exported), a from-scratch proof and a sweep.
@@ -157,6 +159,27 @@ Phases (each one failing fails the run, exit code ≠ 0):
      ``torch.cuda.memory_allocated()`` back within 64 MB of its value before
      the first trial (garbage collected) after every trial.
 
+13. apps (run right after 7, on its pipeline) — (a) ``FeelMe`` turns over a
+     ``ScriptedLLM`` and a file sink, ``pipelined`` on and off: eleven
+     one-sentence replies, one per emoji, and a three-sentence reply that
+     ``choose_strategy`` sends down ``pipelined`` (three segments): each turn's
+     speaker is the emoji's, the played audio is what its synthesis calls
+     made (mel_length·256 samples a call, the segments with their gaps),
+     finite, the files written in [-1, 1], K1 on all four stages per call;
+     each turn's wall and time to first audio; (b) ``demos.render_script`` of
+     a two-line script, ``demos.run_story`` into ``to_play-<i>.wav`` relayed
+     by ``pepper.run_storytelling`` over ``LocalTransport``, ``demos.run_game``
+     with a two-turn ASR and the console UI, ``record_audio.resample_tree`` and
+     ``make_filelist`` over the renders, K1 counted per call; (c) Whisper
+     (``WhisperConfig()``, whisper-tiny's widths) and GPT-2 (``GPT2Config()``,
+     124 M) from transformers' PyTorch classes, random weights from seed 0,
+     the stub tokenizer of ``tests/test_flax_adapters.py``: a wav of (a)
+     transcribed, a chat turn greedy and sampled (replayed from its seed), one
+     ``FeelMe.run`` turn with all three models on the card, ms per call, and
+     each greedy decode held against the CPU (first-step logits within 1e-4,
+     ids equal up to the first step whose top-2 margin on the CPU is under
+     1e-4).
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 ``nvidia-smi``'s card name and power limit, and the one before that the
 kernel record, whose ``bound_ms`` is the larger of bytes over 3.35 TB/s and
@@ -248,6 +271,16 @@ VOCODER_TOL = 2e-2  # bf16 vocoder against f32 (tests/test_pipeline.py::test_voc
 MEL_MAE_TOL, MEL_LENGTH_TOL = 0.1, 2  # compute_dtype=bf16 against f32 (tests/test_export_and_obs.py)
 TRAIN_RTOL = 0.05  # bf16-mixed step loss against f32 (tests/test_training.py::test_bf16_mixed_precision_step)
 SCRATCH_STEPS = 800  # the [scratch] phase's from-scratch run, 65-100 s at batch 8 on an H100 (8-13 steps/s)
+# the [apps] phase: eleven one-sentence replies (one per emoji, in EMOJI_MAPPING's order) and a three-sentence story
+# whose sentences do not pack into one 120-character segment, so choose_strategy sends it down "pipelined"
+APP_LINES = ("I love the way the sea sparkles today.", "You broke my favourite toy again.",
+             "Watch me park this rover in one go.", "I lost the last piece of the puzzle.",
+             "Sure, another lecture about patience.", "We won the science fair!", "The kettle is on.",
+             "The cat just sat on the keyboard and sent my essay.", "A whale just jumped out of the water!",
+             "I waved back, but they were waving at someone else.", "Maybe the key is under the old oak tree.")
+APP_STORY = ("The little robot rolled down to the harbour to watch the boats. A gull landed on its head and started "
+             "to sing a very silly song. The robot laughed so hard that its lights blinked all night long. 😮")
+ADAPTER_TOL = 1e-4  # Whisper and GPT-2, card against CPU, f32 with TF32 off: first-step logits, top-2 margins
 
 
 def cuda_ms(fn, iters: int = 5, warmup: int = 1) -> list:
@@ -774,6 +807,363 @@ def phase_serving(pipe, mrf) -> dict:
         raise RuntimeError(f"(d) the webapp's requests made {web_launches} mrf_stage calls")
     return dict(engine=engine, overlap=overlap, streaming=streaming,
                 k1_launches=engine["k1_launches"] + web_launches)
+
+
+class TimedSink:
+    """A ``FileSink`` that also keeps each chunk it is handed and the host
+    clock of each ``play``."""
+
+    def __init__(self, out_dir: str):
+        from emojivoice_tpu_torch.apps.adapters import FileSink
+
+        self.files = FileSink(out_dir)
+        self.marks, self.chunks = [], []
+
+    def play(self, wav, sample_rate: int) -> None:
+        self.marks.append(time.perf_counter())
+        self.chunks.append(wav)
+        self.files.play(wav, sample_rate)
+
+
+class StubTokenizer:
+    """tests/test_flax_adapters.py's stub: words ↔ ids 3-62 (no tokenizer files on the card's machine)."""
+
+    pad_token_id = 0
+    eos_token_id = 2
+    chat_template = None
+
+    def __call__(self, text):
+        return {"input_ids": [3 + (sum(ord(c) for c in tok) % 60) for tok in text.split()]}
+
+    def decode(self, ids, skip_special_tokens=True):
+        if skip_special_tokens:
+            ids = [i for i in ids if i > 2]
+        return " ".join(f"w{i}" for i in ids)
+
+
+class Synthesised:
+    """Counts the pipeline's synthesis calls (``finalize``) inside a window and
+    checks K1 against them: one ``mrf_stage`` launch on each of the four
+    stage widths per call, and no other."""
+
+    def __init__(self, pipe, mrf, name: str):
+        self.pipe, self.mrf, self.name, self.results = pipe, mrf, name, []
+
+    def __enter__(self):
+        real = self.pipe.finalize
+
+        def spy(p):
+            out = real(p)
+            self.results.append(out)
+            return out
+
+        self.before = dict(self.mrf.launches)
+        self.pipe.finalize = spy
+        return self
+
+    def __exit__(self, *exc):
+        del self.pipe.finalize
+        if exc[0] is not None:
+            return False
+        n = len(self.results)
+        delta = {c: self.mrf.launches[(c, "f32")] - self.before.get((c, "f32"), 0) for c in (256, 128, 64, 32)}
+        total = sum(self.mrf.launches.values()) - sum(self.before.values())
+        if n == 0 or any(d != n for d in delta.values()) or total != 4 * n:
+            raise RuntimeError(f"[apps] {self.name}: K1 launches per stage width {delta} for {n} synthesis calls, "
+                               f"expected {n} on each of four")
+        return False
+
+
+def apps_turns(pipe, mrf, tmp: str) -> dict:
+    """(a) FeelMe turns, ``pipelined`` on and off: eleven one-sentence replies
+    (one per emoji) and a three-sentence one.  Every turn gives the mapping's
+    speaker and the played audio its synthesis calls made (each call's
+    mel_length·256 samples, the pipelined segments with their gaps), finite;
+    the files the sink wrote are in [-1, 1]; K1 on all four stages per call.
+    Each turn's wall and its time to first audio (turn start → the first
+    ``sink.play``) on the host clock."""
+    import numpy as np
+    from scipy.io import wavfile
+
+    from emojivoice_tpu_torch.apps import adapters as ad
+    from emojivoice_tpu_torch.apps.emoji import EMOJI_MAPPING
+    from emojivoice_tpu_torch.apps.feel_me import FeelMe
+    from emojivoice_tpu_torch.inference.streaming import choose_strategy
+
+    replies = [f"{line} {emoji}" for line, emoji in zip(APP_LINES, EMOJI_MAPPING)] + [APP_STORY]
+    speakers = list(EMOJI_MAPPING.values()) + [EMOJI_MAPPING[APP_STORY[-1]]]
+    story_segments = len(choose_strategy(APP_STORY[:-2])[1])
+    if choose_strategy(APP_STORY[:-2])[0] != "pipelined" or story_segments < 2:
+        raise RuntimeError(f"[apps] (a) the story reply is not pipelined: {choose_strategy(APP_STORY[:-2])}")
+    gap = int(0.15 * 22050)
+    out = {}
+    for counted in (False, True):  # once to warm these texts' buckets, once measured
+        if counted:
+            mrf.launches.clear()  # the main path's run of (a)
+        for pipelined in (True, False):
+            sink = TimedSink(f"{tmp}/turns_{pipelined}_{counted}")
+            app = FeelMe(pipe, asr=ad.ConsoleASR(), llm=ad.ScriptedLLM(replies), sink=sink, pipelined=pipelined)
+            rows = []
+            for i, (reply, spk) in enumerate(zip(replies, speakers)):
+                played = len(sink.chunks)
+                with Synthesised(pipe, mrf, f"(a) turn {i}, pipelined={pipelined}") as calls:
+                    t = time.perf_counter()
+                    response, got_spk, spoken = app.turn(f"user turn {i}")
+                    wall = (time.perf_counter() - t) * 1e3
+                chunks = sink.chunks[played:]
+                lengths = [r[0].mel_length * 256 for r in calls.results]
+                want = [n + gap for n in lengths[:-1]] + lengths[-1:]
+                n_calls = story_segments if (pipelined and i == len(replies) - 1) else 1
+                if (response, got_spk) != (reply, spk) or len(calls.results) != n_calls \
+                        or [len(c) for c in chunks] != want \
+                        or not all(np.isfinite(c).all() for c in chunks):
+                    raise RuntimeError(f"[apps] (a) turn {i} pipelined={pipelined}: speaker {got_spk} (want {spk}), "
+                                       f"{len(calls.results)} calls (want {n_calls}), played {[len(c) for c in chunks]} "
+                                       f"(want {want})")
+                rows.append(dict(wall_ms=wall, ttfa_ms=(sink.marks[played] - t) * 1e3, calls=n_calls,
+                                 peak=max(float(np.abs(c).max()) for c in chunks), chars=len(spoken)))
+            for path in sorted(Path(sink.files.out_dir).glob("*.wav")):
+                sr, data = wavfile.read(path)
+                if sr != 22050 or not (np.isfinite(data).all() and np.abs(data).max() <= 1.0):
+                    raise RuntimeError(f"[apps] (a) {path.name}: sr {sr}, peak {np.abs(data).max()}")
+            if counted:
+                one = rows[:-1]
+                row = dict(pipelined=pipelined, turns=len(rows),
+                           one_sentence_wall_ms_median=statistics.median(r["wall_ms"] for r in one),
+                           one_sentence_ttfa_ms_median=statistics.median(r["ttfa_ms"] for r in one),
+                           one_sentence_wall_ms=[r["wall_ms"] for r in one],
+                           story_wall_ms=rows[-1]["wall_ms"], story_ttfa_ms=rows[-1]["ttfa_ms"],
+                           story_calls=rows[-1]["calls"], story_chars=rows[-1]["chars"],
+                           peak_before_the_sink=max(r["peak"] for r in rows))
+                print("[apps] (a) FeelMe turns " + json.dumps(row))
+                out["pipelined" if pipelined else "full"] = row
+                out["wav"] = str(sorted(Path(sink.files.out_dir).glob("*.wav"))[0])
+    out["k1_launches"] = sum(mrf.launches.values())
+    return out
+
+
+def apps_case_studies(pipe, mrf, tmp: str) -> dict:
+    """(b) The three case studies and the recording tools: ``render_script``
+    of a two-line script; ``run_story`` into ``to_play-<i>.wav`` and
+    ``pepper.run_storytelling`` relaying those files over ``LocalTransport``;
+    ``run_game`` with a two-turn ASR and the console UI; ``resample_tree``
+    and ``make_filelist`` over the rendered wavs."""
+    import shutil
+
+    import numpy as np
+    from scipy.io import wavfile
+
+    from emojivoice_tpu_torch.apps import adapters as ad
+    from emojivoice_tpu_torch.apps import demos, game_ui, pepper, record_audio
+
+    out = {}
+    script = Path(tmp, "script.txt")
+    script.write_text('Byte: 😎 "No worries. I will handle it."\nAlex: The cave is dark and very cold. 😭\n')
+    t = time.perf_counter()
+    with Synthesised(pipe, mrf, "(b) render_script") as calls:
+        demos.render_script(pipe, str(script), f"{tmp}/render", steps=STEPS)
+    rendered = sorted(Path(tmp, "render").glob("*.wav"))
+    lengths = [wavfile.read(p)[1].shape[0] for p in rendered]
+    if len(rendered) != 2 or lengths != [r[0].mel_length * 256 for r in calls.results]:
+        raise RuntimeError(f"[apps] (b) render_script wrote {rendered} of {lengths} samples")
+    out["render_ms"] = (time.perf_counter() - t) * 1e3
+
+    story = Path(tmp, "story.txt")
+    story.write_text(STORY.replace(". ", ".\n"))
+    lines = [line for line in story.read_text().splitlines() if line.strip()]
+    t = time.perf_counter()
+    with Synthesised(pipe, mrf, "(b) run_story") as calls:
+        demos.run_story(pipe, str(story), f"{tmp}/story", play=False, steps=STEPS)
+    out["story_ms"] = (time.perf_counter() - t) * 1e3
+    told = [wavfile.read(Path(tmp, "story", f"to_play-{i}.wav"))[1].shape[0] for i in range(len(lines))]
+    if len(calls.results) != len(lines) or told != [r[0].mel_length * 256 for r in calls.results]:
+        raise RuntimeError(f"[apps] (b) run_story: {len(calls.results)} calls for {len(lines)} lines, {told}")
+    relay = pepper.LocalTransport(f"{tmp}/relayed")
+    if pepper.run_storytelling(relay, f"{tmp}/story", str(story), timeout=WAIT_S) != len(lines):
+        raise RuntimeError("[apps] (b) run_storytelling did not relay every line")
+    relayed = [wavfile.read(Path(tmp, "relayed", f"output{i}.wav"))[1] for i in range(len(lines))]
+    if [len(w) for w in relayed] != told or [p[1] for p in relay.played] != [f"to_play-{i}" for i in range(len(lines))] \
+            or list(Path(tmp, "story").glob("to_play-*")):
+        raise RuntimeError(f"[apps] (b) relay: {[len(w) for w in relayed]} against {told}, {relay.played}")
+
+    class TwoTurns:
+        def __init__(self):
+            self.lines = iter(["the knight entered the cave", "and found a sleeping dragon", "end session"])
+
+        def transcribe(self, _):
+            return next(self.lines)
+
+    t = time.perf_counter()
+    with Synthesised(pipe, mrf, "(b) run_game") as calls:
+        n = demos.run_game(pipe, steps=STEPS, llm=ad.ScriptedLLM(), asr=TwoTurns(),
+                           sink=ad.FileSink(f"{tmp}/game"), ui=game_ui.ConsoleUI())
+    out["game_ms"] = (time.perf_counter() - t) * 1e3
+    if n != 2 or len(calls.results) != 2 or len(list(Path(tmp, "game").glob("*.wav"))) != 2:
+        raise RuntimeError(f"[apps] (b) run_game: {n} turns, {len(calls.results)} calls")
+
+    rec, scripts = Path(tmp, "recordings", "neutral"), Path(tmp, "scripts")
+    rec.mkdir(parents=True)
+    scripts.mkdir()
+    (scripts / "script-neutral.txt").write_text("No worries. I will handle it.\nThe cave is dark and very cold.\n")
+    for i, path in enumerate(rendered):
+        shutil.copy(path, rec / f"robot-neutral-{i}.wav")
+    record_audio.resample_tree(rec.parent, 16000)
+    resampled = [wavfile.read(rec / f"robot-neutral-{i}.wav") for i in range(2)]
+    rows = record_audio.make_filelist(rec.parent, scripts, {"neutral": 12}, Path(tmp, "train.txt"))
+    if [sr for sr, _ in resampled] != [16000, 16000] \
+            or [len(d) for _, d in resampled] != [-(-n * 16000 // 22050) for n in lengths] \
+            or not all(np.isfinite(d).all() for _, d in resampled) or len(rows) != 2 \
+            or not rows[1].endswith("|12|The cave is dark and very cold."):
+        raise RuntimeError(f"[apps] (b) recording tools: {[(sr, len(d)) for sr, d in resampled]}, {rows}")
+    print(f"[apps] (b) render_script 2 lines, run_story {len(lines)} lines relayed by run_storytelling, run_game 2 "
+          f"turns, resample_tree + make_filelist over the renders: " + json.dumps(out))
+    return out
+
+
+def decode_against_cpu(name: str, card, cpu, run, hook: str) -> dict:
+    """One greedy decode on the card and on the CPU (the same weights): the
+    first step's logits within ADAPTER_TOL, and the ids equal up to the first
+    step whose top-2 margin on the CPU is under it.  ``hook`` names the
+    adapter's method that sees each step's logits."""
+    seen = {"card": [], "cpu": []}
+    for side, adapter in (("card", card), ("cpu", cpu)):
+        real = getattr(adapter, hook)
+
+        def spy(logits, *a, real=real, side=side):
+            out = real(logits, *a)
+            seen[side].append((out if hook == "_logits" else logits)[0].float().cpu().clone())
+            return out
+
+        setattr(adapter, hook, spy)
+    try:
+        ids = {side: run(adapter) for side, adapter in (("card", card), ("cpu", cpu))}
+    finally:
+        for adapter in (card, cpu):
+            delattr(adapter, hook)
+    first, first_cpu = seen["card"][0], seen["cpu"][0]
+    finite = torch.isfinite(first_cpu)
+    err = float((first[finite] - first_cpu[finite]).abs().max())
+    margins = [float(s.topk(2).values[0] - s.topk(2).values[1]) for s in seen["cpu"]]
+    close = next((k for k, m in enumerate(margins) if m < ADAPTER_TOL), len(margins))
+    card_ids, cpu_ids = ids["card"], ids["cpu"]
+    diff = next((k for k, (a, b) in enumerate(zip(card_ids, cpu_ids)) if a != b), None)
+    row = dict(first_step_max_abs_err=err, steps=len(margins), first_close_step=close, first_differing_step=diff,
+               min_margin=min(margins))
+    if not (err <= ADAPTER_TOL and (diff is None or diff >= close)):
+        raise RuntimeError(f"[apps] (c) {name}: card against CPU {row}")
+    return row
+
+
+def apps_adapters(pipe, mrf, tmp: str, wav: str) -> dict:
+    """(c) Whisper and the chat LM on the card at published widths
+    (``WhisperConfig()``: whisper-tiny's, ``GPT2Config()``: GPT-2's 124 M),
+    random weights from seed 0, the stub tokenizer: a wav of (a) transcribed,
+    one chat turn of 64 new tokens greedy and sampled (a second adapter with
+    the same seed replays the draw), one whole ``FeelMe.run`` turn (recorder
+    stub → ``TorchWhisperASR`` → ``TorchChatLM`` → synthesis) with all three
+    models on the card, and each model's greedy decode held against the CPU."""
+    import builtins
+    import shutil
+
+    import numpy as np
+
+    from emojivoice_tpu_torch.apps import adapters as ad
+    from emojivoice_tpu_torch.apps.feel_me import PROMPT, FeelMe
+    from emojivoice_tpu_torch.apps.torch_adapters import TorchChatLM, TorchWhisperASR, _load_wav_16k, import_transformers
+
+    tf = import_transformers()
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        whisper = tf.WhisperForConditionalGeneration(tf.WhisperConfig()).eval()
+        gpt2 = tf.GPT2LMHeadModel(tf.GPT2Config()).eval()
+    whisper_cpu, gpt2_cpu = copy.deepcopy(whisper), copy.deepcopy(gpt2)
+    params = {"whisper": sum(p.numel() for p in whisper.parameters()),
+              "gpt2": sum(p.numel() for p in gpt2.parameters())}
+    asr = TorchWhisperASR(model=whisper, tokenizer=StubTokenizer(), device=DEVICE)
+    asr_cpu = TorchWhisperASR(model=whisper_cpu, tokenizer=StubTokenizer(), device="cpu")
+    chat = dict(tokenizer=StubTokenizer(), max_new_tokens=64)
+    greedy = TorchChatLM(model=gpt2, temperature=0.0, device=DEVICE, **chat)
+    greedy_cpu = TorchChatLM(model=gpt2_cpu, temperature=0.0, device="cpu", **chat)
+
+    def median_ms(fn, runs: int = 3):
+        fn()  # warm
+        times = []
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(times)
+
+    out = dict(params=params)
+    text = asr.transcribe(wav)
+    if not text:
+        raise RuntimeError("[apps] (c) Whisper transcribed nothing")
+    out["whisper_ms"] = median_ms(lambda: asr.transcribe(wav))
+    audio = _load_wav_16k(wav)
+    feats = asr._fe(audio, sampling_rate=16000, return_tensors="np").input_features
+    out["whisper_vs_cpu"] = decode_against_cpu("Whisper", asr, asr_cpu, lambda a: a._generate(feats)[0].tolist(),
+                                               "_logits")
+
+    user = "hello robot, tell me a story about the sea"
+    out["chat_greedy_ms"] = median_ms(lambda: greedy.chat(PROMPT, [], user))
+    messages = ad.build_messages(PROMPT, [], user)
+    ids, mask, bucket = greedy._encode(messages)
+    out["chat_bucket"] = bucket
+    out["gpt2_vs_cpu"] = decode_against_cpu("GPT-2", greedy, greedy_cpu,
+                                            lambda a: a._generate(ids, mask)[0, bucket:].tolist(), "_next_token")
+    sampled = [TorchChatLM(model=gpt2, temperature=0.6, seed=0, device=DEVICE, **chat) for _ in range(2)]
+    replies = [[lm.chat(PROMPT, [], user) for _ in range(2)] for lm in sampled]
+    if replies[0] != replies[1] or replies[0][0] == replies[0][1] or replies[0][0] == greedy.chat(PROMPT, [], user):
+        raise RuntimeError(f"[apps] (c) sampling does not replay from its seed, or does not sample: {replies}")
+    out["chat_sampled_ms"] = median_ms(lambda: sampled[0].chat(PROMPT, [], user))
+
+    class Recorder:
+        def record(self, path):
+            shutil.copy(wav, path)
+            return True
+
+    heard = []
+    real = asr.transcribe
+    asr.transcribe = lambda path: heard.append(real(path)) or (heard[0] if len(heard) == 1 else "end session")
+    sink = TimedSink(f"{tmp}/agent")
+    # the agent's reply is spoken: the stub spells a token as "w<id>", and English cleaning spells the id out
+    # ("wfifty thousand one hundred ..."), so four tokens keep the reply inside the largest text bucket
+    agent_llm = TorchChatLM(model=gpt2, temperature=0.0, device=DEVICE, tokenizer=StubTokenizer(), max_new_tokens=4)
+    app = FeelMe(pipe, asr=asr, llm=agent_llm, sink=sink, recorder=Recorder(), record_path=f"{tmp}/agent_in.wav")
+    real_input = builtins.input
+    builtins.input = lambda *a: ""
+    try:
+        mrf.launches.clear()  # the main path's run of (c): one agent turn
+        with Synthesised(pipe, mrf, "(c) FeelMe.run") as calls:
+            t = time.perf_counter()
+            app.run()
+            out["agent_turn_ms"] = (time.perf_counter() - t) * 1e3
+        launches = sum(mrf.launches.values())
+    finally:
+        builtins.input = real_input
+        del asr.transcribe
+    if len(heard) != 2 or len(app.history) != 2 or not sink.chunks or not all(np.isfinite(c).all() for c in sink.chunks):
+        raise RuntimeError(f"[apps] (c) FeelMe.run: heard {heard}, history {app.history}, {len(sink.chunks)} plays")
+    out.update(agent_ttfa_ms=(sink.marks[0] - t) * 1e3, agent_calls=len(calls.results), k1_launches=launches,
+               transcript_words=len(heard[0].split()), reply_words=len(app.history[1]["content"].split()))
+    print("[apps] (c) adapters on the card " + json.dumps(out))
+    return out
+
+
+def phase_apps(pipe, mrf) -> dict:
+    """Phase 13: the apps on the pipeline of phase 3.  The main path's runs
+    are (a)'s measured turns, (b), and (c)'s agent turn, each read from
+    ``mrf.launches`` at 0."""
+    with tempfile.TemporaryDirectory(prefix="emojivoice_apps_") as tmp:
+        turns = apps_turns(pipe, mrf, tmp)
+        mrf.launches.clear()
+        cases = apps_case_studies(pipe, mrf, tmp)
+        cases["k1_launches"] = sum(mrf.launches.values())
+        adapters = apps_adapters(pipe, mrf, tmp, turns["wav"])
+    return dict(turns=turns, cases=cases, adapters=adapters,
+                k1_launches=turns["k1_launches"] + cases["k1_launches"] + adapters["k1_launches"])
 
 
 def export_timing(pipe, bundle, texts, spks, seeds, m_bucket) -> dict:
@@ -2241,6 +2631,7 @@ def main() -> int:
     mas_rows = timed("kernel K2", phase_kernel_mas, mas)
     training = timed("train + vocoder", phase_training, mas, mrf)
     serving = timed("serve", phase_serving, pipe, mrf)
+    apps = timed("apps", phase_apps, pipe, mrf)
     exported = timed("export", phase_export, pipe, mrf)
     bf16_tile_err = bf16_tile_check(mrf)
     promoted = promoted_sum_check(mrf)
@@ -2249,12 +2640,13 @@ def main() -> int:
     conformer = timed("conformer", phase_conformer, mas, mrf, matcha, training["step"])
     scratch = timed("scratch", phase_scratch, mas)
     swept = timed("sweep", phase_sweep, mas)
-    # K1 on the main paths: the synthesis requests, the engine's and the webapp's batches, the trained checkpoint,
+    # K1 on the main paths: the synthesis requests, the engine's and the webapp's batches, the apps' turns, demos
+    # and agent turn, the trained checkpoint,
     # the vocoder proof's two renders, the fine-tuned generator served, the exported bundle's program runs, the
     # live dispatch under sync debug, and the conformer model's requests, its trained checkpoint and bundle; K2:
     # the trainer's steps and get_durations, the conformer's training, the scratch proof and the sweep's trials
     launches += serving["k1_launches"] + training["k1_launches"] + exported["k1_launches"] \
-        + exported["k1_launches_live"] + conformer["k1_launches"]
+        + exported["k1_launches_live"] + conformer["k1_launches"] + apps["k1_launches"]
     k2_launches = training["launches"] + conformer["k2_launches"] + scratch["k2_launches"] + swept["k2_launches"]
 
     stage_rows = rows[:len(STAGE_SHAPES)]

@@ -14,7 +14,9 @@ port's modules load with strict names:
 * ``hifigan_state_dict_from_flax`` is the inverse of
   ``convert_hifigan_state_dict``, folded or in the weight-norm training form;
 * ``mpd_state_dict_from_flax`` / ``msd_state_dict_from_flax`` carry the
-  HiFi-GAN discriminators.
+  HiFi-GAN discriminators;
+* ``hf_flax_params_to_torch`` carries a transformers Flax model's params
+  (Whisper, GPT-2) to the state dict of its transformers PyTorch class.
 
 Layouts: flax conv kernels are (k, in, out) → torch Conv1d (out, in, k);
 flax ConvTranspose1d kernels are (k, in, out) → torch (in, out, k); flax
@@ -299,3 +301,52 @@ def load_vocoder_adam_states_from_optax(state, gen_mu: dict, gen_nu: dict, gen_c
     named = [(f"{prefix}.{n}", p) for prefix, m in (("mpd", state.mpd), ("msd", state.msd))
              for n, p in m.named_parameters()]
     _load_adam(state.disc_opt, named, disc_sd(disc_mu), disc_sd(disc_nu), disc_count)
+
+
+def hf_flax_params_to_torch(flat: Dict[str, np.ndarray], model) -> Dict[str, "torch.Tensor"]:
+    """A transformers Flax param tree, flattened to ``"a/b/c": array`` (the
+    ``FlaxPreTrainedModel.params`` tree), as the state dict of ``model``, the
+    same architecture's transformers PyTorch class.
+
+    Names: ``a.b.c.weight`` is ``a/b/c/kernel`` (a Dense or a conv),
+    ``a/b/c/scale`` (a LayerNorm) or ``a/b/c/embedding``.  Layouts: every 2-D
+    kernel is transposed (a Flax Dense is (in, out) and ``nn.Linear`` (out,
+    in); GPT-2's ``FlaxConv1D`` is (out, in) and its torch ``Conv1D`` (in,
+    out)); a conv kernel (k, in, out) becomes (out, in, k).  A torch weight
+    that is tied to another (Whisper's ``proj_out``, GPT-2's ``lm_head``) has
+    no Flax leaf of its own and takes its source's value.  A leaf left over,
+    a weight with no leaf or a shape that disagrees raises.  Transformers'
+    own ``load_flax_weights_in_pytorch_model`` imports flax; this imports
+    neither flax nor JAX."""
+    import torch
+
+    flat = {str(k): np.asarray(v) for k, v in flat.items()}
+    target = model.state_dict()
+    by_storage = {}  # tied parameters share one tensor: its first name holds the leaf
+    for name, t in model.named_parameters(remove_duplicate=False):
+        by_storage.setdefault(t.data_ptr(), []).append(name)
+    out, used = {}, set()
+    for name, t in target.items():
+        stem, leaf = name.rsplit(".", 1)
+        stem = stem.replace(".", "/")
+        keys = [f"{stem}/{leaf}"] if leaf != "weight" else [f"{stem}/{w}" for w in ("kernel", "scale", "embedding")]
+        found = [k for k in keys if k in flat]
+        if not found:
+            continue
+        w = flat[found[0]]
+        if found[0].endswith("/kernel"):
+            w = w.T if w.ndim == 2 else w.transpose(2, 1, 0)
+        if tuple(w.shape) != tuple(t.shape):
+            raise ValueError(f"{found[0]} {w.shape} does not fit {name} {tuple(t.shape)}")
+        out[name] = torch.from_numpy(np.array(w, dtype=np.float32)).to(t.dtype)
+        used.add(found[0])
+    for names in by_storage.values():
+        source = next((n for n in names if n in out), None)
+        for n in names:
+            if source is not None and n in target and n not in out:
+                out[n] = out[source]
+    left = sorted(set(flat) - used)
+    missing = sorted(set(target) - set(out))
+    if left or missing:
+        raise ValueError(f"Flax leaves without a torch weight {left}; torch weights without a leaf {missing}")
+    return out

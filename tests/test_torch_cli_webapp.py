@@ -371,6 +371,8 @@ def test_webapp_main_flags(tiny_from_random, monkeypatch):
     ("emojivoice-tts-torch", "emojivoice_tpu_torch.inference.cli:main"),
     ("emojivoice-tts-app-torch", "emojivoice_tpu_torch.apps.webapp:main"),
     ("emojivoice-train-torch", "emojivoice_tpu_torch.training.train:main"),
+    ("emojivoice-feel-me-torch", "emojivoice_tpu_torch.apps.feel_me:main"),
+    ("emojivoice-record-audio-torch", "emojivoice_tpu_torch.apps.record_audio:main"),
 ])
 def test_console_scripts_of_the_port(script, target, capsys):
     """The port's scripts stand in pyproject.toml beside the JAX package's,

@@ -5,14 +5,18 @@ A fresh interpreter imports every module of ``emojivoice_tpu_torch`` and
 everything ``chip_smoke.py`` imports, runs a tiny CPU synthesis, the serving
 front ends on it (batching engine, streaming vocoder, long-form, the CLI, the
 webapp over HTTP, a checkpoint written and served, a bundle exported and
-run), a conformer model's synthesis, a ``--fast_dev_run`` of the trainer and
+run), a conformer model's synthesis, the apps (one agent turn from a recorded
+wav through Whisper and a causal LM built from transformers' PyTorch classes,
+a story rendered and relayed, the recording tools), a ``--fast_dev_run`` of the trainer and
 a run with its loggers and a validation render, a sweep of it in process, a
 short scratch proof, and the vocoder's training side with its tools (data
 statistics, export, ``--from_torch_ckpt``, durations and teacher-forced mels,
 two GAN steps), and then ``sys.modules`` must hold no
 ``emojivoice_tpu`` (or ``emojivoice_tpu.*``) and none of jax, jaxlib, flax,
 optax, orbax.  A second test holds the port's own copies of the presets and
-the emoji mapping equal to the JAX package's, so they cannot drift unnoticed
+the emoji mapping equal to the JAX package's, and a third the apps' host-side
+copies (every top-level name but the ones that differ on purpose), so they
+cannot drift unnoticed
 (the port's copies of ``utils/observability.py`` and ``training/sweep.py`` are
 held to the originals by ``tests/test_torch_observability.py`` and
 ``tests/test_torch_sweep.py``).
@@ -47,7 +51,8 @@ for want in ("ops.mas", "ops.mel", "data.dataset", "data.audio_np", "training.tr
              "io.torch_ckpt", "utils.assets", "vocoder.discriminators", "training.vocoder_train",
              "training.vocoder_proof", "training.proof", "training.get_durations", "data.stats", "io.export_torch",
              "inference.export", "io.torch_pickle", "models.conformer", "utils.observability",
-             "training.scratch_proof", "training.sweep"):
+             "training.scratch_proof", "training.sweep", "apps.adapters", "apps.torch_adapters", "apps.feel_me",
+             "apps.game_ui", "apps.demos", "apps.pepper", "apps.record_audio"):
     assert "emojivoice_tpu_torch." + want in names, want
 for name in names:
     importlib.import_module(name)
@@ -120,6 +125,55 @@ with tempfile.TemporaryDirectory() as tmp:
 assert not foreign(), foreign()
 
 
+# the apps: Whisper and a causal LM through transformers' PyTorch classes (tiny configs), one agent turn over them
+# from a recorded wav, a story rendered and relayed, the recording tools
+from scipy.io import wavfile
+from emojivoice_tpu_torch.apps import adapters as ad, demos, pepper, record_audio
+from emojivoice_tpu_torch.apps.feel_me import FeelMe
+from emojivoice_tpu_torch.apps.torch_adapters import TorchChatLM, TorchWhisperASR, import_transformers
+tf = import_transformers()
+class Tok:
+    pad_token_id, eos_token_id, chat_template = 0, 2, None
+    def __call__(self, text):
+        return {"input_ids": [3 + sum(map(ord, w)) % 60 for w in text.split()]}
+    def decode(self, ids, skip_special_tokens=True):
+        return " ".join(f"w{i}" for i in ids if i > 2)
+small = dict(vocab_size=64, d_model=32, encoder_layers=1, decoder_layers=1, encoder_attention_heads=2,
+             decoder_attention_heads=2, encoder_ffn_dim=64, decoder_ffn_dim=64, max_target_positions=48,
+             decoder_start_token_id=1, eos_token_id=2, pad_token_id=0, bos_token_id=1, begin_suppress_tokens=None)
+asr = TorchWhisperASR(model=tf.WhisperForConditionalGeneration(tf.WhisperConfig(**small)), tokenizer=Tok(),
+                      max_length=8, device="cpu")
+llm = TorchChatLM(model=tf.GPT2LMHeadModel(tf.GPT2Config(vocab_size=96, n_positions=128, n_embd=32, n_layer=1,
+                                                         n_head=2, bos_token_id=1, eos_token_id=2, pad_token_id=0)),
+                  tokenizer=Tok(), temperature=0.8, max_new_tokens=4, prompt_buckets=(16, 32), device="cpu")
+with tempfile.TemporaryDirectory() as tmp:
+    class Recorder:
+        def record(self, path):
+            wavfile.write(path, 22050, (np.sin(np.arange(11025) / 20) * 8000).astype(np.int16))
+            return True
+    said = []
+    asr_transcribe = asr.transcribe
+    asr.transcribe = lambda path: said.append(asr_transcribe(path)) or ("hello robot" if len(said) == 1 else "end session")
+    sink = ad.FileSink(tmp)
+    app = FeelMe(pipe, asr=asr, llm=llm, sink=sink, recorder=Recorder(), record_path=tmp + "/in.wav", steps=2,
+                 language=None)
+    import builtins
+    builtins.input = lambda *a: ""
+    app.run()
+    assert len(said) == 2 and sink.count >= 1 and len(app.history) == 2, (said, sink.count, app.history)
+    Path(tmp, "story.txt").write_text("Once upon a time.\nThe end.\n")
+    demos.run_story(pipe, tmp + "/story.txt", tmp, play=False, steps=2)
+    relay = pepper.LocalTransport(tmp + "/relayed")
+    assert pepper.run_storytelling(relay, tmp, tmp + "/story.txt", timeout=5) == 2
+    Path(tmp, "scripts").mkdir()
+    Path(tmp, "scripts", "script-neutral.txt").write_text("first\n")
+    Path(tmp, "rec", "neutral").mkdir(parents=True)
+    wavfile.write(tmp + "/rec/neutral/s-neutral-0.wav", 44100, np.zeros(4410, np.int16))
+    record_audio.resample_tree(Path(tmp, "rec"))
+    assert len(record_audio.make_filelist(Path(tmp, "rec"), Path(tmp, "scripts"), {"neutral": 0},
+                                          Path(tmp, "list.txt"))) == 1
+assert not foreign(), foreign()
+
 from emojivoice_tpu_torch.training.synthetic import make_alignable_dataset
 from emojivoice_tpu_torch.training.train import main
 with tempfile.TemporaryDirectory() as tmp:
@@ -148,7 +202,8 @@ scripts = tomllib.load(open("pyproject.toml", "rb"))["project"]["scripts"]
 ported = {k: v for k, v in scripts.items() if v.startswith("emojivoice_tpu_torch.")}
 for want in ("emojivoice-get-durations-torch", "emojivoice-data-stats-torch", "emojivoice-export-torch-torch",
              "emojivoice-train-proof-torch", "emojivoice-vocoder-proof-torch", "emojivoice-export-bundle-torch",
-             "emojivoice-run-exported-torch", "emojivoice-scratch-proof-torch", "emojivoice-sweep-torch"):
+             "emojivoice-run-exported-torch", "emojivoice-scratch-proof-torch", "emojivoice-sweep-torch",
+             "emojivoice-feel-me-torch", "emojivoice-record-audio-torch"):
     assert want in ported, (want, sorted(ported))
 for target in ported.values():
     mod, fn = target.split(":")
@@ -243,3 +298,34 @@ def test_emoji_mapping_equals_the_jax_packages():
     assert ours.EMOJI_MAPPING_MALE == theirs.EMOJI_MAPPING_MALE
     reply = "That's great! 😎 (really)"
     assert ours.parse_emoji_response(reply) == theirs.parse_emoji_response(reply) == (79, "That's great!  really")
+
+
+# the apps' host-side copies: every top-level statement equal to the JAX package's once the package name is
+# normalised, but for the names that differ on purpose (the ASR fallback, the parsers and their prog names)
+APP_COPIES = {"adapters": {"WhisperASR", "TransformersLLM", "on_disk", "default_asr"}, "feel_me": {"build_parser", "main"},
+              "demos": {"main"}, "game_ui": set(), "pepper": {"main"}, "record_audio": {"main"}}
+
+
+def _statements(path: Path, package: str) -> dict:
+    import ast
+
+    body = ast.parse(path.read_text().replace(package, "emojivoice_tpu")).body[1:]  # after the docstring
+    out = {}
+    for node in body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            key = node.name
+        elif isinstance(node, ast.Assign):
+            key = ast.unparse(node.targets[0])
+        else:
+            key = ast.unparse(node)
+        out[key] = ast.unparse(node)
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(APP_COPIES))
+def test_app_copies_equal_the_jax_packages(name):
+    ours = _statements(REPO / "emojivoice_tpu_torch" / "apps" / f"{name}.py", "emojivoice_tpu_torch")
+    theirs = _statements(REPO / "emojivoice_tpu" / "apps" / f"{name}.py", "emojivoice_tpu")
+    differ = APP_COPIES[name]
+    assert differ <= set(ours)
+    assert {k: v for k, v in ours.items() if k not in differ} == {k: v for k, v in theirs.items() if k not in differ}
