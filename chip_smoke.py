@@ -180,6 +180,24 @@ Phases (each one failing fails the run, exit code ≠ 0):
      ids equal up to the first step whose top-2 margin on the CPU is under
      1e-4).
 
+ 14. parallel (last) — (a) ``train.main`` with ``--num_devices 1`` (NCCL at
+     world size 1, DDP), batch 16, 3 steps, a checkpoint and ``--resume`` for
+     one more, its losses and gradient norms within 1e-5 of the same run
+     without the flag (two runs without it show the card's own spread: its
+     backward adds atomically), K2 once per step; (b) two ranks spawned on the one card over gloo (NCCL
+     refuses two ranks on one card), dropout 0 by config override and the
+     prenet's fixed 0.5 set to 0: a DDP step (8 rows a rank), a TP-2 step and
+     a conformer DDP step, each from the seeded state on one batch of 16,
+     against the one-process step on the card (losses and gradient norm rtol
+     1e-4, parameters atol 2e-4 and mean 2e-6, the conformer's BatchNorm
+     buffers rtol 1e-4 atol 1e-6); (c) on the same ranks the TP-2 pipeline's
+     headline (wav 1e-3, mel MAE 1e-3), the DP-2 pipeline's 8 seeded rows at
+     batch 8 (wav 1e-4) and the same rows with K1's bf16 mode (2e-2) against
+     one process, every rank launching K1 on all four stages of every request
+     (each rank's counts are added into the kernel record); (d) the TP-2
+     state through ``torch.distributed.checkpoint`` and back into a state
+     from another seed, equal to the bit.  Every rank's wait is bounded.
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 ``nvidia-smi``'s card name and power limit, and the one before that the
 kernel record, whose ``bound_ms`` is the larger of bytes over 3.35 TB/s and
@@ -280,6 +298,17 @@ APP_LINES = ("I love the way the sea sparkles today.", "You broke my favourite t
              "I waved back, but they were waving at someone else.", "Maybe the key is under the old oak tree.")
 APP_STORY = ("The little robot rolled down to the harbour to watch the boats. A gull landed on its head and started "
              "to sing a very silly song. The robot laughed so hard that its lights blinked all night long. 😮")
+PAR_SEED, PAR_STEPS, PAR_ROWS, PAR_WAIT_S = 1234, 3, 8, 300  # [parallel]: a hung rank fails the run at PAR_WAIT_S
+# [parallel]'s bounds at emoji_multi width, f32 with TF32 off, two ranks (or one process at world size 1) against
+# one process on the same inputs; only the summation order differs (sharded products, all-reduced sums, other
+# batch sizes):
+PAR_ONE_RTOL = 1e-5  # (a) --num_devices 1 against no flag: the card's backward is not deterministic (atomic adds)
+PAR_LOSS_RTOL = 1e-4  # step losses and gradient norm (the CPU tests' bound against JAX)
+PAR_PARAM_ATOL, PAR_PARAM_MEAN = 2e-4, 2e-6  # after one Adam step at lr 1e-4: a near-zero gradient summed in another
+# order can flip its element's step (2 lr); the mean error over all elements stays far below
+PAR_BN_RTOL, PAR_BN_ATOL = 1e-4, 1e-6  # the conformer's BatchNorm buffers after one step
+PAR_WAV_TP, PAR_MEL_MAE = 1e-3, 1e-3  # TP-2 headline, 10 Euler steps: the card-against-CPU bounds of [synth]
+PAR_WAV_DP = 1e-4  # DP-2 rows (tests/test_tp.py:148); bf16 rows at VOCODER_TOL
 ADAPTER_TOL = 1e-4  # Whisper and GPT-2, card against CPU, f32 with TF32 off: first-step logits, top-2 margins
 
 
@@ -2588,6 +2617,321 @@ def phase_sweep(mas) -> dict:
     return dict(k2_launches=mas.launches, wall_s=wall, memory_mb=grew)
 
 
+def no_dropout(cfg):
+    """`cfg` with the config's three dropout rates at 0 (the equality checks of [parallel])."""
+    return dataclasses.replace(
+        cfg, encoder=dataclasses.replace(cfg.encoder, p_dropout=0.0),
+        duration_predictor=dataclasses.replace(cfg.duration_predictor, p_dropout=0.0),
+        decoder=dataclasses.replace(cfg.decoder, dropout=0.0))
+
+
+def parallel_state(cfg, device, mesh, seed: int):
+    """The trainer's state from `seed`, every dropout at 0 (the prenet's fixed 0.5 too, which no config holds)."""
+    from emojivoice_tpu_torch.config import OptimizerConfig
+    from emojivoice_tpu_torch.training.state import create_train_state
+
+    state = create_train_state(cfg, OptimizerConfig(), seed=seed, device=device, mesh=mesh)
+    for m in state.model.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+    return state
+
+
+def parallel_requests(root):
+    """[parallel] (c)'s requests: (name, texts, speakers, seeds)."""
+    from emojivoice_tpu_torch.apps.emoji import EMOJI_MAPPING
+
+    spks = list(EMOJI_MAPPING.values())[:PAR_ROWS]
+    return [("tp_headline", [HEADLINE], [79], 0),
+            ("dp_rows", [f"Row {i} of the batch, {APP_LINES[i % len(APP_LINES)]}" for i in range(PAR_ROWS)], spks,
+             list(range(100, 100 + PAR_ROWS))),
+            ("dp_bf16", [f"Row {i} of the batch, {APP_LINES[i % len(APP_LINES)]}" for i in range(PAR_ROWS)], spks,
+             list(range(100, 100 + PAR_ROWS)))]
+
+
+def count_plain_calls(mas, mrf) -> None:
+    """Count K1's and K2's plain twins' calls in the counters the kernels'
+    wrappers keep on the card (a CPU rehearsal of [parallel]'s ranks)."""
+    from emojivoice_tpu_torch.models import matcha
+    from emojivoice_tpu_torch.vocoder import hifigan
+
+    search, stage = matcha.maximum_path, hifigan.mrf_stage
+
+    def counted_search(*a, **k):
+        mas.launches += 1
+        return search(*a, **k)
+
+    def counted_stage(x, weights, *a, **k):
+        mrf.launches[(x.shape[-1], "bf16" if weights[0][0].dtype == torch.bfloat16 else "f32")] += 1
+        return stage(x, weights, *a, **k)
+
+    matcha.maximum_path, hifigan.mrf_stage = counted_search, counted_stage
+
+
+def timed_step(state, batch, device) -> float:
+    """Milliseconds of one more ``train_step`` on `batch`, the device's work included."""
+    from emojivoice_tpu_torch.training.state import train_step
+
+    sync = torch.cuda.synchronize if torch.device(device).type == "cuda" else (lambda: None)
+    sync()
+    t = time.perf_counter()
+    train_step(state, batch, PAR_SEED)
+    sync()
+    return (time.perf_counter() - t) * 1e3
+
+
+def parallel_rank(rank: int, world: int, port: int, task_dir: str) -> None:
+    """One of [parallel]'s two ranks, both on the one card over gloo: (b) the
+    DDP, TP-2 and conformer DDP steps, (d) the TP-2 state through DCP, (c) the
+    TP-2 and DP-2 pipelines; K1 counted per request, K2 over the steps."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from emojivoice_tpu_torch import config
+    from emojivoice_tpu_torch.inference.pipeline import SynthesisPipeline
+    from emojivoice_tpu_torch.io.checkpoint import CheckpointManager
+    from emojivoice_tpu_torch.ops import mas, mrf
+    from emojivoice_tpu_torch.parallel.mesh import (collectives, initialize_distributed, make_mesh,
+                                                    pad_batch_to_multiple, shard_batch)
+    from emojivoice_tpu_torch.parallel.tp import full_state_dict, make_mesh_2d
+    from emojivoice_tpu_torch.training.state import batch_to_device, train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    task = Path(task_dir)
+    batch_np = dict(np.load(task / "batch.npz"))
+    spec = json.loads((task / "task.json").read_text())
+    root, conformer = (config.from_dict(config.RootConfig, spec[k]) for k in ("root", "conformer"))
+    dev = initialize_distributed(f"localhost:{port}", world, rank, device=spec["device"], backend="gloo")
+    if dev.type != "cuda":  # a rehearsal on the CPU: count the plain twins' calls as the card counts launches
+        count_plain_calls(mas, mrf)
+    out = {}
+    try:
+        meshes = {"ddp": make_mesh(world, device=dev), "tp": make_mesh_2d(1, world, device=dev)}
+        mas.launches = 0  # the steps of (b), two of each state: one K2 launch each, on every rank
+        for name, cfg in (("ddp", no_dropout(root.model)), ("tp", no_dropout(root.model)),
+                          ("conformer", no_dropout(conformer.model))):
+            mesh = meshes["tp" if name == "tp" else "ddp"]
+            state = parallel_state(cfg, dev, mesh, PAR_SEED)
+            rows = shard_batch(mesh, pad_batch_to_multiple(batch_np, mesh.size("data")))
+            local = batch_to_device(rows, dev)
+            m = train_step(state, local, PAR_SEED)
+            full = full_state_dict(state.model, mesh)
+            if rank == 0:
+                np.savez(task / f"{name}.npz", **{f"m.{k}": np.float64(float(v)) for k, v in m.items()},
+                         **{f"p.{k}": v.float().cpu().numpy() for k, v in full.items()})
+            # a second step, timed, with the port's own collectives counted and DDP's gradient buckets beside them
+            collectives.clear()
+            out[f"{name}.step_ms"] = timed_step(state, local, dev)
+            out[f"{name}.collectives"] = dict(collectives)
+            out[f"{name}.ddp_buckets"] = str(state.ddp._get_ddp_logging_data().get("bucket_sizes", "?"))
+            if name == "tp":  # (d) through DCP and back into a state from another seed
+                mgr = CheckpointManager(str(task / "ckpts"), sharded=True)
+                mgr.save(state.step, state.sharded_state_dict(), cfg=root)
+                other = parallel_state(cfg, dev, mesh, PAR_SEED + 1)
+                other.load_sharded_state_dict(mgr.restore(template=other.sharded_state_dict()))
+                differ = [] if other.step == state.step else ["step"]
+                for (k, a), b in zip(state.model.state_dict().items(), other.model.state_dict().values()):
+                    differ += [] if torch.equal(a, b) else [k]
+                for (k, pa), pb in zip(state.model.named_parameters(), other.model.parameters()):
+                    differ += [f"{k}.{m}" for m in ("step", "exp_avg", "exp_avg_sq")
+                               if not torch.equal(state.optimizer.state[pa][m], other.optimizer.state[pb][m])]
+                out["dcp_equal"], out["dcp_differ"] = not differ, differ[:8]
+                del other
+            del state
+        out["k2"] = mas.launches
+
+        kw = dict(seed=0, device=dev, cleaners=("basic_cleaners",))
+        tp_pipe = SynthesisPipeline.from_random(root, mesh=meshes["tp"], **kw)
+        dp_pipe = SynthesisPipeline.from_random(root, mesh=meshes["ddp"], **kw)
+        dp16 = SynthesisPipeline(root.model, dp_pipe.model, root.vocoder, dp_pipe.vocoder, device=dev,
+                                 cleaners=("basic_cleaners",), vocoder_dtype=torch.bfloat16, mesh=meshes["ddp"])
+        pipes = {"tp_headline": tp_pipe, "dp_rows": dp_pipe, "dp_bf16": dp16}
+        for name, texts, spks, seed in parallel_requests(root):
+            mode = "bf16" if name == "dp_bf16" else "f32"
+            mrf.launches.clear()  # this rank's K1 launches of this request
+            res = pipes[name].synthesise(texts, spks=spks, seed=seed, n_timesteps=spec["steps"],
+                                         denoiser_strength=STRENGTH)
+            counts = dict(mrf.launches)
+            if dev.type == "cuda" and counts != {(c, mode): 1 for c in (256, 128, 64, 32)}:
+                raise RuntimeError(f"[parallel] rank {rank} {name}: K1 launches {counts}, expected one per stage "
+                                   f"in {mode}")
+            out[f"k1.{name}"] = sum(counts.values())
+            if rank == 0:
+                np.savez(task / f"{name}.npz", **{f"wav.{i}": r.wav for i, r in enumerate(res)},
+                         **{f"mel.{i}": r.mel for i, r in enumerate(res)})
+    finally:
+        dist.destroy_process_group()
+    (task / f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def parallel_step_errors(ref: dict, got: dict, name: str) -> dict:
+    """One step of ranks against one process: the metrics' relative errors, the
+    parameters' max and mean abs error (BatchNorm buffers apart)."""
+    import numpy as np
+
+    loss = max(abs(float(got[f"m.{k}"]) - ref["m"][k]) / abs(ref["m"][k])
+               for k in ("loss", "dur_loss", "prior_loss", "diff_loss", "grad_norm"))
+    params = [k for k in ref["p"] if k in ref["params"]]
+    errs = [np.abs(got[f"p.{k}"] - ref["p"][k]) for k in params]
+    out = dict(loss_rel=loss, param_max=max(float(e.max()) for e in errs),
+               param_mean=float(sum(float(e.sum()) for e in errs) / sum(e.size for e in errs)))
+    bn = [k for k in ref["p"] if k not in ref["params"] and "running" in k]
+    if bn:
+        out["bn_buffer_max"] = max(float(np.abs(got[f"p.{k}"] - ref["p"][k]).max()) for k in bn)
+        out["bn_buffers_within"] = all(np.allclose(got[f"p.{k}"], ref["p"][k], rtol=PAR_BN_RTOL, atol=PAR_BN_ATOL)
+                                       for k in bn)
+        out["bn_buffers_moved"] = sum(not np.array_equal(ref["p"][k], ref["p0"][k]) for k in bn)
+    ok = loss <= PAR_LOSS_RTOL and out["param_max"] <= PAR_PARAM_ATOL and out["param_mean"] <= PAR_PARAM_MEAN \
+        and out.get("bn_buffers_within", True)
+    print(f"[parallel] (b) {name} step, two ranks against one process: loss/grad-norm rel err {loss:.3e} (bound "
+          f"{PAR_LOSS_RTOL}), params max abs err {out['param_max']:.3e} (bound {PAR_PARAM_ATOL}), mean "
+          f"{out['param_mean']:.3e} (bound {PAR_PARAM_MEAN})"
+          + (f", BatchNorm buffers max abs err {out['bn_buffer_max']:.3e} (bound rtol {PAR_BN_RTOL} atol "
+             f"{PAR_BN_ATOL}), {out['bn_buffers_moved']} moved" if bn else ""))
+    if not ok:
+        raise RuntimeError(f"[parallel] (b) {name}: the ranks' step disagrees with one process: {out}")
+    return out
+
+
+def phase_parallel(mas, mrf) -> dict:
+    """[parallel]: (a) ``train.main(--num_devices 1)`` on NCCL at world size
+    1 against the same run without the flag, checkpoint and ``--resume``; (b)
+    two ranks on the one card over gloo, dropout 0 by config override (and the
+    prenet's fixed 0.5): a DDP step, a TP-2 step and a conformer DDP step
+    against one process; (c) on the same ranks the TP-2 pipeline's headline,
+    the DP-2 pipeline's eight seeded rows (f32, then K1's bf16 mode) against
+    one process, each rank launching K1 on all four stages of every request;
+    (d) the TP-2 state through DCP on the card, equal to the bit."""
+    import numpy as np
+
+    from emojivoice_tpu_torch import config
+    from emojivoice_tpu_torch.apps.emoji import EMOJI_MAPPING
+    from emojivoice_tpu_torch.data.dataset import BucketBatcher, TextMelDataset
+    from emojivoice_tpu_torch.inference.pipeline import SynthesisPipeline
+    from emojivoice_tpu_torch.parallel.mesh import free_port, spawn
+    from emojivoice_tpu_torch.training import train
+    from emojivoice_tpu_torch.training.state import batch_to_device, train_step
+    from emojivoice_tpu_torch.training.synthetic import make_alignable_dataset
+
+    root = config.get_preset(PRESET)
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="emojivoice_parallel_") as tmp:
+        tmp = Path(tmp)
+        train_list, val_list, _ = make_alignable_dataset(tmp / "corpus", list(EMOJI_MAPPING.values()),
+                                                         n_utts=2 * TRAIN_BATCH, seed=0, long_texts=True)
+        # (a) the trainer at world size 1 on NCCL, a checkpoint and --resume, against the run without the flag
+        args = ["--preset", PRESET, "--device", DEVICE, "--train_filelist", str(train_list), "--valid_filelist",
+                str(val_list), "--batch_size", str(TRAIN_BATCH), "--overfit_batches", "1", "--val_every_steps", "0",
+                "--log_every", "1", "--render_val_samples", "0", "--seed", str(PAR_SEED)]
+        t = time.perf_counter()
+        # the card's backward adds atomically (embedding and gather gradients): deterministic kernels for (a), so
+        # that two runs can be held to each other at all; two runs without the flag show what is left
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            for name in ("one", "again"):
+                if train.main(args + ["--out_dir", str(tmp / name), "--max_steps", str(PAR_STEPS + 1)]) != 0:
+                    raise RuntimeError("[parallel] (a) the run without --num_devices failed")
+            mas.launches = 0  # the main path's run of (a)
+            if train.main(args + ["--out_dir", str(tmp / "n1"), "--max_steps", str(PAR_STEPS), "--ckpt_every_steps",
+                                  str(PAR_STEPS), "--num_devices", "1"]) != 0 or \
+                    train.main(args + ["--out_dir", str(tmp / "n1"), "--max_steps", str(PAR_STEPS + 1), "--resume",
+                                       "--num_devices", "1"]) != 0:
+                raise RuntimeError("[parallel] (a) the --num_devices 1 run failed")
+            k2_a = mas.launches
+        finally:
+            torch.use_deterministic_algorithms(False)
+        one, again, n1 = (read_metrics(tmp / name, "train") for name in ("one", "again", "n1"))
+        keys = ("loss", "dur_loss", "prior_loss", "diff_loss", "grad_norm")
+
+        def rel(a, b):
+            return max(abs(x[k] - y[k]) / abs(y[k]) for x, y in zip(a, b) for k in keys)
+
+        steps = [r["step"] for r in n1] == [r["step"] for r in one] == list(range(1, PAR_STEPS + 2))
+        out["a"] = dict(losses=[r["loss"] for r in n1], rel_err=rel(n1, one), spread_without_flag=rel(again, one),
+                        equal_to_the_bit=all(x[k] == y[k] for x, y in zip(n1, one) for k in keys), k2_launches=k2_a)
+        print(f"[parallel] (a) train.main --num_devices 1 (NCCL, world size 1, DDP), {PAR_STEPS} steps, a checkpoint "
+              f"and --resume for one more: losses {[round(r['loss'], 6) for r in n1]}; against the run without the "
+              f"flag: max rel err {out['a']['rel_err']:.3e} (bound {PAR_ONE_RTOL}; equal to the bit "
+              f"{out['a']['equal_to_the_bit']}), two runs without the flag {out['a']['spread_without_flag']:.3e}; "
+              f"K2 launches {k2_a} ({time.perf_counter() - t:.1f} s)")
+        if not steps or out["a"]["rel_err"] > PAR_ONE_RTOL or k2_a != PAR_STEPS + 1:
+            raise RuntimeError(f"[parallel] (a) {out['a']}: steps {[r['step'] for r in n1]}")
+
+        # one process's numbers on the card: the steps of (b) and the requests of (c)
+        data_cfg = dataclasses.replace(root.data, train_filelist_path=str(train_list),
+                                       valid_filelist_path=str(val_list), batch_size=TRAIN_BATCH, seed=PAR_SEED)
+        batch_np = next(iter(BucketBatcher(TextMelDataset(str(train_list), data_cfg), TRAIN_BATCH, seed=PAR_SEED)))
+        np.savez(tmp / "batch.npz", **batch_np)
+        (tmp / "task.json").write_text(json.dumps({"device": DEVICE, "steps": STEPS, "root": config.to_dict(root),
+                                                   "conformer": config.to_dict(conformer_root())}))
+        refs = {}
+        for name, cfg in (("transformer", no_dropout(root.model)), ("conformer", no_dropout(conformer_root().model))):
+            state = parallel_state(cfg, DEVICE, None, PAR_SEED)
+            start = {k: v.float().cpu().numpy().copy() for k, v in state.model.state_dict().items()}
+            batch = batch_to_device(batch_np, DEVICE)
+            m = train_step(state, batch, PAR_SEED)
+            refs[name] = {"m": {k: float(v) for k, v in m.items()}, "p0": start,
+                          "p": {k: v.float().cpu().numpy().copy() for k, v in state.model.state_dict().items()},
+                          "params": {k for k, _ in state.model.named_parameters()},
+                          "step_ms": timed_step(state, batch, DEVICE)}
+            del state
+        pipe = SynthesisPipeline.from_random(root, seed=0, device=DEVICE, cleaners=("basic_cleaners",))
+        pipe16 = SynthesisPipeline(root.model, pipe.model, root.vocoder, pipe.vocoder, device=DEVICE,
+                                   cleaners=("basic_cleaners",), vocoder_dtype=torch.bfloat16)
+        want = {name: (pipe16 if name == "dp_bf16" else pipe).synthesise(texts, spks=spks, seed=seed,
+                                                                         n_timesteps=STEPS, denoiser_strength=STRENGTH)
+                for name, texts, spks, seed in parallel_requests(root)}
+        del pipe, pipe16
+        torch.cuda.empty_cache()
+
+        t = time.perf_counter()
+        spawn(parallel_rank, 2, (2, free_port(), str(tmp)), timeout_s=PAR_WAIT_S)
+        ranks = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(2)]
+        print(f"[parallel] (b)-(d) two ranks on one card over gloo ran in {time.perf_counter() - t:.1f} s")
+        out["ddp"] = parallel_step_errors(refs["transformer"], dict(np.load(tmp / "ddp.npz")), "DDP")
+        out["tp"] = parallel_step_errors(refs["transformer"], dict(np.load(tmp / "tp.npz")), "TP-2")
+        out["conformer"] = parallel_step_errors(refs["conformer"], dict(np.load(tmp / "conformer.npz")),
+                                                "conformer DDP")
+        n_bn = sum(k.endswith("running_mean") for k in refs["conformer"]["p"])
+        if out["conformer"]["bn_buffers_moved"] != 2 * n_bn:
+            raise RuntimeError(f"[parallel] (b) conformer: {out['conformer']['bn_buffers_moved']} BatchNorm "
+                               f"statistics moved, expected the mean and variance of {n_bn} blocks")
+        bounds = {"tp_headline": PAR_WAV_TP, "dp_rows": PAR_WAV_DP, "dp_bf16": VOCODER_TOL}
+        for name, ref in want.items():
+            got = dict(np.load(tmp / f"{name}.npz"))
+            lengths = [r.mel_length for r in ref] == [got[f"mel.{i}"].shape[0] for i in range(len(ref))]
+            wav = max(float(np.abs(got[f"wav.{i}"] - r.wav).max()) if got[f"wav.{i}"].shape == r.wav.shape
+                      else float("inf") for i, r in enumerate(ref))
+            mel = max(float(np.abs(got[f"mel.{i}"] - r.mel).mean()) if got[f"mel.{i}"].shape == r.mel.shape
+                      else float("inf") for i, r in enumerate(ref))
+            out[name] = dict(rows=len(ref), same_lengths=lengths, wav_max_abs_err=wav, mel_mae=mel,
+                             k1_launches=[rk[f"k1.{name}"] for rk in ranks])
+            print(f"[parallel] (c) {name}: {len(ref)} row(s) against one process: mel lengths equal {lengths}, wav "
+                  f"max abs err {wav:.3e} (bound {bounds[name]}), mel MAE {mel:.3e} (bound {PAR_MEL_MAE}); K1 "
+                  f"launches per rank {out[name]['k1_launches']}")
+            if not lengths or wav > bounds[name] or mel > PAR_MEL_MAE:
+                raise RuntimeError(f"[parallel] (c) {name} disagrees with one process: {out[name]}")
+        print(f"[parallel] (d) TP-2 state (parameters, Adam moments, step) through DCP and back, on every rank: "
+              f"equal to the bit {[rk['dcp_equal'] for rk in ranks]} (differ: {[rk['dcp_differ'] for rk in ranks]})")
+        if not all(rk["dcp_equal"] for rk in ranks):
+            raise RuntimeError("[parallel] (d) the restored TP-2 state differs from the saved one")
+        k2_ranks = [rk["k2"] for rk in ranks]
+        if k2_ranks != [6, 6]:
+            raise RuntimeError(f"[parallel] (b) K2 launches per rank {k2_ranks}, expected one per step (six)")
+        for name, ref in (("ddp", "transformer"), ("tp", "transformer"), ("conformer", "conformer")):
+            out[name].update(step_ms=[rk[f"{name}.step_ms"] for rk in ranks], one_process_ms=refs[ref]["step_ms"],
+                             collectives=ranks[0][f"{name}.collectives"], ddp_buckets=ranks[0][f"{name}.ddp_buckets"])
+            print(f"[parallel] (b) {name}: a second step {out[name]['step_ms'][0]:.1f} / {out[name]['step_ms'][1]:.1f} "
+                  f"ms on ranks 0 / 1 (both on one card over gloo) against {refs[ref]['step_ms']:.1f} ms in one "
+                  f"process; the port's collectives a step {out[name]['collectives']}, DDP's gradient buckets (bytes) "
+                  f"{out[name]['ddp_buckets']}")
+    out.update(k2_launches=k2_a + sum(k2_ranks),
+               k1_launches=sum(rk["k1.tp_headline"] + rk["k1.dp_rows"] for rk in ranks),
+               k1_bf16_launches=sum(rk["k1.dp_bf16"] for rk in ranks))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU", file=sys.stderr)
@@ -2640,14 +2984,17 @@ def main() -> int:
     conformer = timed("conformer", phase_conformer, mas, mrf, matcha, training["step"])
     scratch = timed("scratch", phase_scratch, mas)
     swept = timed("sweep", phase_sweep, mas)
+    parallel = timed("parallel", phase_parallel, mas, mrf)
     # K1 on the main paths: the synthesis requests, the engine's and the webapp's batches, the apps' turns, demos
     # and agent turn, the trained checkpoint,
     # the vocoder proof's two renders, the fine-tuned generator served, the exported bundle's program runs, the
     # live dispatch under sync debug, and the conformer model's requests, its trained checkpoint and bundle; K2:
     # the trainer's steps and get_durations, the conformer's training, the scratch proof and the sweep's trials
+    # and [parallel]'s requests on every rank; K2: [parallel]'s steps, in process and on every rank
     launches += serving["k1_launches"] + training["k1_launches"] + exported["k1_launches"] \
-        + exported["k1_launches_live"] + conformer["k1_launches"] + apps["k1_launches"]
-    k2_launches = training["launches"] + conformer["k2_launches"] + scratch["k2_launches"] + swept["k2_launches"]
+        + exported["k1_launches_live"] + conformer["k1_launches"] + apps["k1_launches"] + parallel["k1_launches"]
+    k2_launches = training["launches"] + conformer["k2_launches"] + scratch["k2_launches"] + swept["k2_launches"] \
+        + parallel["k2_launches"]
 
     stage_rows = rows[:len(STAGE_SHAPES)]
     window_rows = rows[-len(WINDOW_SHAPES):]
@@ -2682,7 +3029,7 @@ def main() -> int:
         "route": "cuda",
         "source": "emojivoice_tpu_torch/csrc/mrf_bf16.cu",
         "replaces": "emojivoice_tpu/ops/pallas_mrf.py:192",
-        "launches": precision["k1_bf16_launches"] + conformer["k1_bf16_launches"],
+        "launches": precision["k1_bf16_launches"] + conformer["k1_bf16_launches"] + parallel["k1_bf16_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in bf16_rows),
         "ms": sum(r["ms"] for r in bf16_stage),
         "plain_ms": sum(r["plain_ms"] for r in bf16_stage),

@@ -15,10 +15,12 @@ Departures kept from the JAX package:
   pad-to-multiple-of-4 (fix_len_compatibility) is subsumed because buckets
   are multiples of 4;
 * batches are plain numpy dicts;
-* a background prefetch thread replaces torch DataLoader workers.
-
-Left out for now: the multi-process row split (``process_shard``) and the
-header-only length scan that serves it.
+* a background prefetch thread replaces torch DataLoader workers;
+* ``process_shard=(data rank, data ranks)``: every rank walks the same
+  global batch order and bucket choices (a header-only length scan,
+  ``item_lengths``) but loads only its own rows of each batch, padded to an
+  equal count with zero-weight rows (``row_mask``).  The ranks of one
+  tensor-parallel group share a data rank and load the same rows.
 """
 
 from __future__ import annotations
@@ -79,10 +81,38 @@ class TextMelDataset:
         return len(self.items)
 
     def _encode_text(self, text: str):
+        """Single source of truth for the text path — item_lengths must
+        agree with __getitem__ exactly (multi-process shape agreement)."""
         ids, cleaned = text_to_sequence(text, self.cfg.cleaners)
         if self.cfg.add_blank:
             ids = intersperse(ids, 0)
         return ids, cleaned
+
+    def item_lengths(self, idx: int) -> tuple[int, int]:
+        """(text_ids_len, mel_frames) WITHOUT decoding audio — used by the
+        batcher's multi-process mode to agree on bucket shapes globally
+        (every process must compile the same program for batch collectives
+        to line up).  Text length comes from the cleaner alone; mel frames
+        from the WAV header sample count and the exact STFT frame
+        arithmetic of audio_np.mel_spectrogram_np.  Falls back to a full
+        __getitem__ for non-native sample rates (resampler length is the
+        resampler's business) or unparseable headers.  Pinned equal to
+        __getitem__ in tests/test_dcn.py."""
+        path, _, text = self.items[idx]
+        x_len = len(self._encode_text(text)[0])
+        a = self.cfg.audio
+        try:
+            from emojivoice_tpu_torch.data.audio_np import wav_info
+
+            n, sr = wav_info(path)
+        except Exception:  # noqa: BLE001 — odd container: decode instead
+            sr = None
+        if sr != a.sample_rate:
+            it = self[idx]
+            return len(it["x"]), it["y"].shape[0]
+        pad = (a.n_fft - a.hop_length) // 2
+        mel_len = 1 + (n + 2 * pad - a.n_fft) // a.hop_length
+        return x_len, mel_len
 
     def __getitem__(self, idx: int) -> dict:
         if self._cache is not None and idx in self._cache:
@@ -124,6 +154,7 @@ class BucketBatcher:
         shuffle: bool = True,
         seed: int = 1234,
         drop_last: bool = False,
+        process_shard: Optional[tuple] = None,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -140,6 +171,20 @@ class BucketBatcher:
         # training loop's data-order resume (a naive resume would replay the
         # epoch's already-seen batches)
         self.skip_next = 0
+        # multi-process (DCN) mode: (process_id, process_count).  Every
+        # process walks the SAME global batch order and bucket choices
+        # (identical seed + a one-time length scan), but materializes only
+        # its own row slice of each batch — the data-parallel IO split with
+        # globally agreed XLA program shapes.
+        self.process_shard = process_shard
+        self._lengths = None
+        if process_shard is not None:
+            pid, pcount = process_shard
+            if not (0 <= pid < pcount):
+                raise ValueError(f"bad process_shard {process_shard}")
+            if batch_size % pcount:
+                raise ValueError(f"batch_size {batch_size} must divide by process count {pcount}")
+            self._lengths = [dataset.item_lengths(j) for j in range(len(dataset))]
 
     def __iter__(self) -> Iterator[dict]:
         order = list(range(len(self.dataset)))
@@ -151,15 +196,45 @@ class BucketBatcher:
             idxs = order[i : i + self.batch_size]
             if self.drop_last and len(idxs) < self.batch_size:
                 continue
-            yield self.collate([self.dataset[j] for j in idxs])
+            if self.process_shard is None:
+                yield self.collate([self.dataset[j] for j in idxs])
+            else:
+                yield self._collate_process_shard(idxs)
 
-    def collate(self, items: List[dict]) -> dict:
-        b = len(items)
-        tb = pick_bucket(max(len(it["x"]) for it in items), self.text_buckets)
-        max_mel = max(it["y"].shape[0] for it in items)
+    def _collate_process_shard(self, idxs: List[int]) -> dict:
+        """One global batch, this process's rows only.
+
+        Buckets come from the GLOBAL rows (via the length cache) so every
+        process compiles identical shapes; the local slice is padded to
+        exactly batch_size/process_count rows with zero-weight repeats
+        ("row_mask"), so per-process shapes agree even on the uneven final
+        batch and no data is dropped anywhere.
+        """
+        pid, pcount = self.process_shard
+        tb = pick_bucket(max(self._lengths[j][0] for j in idxs), self.text_buckets)
+        max_mel = max(self._lengths[j][1] for j in idxs)
         if self.min_mel_bucket is not None:
             max_mel = max(max_mel, self.min_mel_bucket)
         mb = pick_bucket(max_mel, self.mel_buckets)
+
+        local = idxs[pid::pcount]
+        b_local = self.batch_size // pcount
+        n_real = len(local)
+        local = (local + [local[-1] if local else idxs[0]] * b_local)[:b_local]
+        batch = self.collate([self.dataset[j] for j in local], t_bucket=tb, m_bucket=mb)
+        row_mask = np.zeros((b_local,), np.float32)
+        row_mask[:n_real] = 1.0
+        batch["row_mask"] = row_mask
+        return batch
+
+    def collate(self, items: List[dict], t_bucket: Optional[int] = None,
+                m_bucket: Optional[int] = None) -> dict:
+        b = len(items)
+        tb = t_bucket or pick_bucket(max(len(it["x"]) for it in items), self.text_buckets)
+        max_mel = max(it["y"].shape[0] for it in items)
+        if self.min_mel_bucket is not None:
+            max_mel = max(max_mel, self.min_mel_bucket)
+        mb = m_bucket or pick_bucket(max_mel, self.mel_buckets)
 
         x = np.zeros((b, tb), np.int32)
         x_lengths = np.zeros((b,), np.int32)

@@ -43,6 +43,18 @@ this batch's copies only: work enqueued later, by this thread or another,
 does not delay it.  Each call records when every stage ended (CUDA events
 on the card, the host clock on the CPU) and reports per-stage milliseconds
 beside the reference RTF formulas.
+
+**Over a mesh** (``mesh=``, a ``parallel/mesh.py`` mesh over ranks that each
+build the same pipeline and make the same calls): the acoustic model and the
+vocoder are laid out by ``parallel/tp.py``'s rules on the model axis (the
+vocoder's slices are gathered once for K1, ``vocoder/hifigan.py``), and a
+batch that divides the data axis is split by rows: each rank encodes,
+decodes, vocodes (K1 on its rows) and denoises its own rows, the mel bucket
+is the global batch's (the ranks' longest predicted lengths are reduced to
+one), each row's noise is what the one-device call draws for it, and the
+outputs are all-gathered, so every rank returns the whole result.  A batch
+that does not divide the data axis runs replicated on every rank, as the JAX
+pipeline runs it; the model axis still splits its products.
 """
 
 from __future__ import annotations
@@ -59,6 +71,8 @@ import torch
 from emojivoice_tpu_torch import config as cfglib
 from emojivoice_tpu_torch import text as textlib
 from emojivoice_tpu_torch.models.matcha import MatchaTTS
+from emojivoice_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, collectives, gather_rows, rows
+from emojivoice_tpu_torch.parallel.tp import shard_params
 from emojivoice_tpu_torch.utils.buckets import default_mel_buckets, default_text_buckets, pick_bucket
 from emojivoice_tpu_torch.utils.masks import fix_len_compatibility, intersperse
 from emojivoice_tpu_torch.utils.prng import synthesis_noise
@@ -123,9 +137,11 @@ class SynthesisPipeline:
                  vocoder_cfg: Optional[cfglib.HiFiGANConfig] = None, vocoder: Optional[HiFiGANGenerator] = None,
                  text_buckets: Sequence[int] = None, mel_buckets: Sequence[int] = None,
                  cleaners: Sequence[str] = ("english_cleaners2",), device="cuda", denoiser_mode: str = "zeros",
-                 compute_dtype: torch.dtype = torch.float32, vocoder_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32, vocoder_dtype: torch.dtype = torch.float32,
+                 mesh: Optional[Mesh] = None):
         """`denoiser_mode` "zeros" or "normal" picks the denoiser's bias probe;
-        `compute_dtype` and `vocoder_dtype` are f32 or bf16 (module docstring)."""
+        `compute_dtype` and `vocoder_dtype` are f32 or bf16; `mesh` serves
+        over ranks (module docstring; `device` is then this rank's)."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError('SynthesisPipeline: no CUDA device is available (pass device="cpu" to synthesise '
@@ -136,7 +152,10 @@ class SynthesisPipeline:
             if dtype not in (torch.float32, torch.bfloat16):
                 raise ValueError(f"SynthesisPipeline: {name}={dtype}; expected torch.float32 or torch.bfloat16")
         self.model_cfg = model_cfg
+        self.mesh = mesh
         self.model = model.to(self.device).eval()
+        if mesh is not None:
+            shard_params(self.model, mesh)
         self.compute_dtype, self.vocoder_dtype = compute_dtype, vocoder_dtype
         # the acoustic model in the compute dtype: a copy made once, or the model itself.  The time MLP computes
         # in f32 on the rounded weights, as JAX's f32 input promotes them, so it holds them as f32 and casts nothing
@@ -148,6 +167,8 @@ class SynthesisPipeline:
         self.vocode_dtype = torch.bfloat16 if torch.bfloat16 in (compute_dtype, vocoder_dtype) else torch.float32
         self.vocoder_cfg = vocoder_cfg
         self.vocoder = vocoder.to(self.device).eval() if vocoder is not None else None
+        if mesh is not None and self.vocoder is not None:
+            shard_params(self.vocoder, mesh)
         self.text_buckets = tuple(text_buckets or default_text_buckets())
         self.mel_buckets = tuple(mel_buckets or default_mel_buckets())
         self.cleaners = tuple(cleaners)
@@ -237,7 +258,11 @@ class SynthesisPipeline:
 
         mgr = CheckpointManager(ckpt_dir)
         root_cfg = mgr.load_config()
-        restored = mgr.restore(step)
+        step = step if step is not None else mgr.latest_step()
+        # a sharded step (a parallel run's) is read whole into a one-device model's state dict
+        template = {"model": MatchaTTS(root_cfg.model).state_dict()} if step is not None and mgr.is_sharded(step) \
+            else None
+        restored = mgr.restore(step, template=template)
         matcha_sd = restored["model"] if "model" in restored else restored
         return cls._with_vocoder(root_cfg.model, matcha_sd, root_cfg.vocoder, vocoder_ckpt, "from_checkpoint", **kw)
 
@@ -327,18 +352,26 @@ class SynthesisPipeline:
         finalizes batch N (the serving engine, long-form) overlaps N's copies
         and its own host work with N+1's decode and vocoding, but not N's
         compute with N+1's: "async" is one encoder deep.  A fused call waits
-        nowhere."""
+        nowhere.  Over a mesh the host read is a reduction over the data
+        axis as well (module docstring)."""
         if vocode and self.vocoder is None:
             raise ValueError("this pipeline has no vocoder: it serves mels only (pass vocode=False)")
         t0 = time.perf_counter()
         x_np, xl_np, cleaned, _ = self.encode_texts(texts, language)
         b = x_np.shape[0]
         if seed is None:
+            if self.mesh is not None:
+                raise ValueError("over a mesh every rank must draw the same noise: pass a seed")
             seed = int(np.random.randint(0, 2**31))
         clock = StageClock(self.device)
-        x = upload(torch.from_numpy(x_np), self.device)
-        x_lengths = upload(torch.from_numpy(xl_np), self.device)
+        # over a mesh whose data axis divides the batch, this rank's rows; all of them otherwise
+        group = self.mesh.group(DATA_AXIS) if self.mesh is not None and b % self.mesh.size(DATA_AXIS) == 0 \
+            and self.mesh.size(DATA_AXIS) > 1 else None
+        mine = rows(self.mesh if group is not None else None, b)
+        x = upload(torch.from_numpy(x_np[mine]), self.device)
+        x_lengths = upload(torch.from_numpy(xl_np[mine]), self.device)
         spk = self._speakers(spks, b)
+        spk = spk[mine] if spk is not None else None
 
         # fused, the encoder runs in the compute dtype; two-stage, stage A stays f32 (the JAX stage A casts nothing)
         enc = (self.compute_model if fused else self.model).encode_text(x, x_lengths, spk, length_scale)
@@ -347,13 +380,17 @@ class SynthesisPipeline:
             m_bucket = fused_mel_bucket or self.mel_buckets[-1]
         else:
             # the host sync: the predicted mel length picks the mel bucket
-            y_len_max = int(enc[2].max().item())
+            y_len_max = enc[2].max()
+            if group is not None:
+                collectives["all_reduce"] += 1
+                torch.distributed.all_reduce(y_len_max, op=torch.distributed.ReduceOp.MAX, group=group)
+            y_len_max = int(y_len_max.item())
             m_bucket = pick_bucket(fix_len_compatibility(y_len_max), self.mel_buckets)
             if self.compute_dtype != torch.float32:  # stage B's inputs in the compute dtype, as the JAX stage B casts
                 mu_x, w_ceil, y_lengths, x_mask, spk_e = enc
                 dt = self.compute_dtype
                 enc = (mu_x.to(dt), w_ceil, y_lengths, x_mask.to(dt), spk_e.to(dt) if spk_e is not None else None)
-        z = synthesis_noise(seed, b, m_bucket, self.model_cfg.n_feats, temperature, self.device)  # f32
+        z = synthesis_noise(seed, b, m_bucket, self.model_cfg.n_feats, temperature, self.device)[mine]  # f32
         dec = self.compute_model.decode_mel(*enc, m_bucket, n_timesteps, z)
         clock.mark("decoder")
 
@@ -363,6 +400,7 @@ class SynthesisPipeline:
         if vocode:
             out["wav"] = self._vocode_denoise_pcm(dec["mel"], denoiser_strength > 0, denoiser_strength, pcm16,
                                                   clock)
+        out = {k: gather_rows(v, group) for k, v in out.items()}
         out, done = to_host_async(out)
         return PendingSynthesis(out=out, cleaned=cleaned, b=b, t0=t0, clock=clock, done=done)
 

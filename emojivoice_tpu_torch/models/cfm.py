@@ -9,6 +9,7 @@ import torch.nn as nn
 
 from emojivoice_tpu_torch.config import CFMConfig, DecoderConfig
 from emojivoice_tpu_torch.models.decoder import Decoder
+from emojivoice_tpu_torch.parallel.mesh import global_ratio
 
 
 class CFM(nn.Module):
@@ -31,7 +32,8 @@ class CFM(nn.Module):
             x = x + dt * self.estimator(x, mask, mu, t, spks)
         return x
 
-    def compute_loss(self, x1, mask, mu, spks=None, *, t: torch.Tensor, z: torch.Tensor, row_mask=None):
+    def compute_loss(self, x1, mask, mu, spks=None, *, t: torch.Tensor, z: torch.Tensor, row_mask=None,
+                     data_group=None):
         """CFM training loss → (loss, y) with y the noisy interpolant.
 
         x1: target mel (B, T, n_feats); mask (B, T, 1); t (B, 1, 1) uniform
@@ -39,7 +41,8 @@ class CFM(nn.Module):
         (``utils/prng.py``) or injected by a test, then cast to x1's dtype
         (bf16 under mixed precision) as the JAX package casts its f32 draws.
         row_mask (B,) weights whole rows (0 = a padding row that adds nothing
-        to value or gradient); None is the reference behaviour.
+        to value or gradient); None is the reference behaviour.  Over a
+        `data_group` the loss is the global batch's (``models/matcha.py``).
 
         Reference quirk kept: the squared error is summed over all positions.
         The estimator's output is masked but the target u is not, so padded
@@ -54,8 +57,8 @@ class CFM(nn.Module):
         sq = torch.square(pred.float() - u.float())
         mask32 = mask.float()
         if row_mask is None:
-            loss = sq.sum() / (mask32.sum() * u.shape[-1])
+            loss = global_ratio(sq.sum(), mask32.sum() * u.shape[-1], data_group)
         else:
             w = row_mask.float()[:, None, None]
-            loss = (sq * w).sum() / ((mask32 * w).sum() * u.shape[-1])
+            loss = global_ratio((sq * w).sum(), (mask32 * w).sum() * u.shape[-1], data_group)
         return loss, y

@@ -35,8 +35,11 @@ reference-format state dict loads with ``strict=True``.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
+
+from emojivoice_tpu_torch.parallel.mesh import sum_over
 
 
 class BatchNorm(nn.BatchNorm1d):
@@ -44,14 +47,26 @@ class BatchNorm(nn.BatchNorm1d):
     ``num_batches_tracked`` loads), with the JAX package's arithmetic written
     out on (B, C, T): statistics over (B, T), each step in the input's dtype,
     as ``TorchBatchNorm`` computes it under bf16; the running statistics are
-    read, and updated, in that dtype too and stored back in their own."""
+    read, and updated, in that dtype too and stored back in their own.
+
+    Over a data-parallel group (``sync_group``, set by ``training/state.py``)
+    the statistics are the global batch's, as under JAX's sharded batch: the
+    sums are all-reduced, differentiably, so that output and running
+    statistics equal the one-device ones on every rank."""
+
+    sync_group = None
 
     def forward(self, x):
         if self.training:
-            mean = x.mean(dim=(0, 2))
-            var = torch.square(x - mean[:, None]).mean(dim=(0, 2))
+            n = x.numel() / x.shape[1]
+            if self.sync_group is None:
+                mean = x.mean(dim=(0, 2))
+                var = torch.square(x - mean[:, None]).mean(dim=(0, 2))
+            else:
+                n = n * dist.get_world_size(self.sync_group)
+                mean = sum_over(x.sum(dim=(0, 2)), self.sync_group) / n
+                var = sum_over(torch.square(x - mean[:, None]).sum(dim=(0, 2)), self.sync_group) / n
             with torch.no_grad():
-                n = x.numel() / x.shape[1]
                 unbiased = var.detach() * (n / max(n - 1.0, 1.0))
                 m = self.momentum
                 self.running_mean.copy_((1.0 - m) * self.running_mean.to(x.dtype) + m * mean.detach())

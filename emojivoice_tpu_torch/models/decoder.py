@@ -105,8 +105,8 @@ class Attention(nn.Module):
     def forward(self, x, mask_bt):
         b, t, _ = x.shape
 
-        def split(z):
-            return z.view(b, t, self.heads, self.head_dim).transpose(1, 2)
+        def split(z):  # this rank's heads under tensor parallelism
+            return z.view(b, t, -1, self.head_dim).transpose(1, 2)
 
         q, k, v = split(self.to_q(x)), split(self.to_k(x)), split(self.to_v(x))
         scores = torch.matmul(q, k.transpose(-2, -1)) / math.sqrt(self.head_dim)
@@ -165,6 +165,8 @@ class TimestepEmbedding(nn.Module):
         so there ``.to`` is a no-op; only ``bf16-mixed`` training, which hands
         every parameter over in bf16, casts here."""
         def linear(layer, t):
+            if not isinstance(layer, nn.Linear):  # a tensor-parallel slice (parallel/tp.py), which casts alike
+                return layer(t)
             return F.linear(t, layer.weight.to(t.dtype), layer.bias.to(t.dtype))
         return linear(self.linear_2, F.silu(linear(self.linear_1, sample)))
 

@@ -20,6 +20,14 @@ MAS runs under ``torch.no_grad()`` on the detached log-prior (K2 on the
 card); the CFM draws ``t``/``z`` and the crop offsets come from the caller
 (``utils/prng.py`` or a test), so the model itself holds no random state
 apart from dropout.
+
+Over a data-parallel group (``data_group``, set by ``training/state.py``)
+the three losses are ratios over the global batch: each rank holds a share
+of every sum, the denominators are summed over the group and each ratio is
+scaled by the group's size (``parallel/mesh.py::global_ratio``), so that
+DDP's mean of the ranks' gradients is the global loss's gradient; the mean
+of the ranks' values is the global loss.  Without a group the losses are
+the one-device ones.
 """
 
 from __future__ import annotations
@@ -34,10 +42,13 @@ from emojivoice_tpu_torch.config import ModelConfig
 from emojivoice_tpu_torch.models.cfm import CFM
 from emojivoice_tpu_torch.models.text_encoder import TextEncoder
 from emojivoice_tpu_torch.ops.mas import maximum_path
+from emojivoice_tpu_torch.parallel.mesh import global_ratio
 from emojivoice_tpu_torch.utils.masks import generate_path, sequence_mask
 
 
 class MatchaTTS(nn.Module):
+    data_group = None  # the data-parallel process group the losses are taken over (module docstring)
+
     def __init__(self, cfg: ModelConfig, strict_mask: bool = False):
         """`strict_mask`: −1e9, not the reference's −1 bias, on padded keys in
         the decoder's transformer blocks (``models/decoder.py``)."""
@@ -118,11 +129,12 @@ class MatchaTTS(nn.Module):
         # loss math in f32: bf16 duration counts round above 256
         logw_ = torch.log(1e-8 + attn.float().sum(-1))[..., None] * x_mask
         dur_se = torch.square(logw.float() - logw_)
+        group = self.data_group
         if row_mask is None:
-            dur_loss = dur_se.sum() / x_lengths.sum()
+            dur_loss = global_ratio(dur_se.sum(), x_lengths.sum(), group)
         else:
             rw = row_mask.float()
-            dur_loss = (dur_se * rw[:, None, None]).sum() / (rw * x_lengths).sum()
+            dur_loss = global_ratio((dur_se * rw[:, None, None]).sum(), (rw * x_lengths).sum(), group)
 
         if out_size is not None and out_size < y.shape[1]:
             if crop_offsets is None:
@@ -131,16 +143,17 @@ class MatchaTTS(nn.Module):
 
         dtype = y.dtype  # the decoder computes in the batch's dtype (bf16 under mixed precision)
         mu_y = torch.einsum("bxy,bxc->byc", attn.to(dtype), mu_x.to(dtype))
-        diff_loss, _ = self.decoder.compute_loss(y, y_mask.to(dtype), mu_y, spk_e, t=t, z=z, row_mask=row_mask)
+        diff_loss, _ = self.decoder.compute_loss(y, y_mask.to(dtype), mu_y, spk_e, t=t, z=z, row_mask=row_mask,
+                                                 data_group=group)
 
         if cfg.prior_loss:
             y, mu_y, y_mask = y.float(), mu_y.float(), y_mask.float()
             prior_se = 0.5 * (torch.square(y - mu_y) + math.log(2 * math.pi)) * y_mask
             if row_mask is None:
-                prior_loss = prior_se.sum() / (y_mask.sum() * cfg.n_feats)
+                prior_loss = global_ratio(prior_se.sum(), y_mask.sum() * cfg.n_feats, group)
             else:
                 rw3 = row_mask.float()[:, None, None]
-                prior_loss = (prior_se * rw3).sum() / ((y_mask * rw3).sum() * cfg.n_feats)
+                prior_loss = global_ratio((prior_se * rw3).sum(), (y_mask * rw3).sum() * cfg.n_feats, group)
         else:
             prior_loss = torch.zeros((), device=y.device)
         return dur_loss, prior_loss, diff_loss, attn

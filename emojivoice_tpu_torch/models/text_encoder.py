@@ -79,17 +79,17 @@ class MultiHeadAttention(nn.Module):
         self.conv_o = nn.Conv1d(channels, channels, 1)
 
     def forward(self, x, attn_mask):
-        b, c, t = x.shape
-        h, kc = self.n_heads, self.k_channels
+        b, _, t = x.shape
+        kc = self.k_channels
 
-        def split(z):  # (B, C, T) → (B, H, T, kc)
-            return z.view(b, h, kc, t).transpose(2, 3)
+        def split(z):  # (B, C, T) → (B, H, T, kc); H is this rank's heads under tensor parallelism
+            return z.view(b, -1, kc, t).transpose(2, 3)
 
         q, k, v = split(self.conv_q(x)), split(self.conv_k(x)), split(self.conv_v(x))
         q, k = apply_rope(q, self.rope_dim), apply_rope(k, self.rope_dim)
         scores = torch.matmul(q, k.transpose(-2, -1)) / math.sqrt(kc)
         p_attn = self.drop(torch.softmax(masked_fill(scores, attn_mask), dim=-1))
-        out = torch.matmul(p_attn, v).transpose(2, 3).reshape(b, c, t)
+        out = torch.matmul(p_attn, v).transpose(2, 3).reshape(b, -1, t)
         return self.conv_o(out)
 
 

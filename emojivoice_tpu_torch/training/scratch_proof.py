@@ -24,8 +24,9 @@
 
 It runs on the card unless ``--device cpu`` is given.  ``summary.json`` has
 the JAX tool's keys; ``"backend"`` holds the card's name (``"cpu"`` on the
-CPU).  Not ported: ``--num_devices`` (one device until the port has
-parallelism; ``"devices"`` is 1), and the compilation-cache and
+CPU).  ``--num_devices N`` trains over N local ranks (the trainer's flag;
+0, the default, is one device without a process group; ``"devices"`` in
+the summary counts them).  Not ported: the compilation-cache and
 ``--wire_f16`` switches, which served the TPU alone.
 """
 
@@ -47,7 +48,8 @@ def run_scratch_proof(preset: str, out_dir: str, steps: int = 600, batch_size: i
                       seed: int = 0, utts: int = 20, n_speakers: int = 3, out_size: int | None = None,
                       lr: float = 1e-3, log_every: int = 10, scheduler: str | None = None, warmup_steps: int = 0,
                       lr_end: float = 0.0, length_budget: float = 0.35, assert_emergence: bool = True,
-                      assert_free_synth: bool = True, long_texts: bool = False, device="cuda") -> dict:
+                      assert_free_synth: bool = True, long_texts: bool = False, device="cuda",
+                      num_devices: int = 0) -> dict:
     """Train from random init on the alignable corpus and check emergence.
 
     length_budget: |predicted − true| / true total-duration tolerance of the
@@ -90,6 +92,7 @@ def run_scratch_proof(preset: str, out_dir: str, steps: int = 600, batch_size: i
         "--ckpt_every_steps", "0",
         "--render_val_samples", "0",
         "--seed", str(seed),
+        "--num_devices", str(num_devices),
         "--cache_data",
     ] + (["--out_size", str(out_size)] if out_size else [])
       + (["--scheduler", scheduler, "--decay_steps", str(max(1, steps - warmup_steps)),
@@ -150,7 +153,7 @@ def run_scratch_proof(preset: str, out_dir: str, steps: int = 600, batch_size: i
     dev = torch.device(device)
     summary = {
         "preset": preset, "steps": steps, "batch_size": batch_size,
-        "devices": 1, "lr": lr, "seed": seed, "utts": utts,
+        "devices": max(1, num_devices), "lr": lr, "seed": seed, "utts": utts,
         "speakers": list(speakers), "from_scratch": True,
         "long_texts": long_texts,
         "corpus": corpus_stats,
@@ -221,6 +224,7 @@ def main(argv=None) -> int:
     p.add_argument("--lr_end", type=float, default=0.0)
     p.add_argument("--log_every", type=int, default=10)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--num_devices", type=int, default=0, help="local ranks (the trainer's flag; 0 = one device)")
     p.add_argument("--length_budget", type=float, default=0.35)
     p.add_argument("--long_texts", action="store_true",
                    help="wide-length corpus (1-4 joined phrases, several mel buckets)")
@@ -233,7 +237,7 @@ def main(argv=None) -> int:
             seed=args.seed, utts=args.utts, n_speakers=args.n_speakers, out_size=args.out_size, lr=args.lr,
             log_every=args.log_every, scheduler=args.scheduler, warmup_steps=args.warmup_steps, lr_end=args.lr_end,
             length_budget=args.length_budget, long_texts=args.long_texts, assert_emergence=not args.no_assert,
-            device=args.device)
+            device=args.device, num_devices=args.num_devices)
     finally:  # a run that misses a budget keeps its evidence too
         if args.artifact_dir:
             art = Path(args.artifact_dir)

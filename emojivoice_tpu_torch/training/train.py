@@ -35,8 +35,36 @@ run, built on the live model (no copy of the weights), in eval mode and
 without gradients, train mode restored after, so a render moves no BatchNorm
 statistic of a conformer decoder.
 
-Flags keep the JAX trainer's names.  Not ported yet: ``--tp``,
-``--num_devices`` and ``--dcn_*`` (parallelism).
+Parallelism keeps the JAX trainer's flags and checks, one process per
+device (a rank; ``parallel/``):
+
+* ``--num_devices N`` starts N local ranks (0, the default, trains on one
+  device without a process group; 1 is a process group of one rank, DDP
+  included).  Each rank loads every global batch, pads it to a multiple of
+  the data axis with zero-weight rows and takes its own rows, as the JAX
+  trainer pads and shards one process's batch.  NCCL on the card, one card a
+  rank (more ranks than cards is refused by count), gloo with ``--device
+  cpu``.
+* ``--dcn_coordinator host:port --dcn_num_processes P --dcn_process_id i``:
+  one rank per process, ``init_process_group(tcp://host:port, P, i)``; each
+  process loads only its data rank's rows (``BucketBatcher(process_shard=)``),
+  so the data axis must divide ``--batch_size``.
+* ``--tp T`` makes the mesh 2-D, (ranks / T data, T model), and lays out the
+  parameters and Adam's moments by ``parallel/tp.py``'s rules; T must divide
+  the rank count.  The JAX trainer refuses ``--tp`` with ``--dcn_*`` for want
+  of a sharded checkpoint across hosts; here every rank saves its slices
+  through ``torch.distributed.checkpoint`` (``io/checkpoint.py``), so the
+  two combine.
+
+Over more than one rank, metrics, tensorboard, the data-state sidecars and
+the config come from rank 0 only (the others write nothing, as JAX's
+``_NullTB``); checkpoints are sharded ``step_<n>.dcp`` directories written by
+every rank, and ``--resume`` loads each rank's slices straight back.  The
+probe and the validation renders run on every rank (a tensor-parallel model
+needs its whole model group) on the same inputs, and rank 0 logs them;
+``--probe_every`` is refused under ``--dcn_*``, as the JAX trainer refuses it
+with more than one process.  At one rank the
+one-file checkpoint stays, and ``--resume`` restores it bit for bit.
 """
 
 from __future__ import annotations
@@ -79,6 +107,16 @@ def build_parser():
     p.add_argument("--out_size", type=int, default=None, help="Grad-TTS segment crop (multiple of 4)")
     p.add_argument("--from_torch_ckpt", default=None, help="fine-tune from a reference-format .ckpt")
     p.add_argument("--resume", action="store_true", help="resume from the latest checkpoint in out_dir")
+    p.add_argument("--num_devices", type=int, default=0,
+                   help="local ranks, one device each (0 = one device, no process group)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="model-axis degree of a 2-D (data, model) mesh; parameters + Adam state split per "
+                        "parallel/tp.py rules (1 = pure data parallel)")
+    # multi-host data parallelism: run the same command on every host with its own --dcn_process_id
+    p.add_argument("--dcn_coordinator", default=None,
+                   help="host:port of process 0; one rank per process over torch.distributed")
+    p.add_argument("--dcn_num_processes", type=int, default=1)
+    p.add_argument("--dcn_process_id", type=int, default=0)
     p.add_argument("--ckpt_every_steps", type=int, default=1000)
     p.add_argument("--val_every_steps", type=int, default=500)
     p.add_argument("--log_every", type=int, default=10)
@@ -103,33 +141,79 @@ def build_parser():
 
 
 def main(argv=None) -> int:
-    """Run the loop; on any failure write the traceback to
-    out_dir/exception.log and re-raise."""
-    from emojivoice_tpu_torch.utils.observability import make_logger
+    """Run the loop, on one device or over ranks (the module docstring); on
+    any failure write the traceback to out_dir/exception.log (a rank r > 0:
+    exception.rank<r>.log) and re-raise."""
+    from emojivoice_tpu_torch.parallel.mesh import free_port, spawn
 
     args = build_parser().parse_args(argv)
+    world = args.dcn_num_processes if args.dcn_coordinator else max(1, args.num_devices)
+    if world % args.tp:
+        raise SystemExit(f"--tp {args.tp} must divide the device count {world}")
+    if args.dcn_coordinator:
+        if args.num_devices not in (0, args.dcn_num_processes):
+            raise SystemExit(f"--num_devices {args.num_devices} under --dcn_*: one rank a process, "
+                             f"{args.dcn_num_processes} in all")
+        return _rank_main(args.dcn_process_id, args, args.dcn_coordinator, args.dcn_num_processes)
+    if args.num_devices > 1:
+        if torch.device(args.device).type == "cuda" and args.num_devices > torch.cuda.device_count():
+            raise SystemExit(f"--num_devices {args.num_devices}: this host has {torch.cuda.device_count()} "
+                             f"card(s), one a rank")
+        spawn(_rank_main, args.num_devices, (args, f"localhost:{free_port()}", args.num_devices))
+        return 0
+    if args.num_devices == 1:
+        return _rank_main(0, args, f"localhost:{free_port()}", 1)
+    return _logged(args, None)
+
+
+def _rank_main(rank: int, args, coordinator: str, world: int) -> int:
+    """One rank: join the group, build the mesh, run the loop, leave."""
+    import torch.distributed as dist
+
+    from emojivoice_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+    from emojivoice_tpu_torch.parallel.tp import make_mesh_2d
+
+    device = initialize_distributed(coordinator, world, rank, device=args.device,
+                                    local_rank=0 if args.dcn_coordinator else rank)
+    if device.type == "cpu" and not args.dcn_coordinator:  # local ranks share the host's cores
+        torch.set_num_threads(max(1, torch.get_num_threads() // world))
+    try:
+        mesh = make_mesh_2d(world // args.tp, args.tp, device) if args.tp > 1 else make_mesh(world, device=device)
+        args.device = str(device)
+        return _logged(args, mesh)
+    finally:
+        dist.destroy_process_group()
+
+
+def _logged(args, mesh) -> int:
+    from emojivoice_tpu_torch.utils.observability import MultiLogger, make_logger
+
+    rank = 0 if mesh is None else torch.distributed.get_rank()
     tb = None
     try:
-        tb = make_logger(args.loggers, str(Path(args.out_dir) / "tb"))
-        return _run(args, tb)
+        # a rank other than 0 writes no metric files: a fan-out over no writers (JAX's _NullTB)
+        tb = make_logger(args.loggers, str(Path(args.out_dir) / "tb")) if rank == 0 else MultiLogger([])
+        return _run(args, tb, mesh)
     except Exception:
         out = Path(args.out_dir)
         out.mkdir(parents=True, exist_ok=True)
-        (out / "exception.log").write_text(traceback.format_exc())
-        print(f"[train] FAILED — traceback written to {out / 'exception.log'}", file=sys.stderr, flush=True)
+        log = out / ("exception.log" if rank == 0 else f"exception.rank{rank}.log")
+        log.write_text(traceback.format_exc())
+        print(f"[train] FAILED — traceback written to {log}", file=sys.stderr, flush=True)
         raise
     finally:
         if tb is not None:
             tb.close()  # the metric writers are closed however the run ends
 
 
-def _run(args, tb) -> int:
+def _run(args, tb, mesh) -> int:
     from emojivoice_tpu_torch import config as cfglib
     from emojivoice_tpu_torch.data.dataset import BucketBatcher, Prefetcher, TextMelDataset
     from emojivoice_tpu_torch.io.checkpoint import CheckpointManager
+    from emojivoice_tpu_torch.parallel.mesh import DATA_AXIS, pad_batch_to_multiple, shard_batch
     from emojivoice_tpu_torch.training.state import (_dtype_for, batch_to_device, create_train_state, eval_step,
                                                      train_step)
-    from emojivoice_tpu_torch.utils.observability import enable_nan_checks
+    from emojivoice_tpu_torch.utils.observability import enable_nan_checks, is_main_process
     from emojivoice_tpu_torch.utils.prng import step_generator
 
     device = torch.device(args.device)
@@ -137,6 +221,15 @@ def _run(args, tb) -> int:
         raise RuntimeError("--device cuda: no CUDA device is available (pass --device cpu to train on the CPU)")
     if args.detect_anomaly:
         enable_nan_checks(True)
+    world = 1 if mesh is None else torch.distributed.get_world_size()
+    is_main = is_main_process()
+    n_data = 1 if mesh is None else mesh.size(DATA_AXIS)
+    multi_process = args.dcn_coordinator is not None
+    if multi_process and args.batch_size % n_data:
+        raise SystemExit(f"--batch_size {args.batch_size} must divide by the global data-axis size {n_data} "
+                         f"under --dcn_*")
+    if args.probe_every > 0 and multi_process:
+        raise SystemExit("--probe_every is single-process only")
     if args.fast_dev_run:
         args.max_steps = 1
         args.val_every_steps = 1
@@ -180,24 +273,36 @@ def _run(args, tb) -> int:
                 raise ValueError(f"--from_torch_ckpt {args.from_torch_ckpt}: the checkpoint's {field}={have} does "
                                  f"not fit preset {args.preset!r}, whose data gives {want}")
         model_cfg = dataclasses.replace(loaded_cfg, out_size=args.out_size)
-        print(f"[train] fine-tuning from {args.from_torch_ckpt} (n_spks={model_cfg.n_spks})", flush=True)
+        if is_main:
+            print(f"[train] fine-tuning from {args.from_torch_ckpt} (n_spks={model_cfg.n_spks})", flush=True)
 
-    state = create_train_state(model_cfg, opt_cfg, seed=args.seed, device=device)
-    model = state.model
-    if loaded_sd is not None:
+    model = None
+    if loaded_sd is not None:  # loaded whole, before the mesh splits it
+        from emojivoice_tpu_torch.models.matcha import MatchaTTS
+
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(args.seed)
+            model = MatchaTTS(model_cfg)
         model.load_state_dict(loaded_sd, strict=True)
+    state = create_train_state(model_cfg, opt_cfg, seed=args.seed, device=device, model=model, mesh=mesh)
+    model = state.model
 
     def count(module):
         return sum(p.numel() for p in module.parameters())
 
-    print(f"[train] device={device} preset={args.preset} params total={count(model) / 1e6:.2f}M "
-          f"encoder={count(model.encoder) / 1e6:.2f}M decoder={count(model.decoder) / 1e6:.2f}M  "
-          f"lr={opt_cfg.lr} out_size={args.out_size} precision={precision}", flush=True)
+    if is_main:
+        print(f"[train] device={device} preset={args.preset} params total={count(model) / 1e6:.2f}M "
+              f"encoder={count(model.encoder) / 1e6:.2f}M decoder={count(model.decoder) / 1e6:.2f}M  "
+              f"lr={opt_cfg.lr} out_size={args.out_size} precision={precision}"
+              + ("" if mesh is None else f" ranks={world} mesh={mesh.shape}"), flush=True)
     ckpt_dir = Path(args.out_dir) / "ckpts"
-    mgr = CheckpointManager(str(ckpt_dir), max_to_keep=root.trainer.save_top_k)
+    mgr = CheckpointManager(str(ckpt_dir), max_to_keep=root.trainer.save_top_k, sharded=world > 1)
     resumed_data_state = None
     if args.resume and mgr.latest_step() is not None:
-        state.load_state_dict(mgr.restore(map_location=device))
+        if mgr.is_sharded(mgr.latest_step()):
+            state.load_sharded_state_dict(mgr.restore(template=state.sharded_state_dict()))
+        else:
+            state.load_state_dict(mgr.restore(map_location=device))
         # the shuffle position is only meaningful under the settings that
         # produced it: on any mismatch fall back to an epoch-0 restart
         ds_path = ckpt_dir / f"data_state_{state.step}.json"
@@ -209,20 +314,32 @@ def _run(args, tb) -> int:
             fp = {"batch_size": args.batch_size, "seed": args.seed}
             if cand is not None and all(cand.get(k, v) == v for k, v in fp.items()):
                 resumed_data_state = cand
-            elif cand is not None:
+            elif cand is not None and is_main:
                 print(f"[train] data_state ignored (saved {cand} vs current {fp})", flush=True)
-        print(f"[train] resumed at step {state.step}"
-              + (f" (data epoch {resumed_data_state['epoch']}, batch {resumed_data_state['batch']})"
-                 if resumed_data_state else ""), flush=True)
+        if is_main:
+            print(f"[train] resumed at step {state.step}"
+                  + (f" (data epoch {resumed_data_state['epoch']}, batch {resumed_data_state['batch']})"
+                     if resumed_data_state else ""), flush=True)
 
     train_ds = TextMelDataset(args.train_filelist, data_cfg, cache_items=args.cache_data)
     valid_ds = TextMelDataset(args.valid_filelist, data_cfg, cache_items=args.cache_data)
     min_mel = args.out_size if args.out_size else None
-    batcher = BucketBatcher(train_ds, args.batch_size, min_mel_bucket=min_mel, seed=args.seed)
+    # one rank a process (--dcn_*): every process walks the same global batches but loads only its data rank's
+    # rows; local ranks load the global batch and take their rows of it (to_rows)
+    shard = (mesh.rank(DATA_AXIS), n_data) if multi_process else None
+    batcher = BucketBatcher(train_ds, args.batch_size, min_mel_bucket=min_mel, seed=args.seed, process_shard=shard)
     if resumed_data_state is not None and args.overfit_batches == 0:
         batcher.epoch = int(resumed_data_state["epoch"])
         batcher.skip_next = int(resumed_data_state["batch"])
-    val_batcher = BucketBatcher(valid_ds, args.batch_size, min_mel_bucket=min_mel, shuffle=False, seed=args.seed)
+    val_batcher = BucketBatcher(valid_ds, args.batch_size, min_mel_bucket=min_mel, shuffle=False, seed=args.seed,
+                                process_shard=shard)
+
+    def to_rows(batch_np):
+        """A loaded batch → this rank's rows of it on the device."""
+        if mesh is not None and shard is None:
+            # an uneven final batch is padded with zero-weight rows so that it splits: no data dropped
+            batch_np = shard_batch(mesh, pad_batch_to_multiple(batch_np, n_data))
+        return batch_to_device(batch_np, device)
 
     metrics_path = Path(args.out_dir) / "metrics.jsonl"
     metrics_path.parent.mkdir(parents=True, exist_ok=True)
@@ -250,6 +367,8 @@ def _run(args, tb) -> int:
         tb.flush()
 
     def log_metrics(tag, step, m, extra=None):
+        if not is_main:  # the metrics are the global batch's, the same on every rank
+            return
         rec = {"tag": tag, "step": int(step), "time": dt.datetime.now().isoformat(),
                **{k: (None if v is None else float(v)) for k, v in m.items()}}
         if extra:
@@ -264,7 +383,7 @@ def _run(args, tb) -> int:
                   flush=True)
 
     def write_data_state(step):
-        if args.overfit_batches:
+        if args.overfit_batches or not is_main:
             return
         tmp = ckpt_dir / f".data_state_{step}.tmp"
         tmp.write_text(json.dumps({"epoch": data_epoch, "batch": data_batch,
@@ -280,7 +399,8 @@ def _run(args, tb) -> int:
                 p.unlink(missing_ok=True)
 
     def save(step):
-        mgr.save(step, state.state_dict(), cfg=dataclasses.replace(root, model=model_cfg))
+        saved = state.sharded_state_dict() if mgr.sharded else state.state_dict()
+        mgr.save(step, saved, cfg=dataclasses.replace(root, model=model_cfg))
         write_data_state(step)
 
     # --- convergence probe: a fixed train batch measured at a fixed cadence
@@ -311,11 +431,12 @@ def _run(args, tb) -> int:
         probe_state["prev_mas"] = mas
         row0 = mas[0, : int(probe_batch["x_lengths"][0])].astype(int).tolist()
         log_metrics("probe", step, m, extra={"mas_dur_row0": row0})
-        print(f"[train] probe step {step}  "
-              + "  ".join(f"{k}={v:.4f}" for k, v in m.items() if v is not None), flush=True)
+        if is_main:
+            print(f"[train] probe step {step}  "
+                  + "  ".join(f"{k}={v:.4f}" for k, v in m.items() if v is not None), flush=True)
 
     def run_eval(tag, eval_batcher, step):
-        ms = [eval_step(model, batch_to_device(vb, device), precision=precision) for vb in eval_batcher]
+        ms = [eval_step(model, to_rows(vb), precision=precision) for vb in eval_batcher]
         if not ms:
             return None
         avg = {k: float(np.mean([float(m[k]) for m in ms])) for k in ms[0]}  # one wait, after the sweep
@@ -359,7 +480,7 @@ def _run(args, tb) -> int:
         base = state.step
         shape_key = (int(batch_np["x"].shape[0]), int(batch_np["x"].shape[1]), int(batch_np["y"].shape[1]))
         seen_shapes.setdefault(shape_key, base)
-        m = train_step(state, batch_to_device(batch_np, device), args.seed, precision=precision)
+        m = train_step(state, to_rows(batch_np), args.seed, precision=precision)
         flush_log()  # the previous step's metrics
         pending_log = (state.step, m)
         step = state.step
@@ -410,11 +531,12 @@ def _run(args, tb) -> int:
     if args.test_filelist:
         test_ds = TextMelDataset(args.test_filelist, data_cfg)
         avg = run_eval("test", BucketBatcher(test_ds, args.batch_size, min_mel_bucket=min_mel, shuffle=False,
-                                             seed=args.seed), state.step)
-        if avg:
+                                             seed=args.seed, process_shard=shard), state.step)
+        if avg and is_main:
             print("[train] test  " + "  ".join(f"{k}={v:.4f}" for k, v in avg.items()), flush=True)
-    print(f"[train] finished at step {state.step} ({(dt.datetime.now() - t_start).total_seconds():.0f}s)",
-          flush=True)
+    if is_main:
+        print(f"[train] finished at step {state.step} ({(dt.datetime.now() - t_start).total_seconds():.0f}s)",
+              flush=True)
     return 0
 
 

@@ -1,5 +1,6 @@
 """HiFi-GAN vocoder (fine-)tuning (PyTorch port of
-``emojivoice_tpu.training.vocoder_train``), one device, f32.
+``emojivoice_tpu.training.vocoder_train``), f32, on one device or data
+parallel over ranks.
 
 The alternating GAN step of the upstream HiFi-GAN recipe: the discriminators
 (MPD + MSD, LSGAN) take their update on the generated waveform with the
@@ -13,9 +14,18 @@ Typical use: adapt a pretrained generator to the recordings of a new voice
 
 The generator trains through ``HiFiGANGenerator.forward_train`` (plain
 differentiable convs); the fused MRF kernel is the serving path's and has no
-backward, here as in the JAX package.  The JAX function's ``mesh=`` branch
-(batch sharded over devices) is not ported: it waits for the port's
-data-parallel slice.
+backward, here as in the JAX package.
+
+Data parallel (``create_vocoder_state(mesh=)``, the JAX ``mesh=`` branch:
+parameters replicated, the batch split over the data axis; every rank builds
+the same state from the same seed and passes its rows of the batch): the
+generator and each discriminator are wrapped in ``DistributedDataParallel``
+over the data axis.  DDP's reducer takes one backward per forward, and the
+alternating step runs the discriminators twice, so the generator phase calls
+the discriminators themselves, outside their wrappers, with their
+parameters frozen (their gradients there are discarded, as on one device).
+Every loss is a mean over equal rows, so the mean of the ranks' gradients is
+the global batch's, and the metrics are the data group's means.
 """
 
 from __future__ import annotations
@@ -27,6 +37,7 @@ import torch
 
 from emojivoice_tpu_torch.config import HiFiGANConfig
 from emojivoice_tpu_torch.ops.mel import mel_spectrogram
+from emojivoice_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, mean_over
 from emojivoice_tpu_torch.vocoder.discriminators import (
     MultiPeriodDiscriminator,
     MultiScaleDiscriminator,
@@ -49,6 +60,8 @@ class VocoderTrainState:
     gen_opt: torch.optim.Optimizer
     disc_opt: torch.optim.Optimizer  # over mpd's parameters, then msd's
     step: int = 0
+    mesh: Optional[Mesh] = None
+    ddp: Optional[dict] = None  # "gen" (its forward_train), "mpd", "msd" under DDP over the data axis
 
     @property
     def device(self) -> torch.device:
@@ -60,7 +73,8 @@ class VocoderTrainState:
 
 def create_vocoder_state(cfg: HiFiGANConfig, lr: float = 2e-4, b1: float = 0.8, b2: float = 0.99, seed: int = 0,
                          gen_state: Optional[dict] = None, weight_norm: bool = True,
-                         disc_state: Optional[dict] = None, device="cuda") -> VocoderTrainState:
+                         disc_state: Optional[dict] = None, device="cuda",
+                         mesh: Optional[Mesh] = None) -> VocoderTrainState:
     """Generator, discriminators and their two Adams at step 0, on `device`
     (the card unless the caller asks for ``device="cpu"``).
 
@@ -72,7 +86,8 @@ def create_vocoder_state(cfg: HiFiGANConfig, lr: float = 2e-4, b1: float = 0.8, 
     for a quick adaptation.  `disc_state` (``{"mpd": state dict, "msd": state
     dict}``, e.g. from ``load_hifigan_discriminators``) warm-starts the
     discriminators, which go on training as plain weights.  What is not given
-    is initialised under a forked RNG seeded with `seed`."""
+    is initialised under a forked RNG seeded with `seed`.  `mesh` trains data
+    parallel (the module docstring)."""
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError('create_vocoder_state: no CUDA device is available (pass device="cpu" to train on the '
                            'CPU)')
@@ -87,8 +102,28 @@ def create_vocoder_state(cfg: HiFiGANConfig, lr: float = 2e-4, b1: float = 0.8, 
         msd.load_state_dict(disc_state["msd"], strict=True)
     gen, mpd, msd = gen.to(device).train(), mpd.to(device).train(), msd.to(device).train()
     adam = dict(lr=lr, betas=(b1, b2), eps=1e-8)
+    ddp = None
+    if mesh is not None:
+        from torch.nn.parallel import DistributedDataParallel
+
+        dev = next(gen.parameters()).device
+        kw = dict(process_group=mesh.group(DATA_AXIS), device_ids=[dev] if dev.type == "cuda" else None)
+        ddp = {"gen": DistributedDataParallel(_TrainForward(gen), **kw), "mpd": DistributedDataParallel(mpd, **kw),
+               "msd": DistributedDataParallel(msd, **kw)}
     return VocoderTrainState(cfg=cfg, gen=gen, mpd=mpd, msd=msd, gen_opt=torch.optim.Adam(gen.parameters(), **adam),
-                             disc_opt=torch.optim.Adam(list(mpd.parameters()) + list(msd.parameters()), **adam))
+                             disc_opt=torch.optim.Adam(list(mpd.parameters()) + list(msd.parameters()), **adam),
+                             mesh=mesh, ddp=ddp)
+
+
+class _TrainForward(torch.nn.Module):
+    """The generator's differentiable forward as a module's ``forward``, for DDP."""
+
+    def __init__(self, gen: HiFiGANGenerator):
+        super().__init__()
+        self.gen = gen
+
+    def forward(self, mel):
+        return self.gen.forward_train(mel)
 
 
 def loss_mel_spectrogram(wav: torch.Tensor, cfg: HiFiGANConfig) -> torch.Tensor:
@@ -114,8 +149,9 @@ def generator_losses(state: VocoderTrainState, wav: torch.Tensor, y_g: torch.Ten
 
 
 def discriminator_losses(state: VocoderTrainState, wav: torch.Tensor, y_hat: torch.Tensor) -> torch.Tensor:
-    r_p, g_p, _, _ = state.mpd(wav, y_hat)
-    r_s, g_s, _, _ = state.msd(wav, y_hat)
+    mpd, msd = (state.ddp["mpd"], state.ddp["msd"]) if state.ddp else (state.mpd, state.msd)
+    r_p, g_p, _, _ = mpd(wav, y_hat)
+    r_s, g_s, _, _ = msd(wav, y_hat)
     return discriminator_loss(r_p, g_p)[0] + discriminator_loss(r_s, g_s)[0]
 
 
@@ -128,14 +164,16 @@ def vocoder_train_step(state: VocoderTrainState, batch: dict, clock=None) -> dic
     before the step; the discriminators update on it with the gradient cut;
     the generator loss is then taken against the updated discriminators,
     whose parameters are frozen for that pass so that no gradient reaches
-    them.  `clock`, where given, has ``mark(name)`` called after each stage."""
+    them.  `clock`, where given, has ``mark(name)`` called after each stage.
+    Data parallel, `batch` is this rank's rows and the metrics are the global
+    batch's."""
     mel, wav = batch["mel"], batch["wav"]
 
     def mark(name):
         if clock is not None:
             clock.mark(name)
 
-    y_hat = state.gen.forward_train(mel)
+    y_hat = state.ddp["gen"](mel) if state.ddp else state.gen.forward_train(mel)
     mark("gen_forward")
 
     d_loss = discriminator_losses(state, wav, y_hat.detach())
@@ -159,5 +197,6 @@ def vocoder_train_step(state: VocoderTrainState, batch: dict, clock=None) -> dic
     state.gen_opt.step()
     mark("gen_update")
     state.step += 1
-    return {"d_loss": d_loss.detach(), "g_loss": g_loss.detach(), "mel_l1": loss_mel.detach() / MEL_LOSS_WEIGHT,
-            "fm_loss": loss_fm.detach(), "adv_loss": loss_adv.detach()}
+    metrics = {"d_loss": d_loss.detach(), "g_loss": g_loss.detach(), "mel_l1": loss_mel.detach() / MEL_LOSS_WEIGHT,
+               "fm_loss": loss_fm.detach(), "adv_loss": loss_adv.detach()}
+    return mean_over(metrics, state.mesh.group(DATA_AXIS) if state.mesh is not None else None)

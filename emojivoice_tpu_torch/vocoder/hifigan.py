@@ -41,6 +41,15 @@ norm over every axis but the first, which is one magnitude per *output*
 channel of a ``Conv1d`` (out, in, k) and per *input* channel of a
 ``ConvTranspose1d`` (in, out, k), no epsilon.  ``fold_weight_norm()`` gives
 the plain generator to serve.
+
+Under tensor parallelism (``parallel/tp.py::shard_params`` on a plain
+generator) each res-block's ``convs1`` hold a slice of their output channels
+and ``convs2`` of their input channels, as the JAX package lays them out.
+K1 fuses each column → row pair with the residual adds between them, so a
+split pair would need an all-reduce inside the kernel: ``stage_weights``
+gathers each stage's slices once, when it packs them, and every rank runs K1
+on whole weights (the JAX package serves a sharded generator through XLA
+convs instead).  ``forward_train`` runs the pairs column → row parallel.
 """
 
 from __future__ import annotations
@@ -53,6 +62,7 @@ import torch.nn.functional as F
 
 from emojivoice_tpu_torch.config import HiFiGANConfig
 from emojivoice_tpu_torch.ops.mrf import LRELU_SLOPE, mrf_stage, pack_weights
+from emojivoice_tpu_torch.parallel.tp import gathered
 
 
 # serving threads share one generator: its stacked MRF weights are made by one of them, once
@@ -116,10 +126,12 @@ class ResBlock1(nn.Module):
             for _ in dilation])
 
     def stacked_weights(self):
-        """(w1 (n_d, k, C, C), b1 (n_d, C), w2, b2) in mrf_stage's channels-last layout."""
+        """(w1 (n_d, k, C, C), b1 (n_d, C), w2, b2) in mrf_stage's channels-last
+        layout, whole: a tensor-parallel block gathers its slices here."""
         def stack(convs):
-            return (torch.stack([c.weight.permute(2, 1, 0) for c in convs]).contiguous(),
-                    torch.stack([c.bias for c in convs]).contiguous())
+            wb = [gathered(c) for c in convs]
+            return (torch.stack([w.permute(2, 1, 0) for w, _ in wb]).contiguous(),
+                    torch.stack([b for _, b in wb]).contiguous())
 
         w1, b1 = stack(self.convs1)
         w2, b2 = stack(self.convs2)

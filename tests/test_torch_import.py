@@ -14,9 +14,10 @@ statistics, export, ``--from_torch_ckpt``, durations and teacher-forced mels,
 two GAN steps), and then ``sys.modules`` must hold no
 ``emojivoice_tpu`` (or ``emojivoice_tpu.*``) and none of jax, jaxlib, flax,
 optax, orbax.  A second test holds the port's own copies of the presets and
-the emoji mapping equal to the JAX package's, and a third the apps' host-side
-copies (every top-level name but the ones that differ on purpose), so they
-cannot drift unnoticed
+the emoji mapping equal to the JAX package's, a third the apps' host-side
+copies (every top-level name but the ones that differ on purpose), and a
+fourth the parallel slice's (the batch padding and the process-shard
+batching), so they cannot drift unnoticed
 (the port's copies of ``utils/observability.py`` and ``training/sweep.py`` are
 held to the originals by ``tests/test_torch_observability.py`` and
 ``tests/test_torch_sweep.py``).
@@ -52,7 +53,7 @@ for want in ("ops.mas", "ops.mel", "data.dataset", "data.audio_np", "training.tr
              "training.vocoder_proof", "training.proof", "training.get_durations", "data.stats", "io.export_torch",
              "inference.export", "io.torch_pickle", "models.conformer", "utils.observability",
              "training.scratch_proof", "training.sweep", "apps.adapters", "apps.torch_adapters", "apps.feel_me",
-             "apps.game_ui", "apps.demos", "apps.pepper", "apps.record_audio"):
+             "apps.game_ui", "apps.demos", "apps.pepper", "apps.record_audio", "parallel.mesh", "parallel.tp"):
     assert "emojivoice_tpu_torch." + want in names, want
 for name in names:
     importlib.import_module(name)
@@ -329,3 +330,27 @@ def test_app_copies_equal_the_jax_packages(name):
     differ = APP_COPIES[name]
     assert differ <= set(ours)
     assert {k: v for k, v in ours.items() if k not in differ} == {k: v for k, v in theirs.items() if k not in differ}
+
+
+# the parallel slice's host-side copies: each function's AST equal to the JAX package's once the package name is
+# normalised (the process-shard batching and the batch padding run on the host, identically in both)
+PARALLEL_COPIES = [("parallel/mesh.py", "pad_batch_to_multiple"),
+                   ("data/dataset.py", "TextMelDataset._encode_text"), ("data/dataset.py", "TextMelDataset.item_lengths"),
+                   ("data/dataset.py", "BucketBatcher.__init__"), ("data/dataset.py", "BucketBatcher.__iter__"),
+                   ("data/dataset.py", "BucketBatcher._collate_process_shard"),
+                   ("data/dataset.py", "BucketBatcher.collate")]
+
+
+def _function(path: Path, package: str, qualname: str) -> str:
+    import ast
+
+    node = ast.parse(path.read_text().replace(package, "emojivoice_tpu"))
+    for part in qualname.split("."):
+        node = next(n for n in node.body if isinstance(n, (ast.FunctionDef, ast.ClassDef)) and n.name == part)
+    return ast.unparse(node)
+
+
+@pytest.mark.parametrize("path,qualname", PARALLEL_COPIES, ids=[q for _, q in PARALLEL_COPIES])
+def test_parallel_copies_equal_the_jax_packages(path, qualname):
+    assert _function(REPO / "emojivoice_tpu_torch" / path, "emojivoice_tpu_torch", qualname) == \
+        _function(REPO / "emojivoice_tpu" / path, "emojivoice_tpu", qualname)
