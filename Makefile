@@ -1,4 +1,5 @@
-.PHONY: test test-fast bench lint train-ljspeech train-emoji mas-lib clean
+.PHONY: test test-fast bench lint train-ljspeech train-emoji mas-lib clean \
+	bench-torch mfu-torch bench-serving-torch bench-breakdown-torch lint-torch
 
 test:
 	python -m pytest tests/ -q
@@ -20,6 +21,22 @@ bench-serving:
 
 bench-breakdown:
 	python tools/bench_breakdown.py
+
+# the PyTorch port's twins (emojivoice_tpu_torch/bench/): on the card; --cpu runs them with no time measured
+bench-torch:
+	python -m emojivoice_tpu_torch.bench.synthesis
+
+mfu-torch:
+	python -m emojivoice_tpu_torch.bench.mfu
+
+bench-serving-torch:
+	python -m emojivoice_tpu_torch.bench.serving
+
+bench-breakdown-torch:
+	python -m emojivoice_tpu_torch.bench.breakdown
+
+lint-torch:
+	python tools/lint.py emojivoice_tpu_torch chip_smoke.py $(wildcard tests/test_torch_*.py)
 
 mas-lib:
 	python -c "from emojivoice_tpu.ops.mas_cpp import get_library; get_library(); print('libmas built')"

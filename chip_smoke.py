@@ -197,6 +197,20 @@ Phases (each one failing fails the run, exit code ≠ 0):
      (each rank's counts are added into the kernel record); (d) the TP-2
      state through ``torch.distributed.checkpoint`` and back into a state
      from another seed, equal to the bit.  Every rank's wait is bounded.
+ 15. bench (last) — the twelve measurement tools of ``emojivoice_tpu_torch/bench/``
+     (the twins of ``bench.py`` and ``tools/``) called in process at
+     emoji_multi + HiFi-GAN v1 width with short settings (``BENCH_ARGS``):
+     each prints one JSON line naming the card with a float power limit,
+     every time in it finite and positive; K1 four ``mrf_stage`` calls a
+     vocoded request (four a segment, four a served batch), K2 once a train
+     step and equal to the plain search; the headline beside its same-shape
+     sweep row (F4); the port's HiFi-GAN v1 count at 1 x 512 frames within
+     2 % of the JAX tool's (``docs/artifacts/mfu.json``).
+
+The training run of phase 5 that feeds phase 6, ``get_durations`` and the
+vocoder proof run under deterministic kernels (``deterministic``; F10: the
+proof's mel-L1 trend then repeats from call to call), and the proof's margin
+(start, end, end/start) is printed.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 ``nvidia-smi``'s card name and power limit, and the one before that the
@@ -212,12 +226,14 @@ without a CUDA device it exits 1.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import gc
 import importlib.util
 import json
 import math
+import os
 import random
 import statistics
 import struct
@@ -228,10 +244,13 @@ import threading
 import time
 import urllib.error
 import urllib.request
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
+
+from emojivoice_tpu_torch.bench.util import abba_ms, cuda_ms
 
 DEVICE, PRESET = "cuda", "emoji_multi"
 TOL = 2e-4  # the bound tests/test_pallas_mrf.py holds the Pallas kernel to
@@ -312,27 +331,31 @@ PAR_WAV_DP = 1e-4  # DP-2 rows (tests/test_tp.py:148); bf16 rows at VOCODER_TOL
 ADAPTER_TOL = 1e-4  # Whisper and GPT-2, card against CPU, f32 with TF32 off: first-step logits, top-2 margins
 
 
-def cuda_ms(fn, iters: int = 5, warmup: int = 1) -> list:
-    """Device milliseconds of `iters` runs of fn(), by CUDA events."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(iters):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return times
-
-
-def abba_ms(plain, kernel):
-    """Median ms of each, timed in turns plain, kernel, kernel, plain."""
-    p, k = cuda_ms(plain), cuda_ms(kernel)
-    k += cuda_ms(kernel)
-    p += cuda_ms(plain)
-    return statistics.median(p), statistics.median(k)
+@contextlib.contextmanager
+def deterministic(tag: str):
+    """Deterministic kernels for the work inside (``warn_only``: an op with
+    no deterministic kernel runs as it is and warns); prints the ops that
+    warned.  The card's backward adds atomically, so without this two runs of
+    the same seeded training differ in their last bits and whatever is
+    derived from them drifts (F10: the vocoder proof's mel-L1 trend on the
+    acoustic run's mels).  cuBLAS needs ``CUBLAS_WORKSPACE_CONFIG``, which
+    ``main`` sets before CUDA starts."""
+    seen = []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield
+        for w in caught:
+            text = str(w.message)
+            if "does not have a deterministic implementation" not in text:
+                warnings.showwarning(w.message, w.category, w.filename, w.lineno)
+            elif text.split(" does not")[0] not in seen:
+                seen.append(text.split(" does not")[0])
+    finally:
+        torch.use_deterministic_algorithms(False)
+        print(f"[{tag}] deterministic kernels; ops that have none and warned: "
+              + (", ".join(seen) if seen else "none"))
 
 
 def random_stage(b: int, c: int, t: int, seed: int):
@@ -1568,12 +1591,14 @@ def phase_training(mas, mrf) -> dict:
         # the main path's run: K2's count starts at zero here and only the trainer moves it
         mas.launches = 0
         t = time.perf_counter()
-        if train.main(args + ["--max_steps", str(TRAIN_STEPS)]) != 0:
-            raise RuntimeError("training run failed")
-        first_s = time.perf_counter() - t
-        first_launches = mas.launches
-        if train.main(args + ["--max_steps", str(RESUME_STEPS), "--resume"]) != 0:
-            raise RuntimeError("resumed training run failed")
+        # deterministic: the run's checkpoint feeds the vocoder proof's mels (F10)
+        with deterministic("train"):
+            if train.main(args + ["--max_steps", str(TRAIN_STEPS)]) != 0:
+                raise RuntimeError("training run failed")
+            first_s = time.perf_counter() - t
+            first_launches = mas.launches
+            if train.main(args + ["--max_steps", str(RESUME_STEPS), "--resume"]) != 0:
+                raise RuntimeError("resumed training run failed")
         launches = mas.launches
 
         steps = read_metrics(out, "train")
@@ -1713,10 +1738,11 @@ def phase_vocoder_training(mas, mrf, matcha, tmp: Path, filelist: Path, ckpt_dir
     mas.launches = 0  # the main path's run of K2's second caller
     t = time.perf_counter()
     try:
-        if get_durations.main(["--checkpoint_path", str(ckpt_dir), "--filelist", str(filelist), "--preset", PRESET,
-                               "--output_dir", str(aligned), "--batch_size", str(DURATION_BATCH), "--gen_mels",
-                               "--n_timesteps", str(STEPS)]) != 0:
-            raise RuntimeError("(a) get_durations failed")
+        with deterministic("vocoder"):
+            if get_durations.main(["--checkpoint_path", str(ckpt_dir), "--filelist", str(filelist), "--preset",
+                                   PRESET, "--output_dir", str(aligned), "--batch_size", str(DURATION_BATCH),
+                                   "--gen_mels", "--n_timesteps", str(STEPS)]) != 0:
+                raise RuntimeError("(a) get_durations failed")
     finally:
         matcha.maximum_path = real
     torch.cuda.synchronize()
@@ -1744,10 +1770,14 @@ def phase_vocoder_training(mas, mrf, matcha, tmp: Path, filelist: Path, ckpt_dir
     # (b) the GAN fine-tune on those mels, through the harness a user calls
     mrf.launches.clear()
     t = time.perf_counter()
-    summary = run_vocoder_proof(str(tmp / "voc"), steps=VOC_STEPS, batch_size=VOC_BATCH, segment_frames=VOC_SEGMENT,
-                                window=3, cfg=cfg, log_every=VOC_LOG_EVERY, filelist=str(filelist),
-                                gen_mels_dir=str(aligned / "gen_mels"))
+    with deterministic("vocoder"):  # the harness asserts that the windowed mel-L1 falls: F10
+        summary = run_vocoder_proof(str(tmp / "voc"), steps=VOC_STEPS, batch_size=VOC_BATCH,
+                                    segment_frames=VOC_SEGMENT, window=3, cfg=cfg, log_every=VOC_LOG_EVERY,
+                                    filelist=str(filelist), gen_mels_dir=str(aligned / "gen_mels"))
     proof_s = time.perf_counter() - t
+    first, last = summary["mel_l1_first_mean"], summary["mel_l1_last_mean"]
+    print(f"[vocoder] (b) the proof's windowed mel-L1 trend (F10): {first} -> {last}, end/start {last / first:.4f} "
+          f"(the harness asserts end < start)")
     render_launches = sum(mrf.launches.values())
     n_stages = len(cfg.upsample_rates)  # one mrf_stage call each per vocoded batch
     if render_launches != 2 * n_stages or not summary["fine_tuning"] or summary["backend"] != torch.cuda.get_device_name(0):
@@ -2827,8 +2857,7 @@ def phase_parallel(mas, mrf) -> dict:
         t = time.perf_counter()
         # the card's backward adds atomically (embedding and gather gradients): deterministic kernels for (a), so
         # that two runs can be held to each other at all; two runs without the flag show what is left
-        torch.use_deterministic_algorithms(True, warn_only=True)
-        try:
+        with deterministic("parallel"):
             for name in ("one", "again"):
                 if train.main(args + ["--out_dir", str(tmp / name), "--max_steps", str(PAR_STEPS + 1)]) != 0:
                     raise RuntimeError("[parallel] (a) the run without --num_devices failed")
@@ -2839,8 +2868,6 @@ def phase_parallel(mas, mrf) -> dict:
                                        "--num_devices", "1"]) != 0:
                 raise RuntimeError("[parallel] (a) the --num_devices 1 run failed")
             k2_a = mas.launches
-        finally:
-            torch.use_deterministic_algorithms(False)
         one, again, n1 = (read_metrics(tmp / name, "train") for name in ("one", "again", "n1"))
         keys = ("loss", "dur_loss", "prior_loss", "diff_loss", "grad_norm")
 
@@ -2932,7 +2959,124 @@ def phase_parallel(mas, mrf) -> dict:
     return out
 
 
+# [bench]: each measurement tool's main in process at full width, with short settings
+BENCH_ARGS = {
+    "synthesis": ["--repeats", "3", "--sweep_repeats", "2", "--buckets", "512", "--batches", "1"],
+    "breakdown": ["--repeats", "3", "--profiled", "1"],
+    "serving": ["--clients", "8", "--window_s", "4", "--rates", "8"],
+    "ttfa": ["--reps", "2"],
+    "exported": ["--repeats", "2"],
+    "vocoder": ["--iters", "2"],
+    "vocoder_stages": ["--reps", "3"],
+    "mas": ["--iters", "2", "--reps", "2"],
+    "train": ["--iters", "1", "--gan_iters", "3"],
+    "mfu": ["--skip_sweep", "--repeats", "2"],
+    "multilingual": ["--out", ""],
+}
+# the JAX tool's count of HiFi-GAN v1 at 1 x 512 frames (XLA's cost model; FLOPs, not a time), and how far the
+# port's count from shapes may be from it (elementwise work, which the port does not count, is ~1 % of it)
+MFU_ARTIFACT, MFU_HIFIGAN_TOL = Path("docs/artifacts/mfu.json"), 0.02
+NOT_A_TIME = ("audio_s", "drain_s", "late_ms", "submit_s")  # may be zero: not a time a kernel or call takes
+
+
+def bench_times(obj, path: str = "") -> list:
+    """(path, value) of every number in a tool's report that is a time."""
+    out = []
+    if isinstance(obj, dict):
+        unit_ms = obj.get("unit") in ("ms", "rtf")
+        for k, v in obj.items():
+            p = f"{path}.{k}"
+            if isinstance(v, (dict, list)):
+                out += bench_times(v, p)
+            elif isinstance(v, (int, float)) and not isinstance(v, bool) and not k.startswith(NOT_A_TIME) and \
+                    (k.endswith(("_ms", "_s", "_ms_min", "_ms_median", "_ms_per_call")) or k.startswith("rtf")
+                     or (k == "value" and unit_ms)):
+                out.append((p, v))
+    elif isinstance(obj, list):
+        for i, v in enumerate(obj):
+            out += bench_times(v, f"{path}[{i}]")
+    return out
+
+
+def run_tool(name: str, argv: list) -> dict:
+    """One tool's main in process → its JSON line (stdout captured, stderr passed on)."""
+    import contextlib as cl
+    import importlib
+    import io
+
+    buf = io.StringIO()
+    with cl.redirect_stdout(buf):
+        rc = importlib.import_module(f"emojivoice_tpu_torch.bench.{name}").main(argv)
+    lines = [line for line in buf.getvalue().splitlines() if line.startswith("{")]
+    if rc != 0 or len(lines) != 1:
+        raise RuntimeError(f"[bench] {name}: exit {rc}, {len(lines)} JSON lines: {buf.getvalue()[-2000:]}")
+    return json.loads(lines[0])
+
+
+def phase_bench(mas, mrf) -> dict:
+    """[bench]: the twelve measurement tools of ``emojivoice_tpu_torch/bench/``
+    in process on the card at emoji_multi + HiFi-GAN v1 width, each with
+    short settings: one parseable JSON line naming the card, every time
+    finite and positive, K1 on four stages of every vocoded request, K2 once
+    per train step, the headline held beside its same-shape row, and the
+    port's HiFi-GAN count within 2 % of the JAX tool's."""
+    name_of_card = torch.cuda.get_device_name(0)
+    mrf.launches.clear()
+    mas.launches = 0
+    reports, seconds = {}, {}
+    for name, argv in BENCH_ARGS.items():
+        t = time.perf_counter()
+        reports[name] = rep = run_tool(name, argv)
+        seconds[name] = time.perf_counter() - t
+        gc.collect()
+        torch.cuda.empty_cache()
+        bad = [(p, v) for p, v in bench_times(rep) if not (math.isfinite(v) and v > 0)]
+        if rep.get("device") != name_of_card or not isinstance(rep.get("power_limit_w"), float) or bad:
+            raise RuntimeError(f"[bench] {name}: device {rep.get('device')!r}, power limit "
+                               f"{rep.get('power_limit_w')!r}, times not finite and positive {bad[:8]}")
+        print(f"[bench] {name} ({seconds[name]:.1f} s): " + json.dumps(rep)[:1500])
+    launches = dict(mrf.launches)
+    k2 = mas.launches
+    syn, ttfa = reports["synthesis"], reports["ttfa"]["lengths"]
+    voc = reports["vocoder"]
+    per_request = {"synthesis headline": syn["provenance"]["k1_launches"],
+                   **{f"synthesis {r['case']}": r["k1_launches"] for r in syn["provenance"]["sweep"]},
+                   "breakdown": reports["breakdown"]["k1_launches"],
+                   "exported live": reports["exported"]["live"]["k1_launches"],
+                   "exported bundle": reports["exported"]["exported"]["k1_launches"],
+                   **{f"ttfa {k} full": v["full"]["k1_launches"] for k, v in ttfa.items()},
+                   "vocoder b1": voc["k1_b1_launches"], "vocoder b8": voc["k1_b8_launches"]}
+    ml = reports["multilingual"]["languages"]
+    serving = reports["serving"]
+    head_key = f"headline_vs_m{syn['provenance']['mel_bucket']}_b1"  # F4: the headline and its same-shape row
+    checks = {
+        "K1 four mrf_stage calls a vocoded request": all(v == 4 for v in per_request.values()),
+        "K1 four a segment (multilingual)": all(v["k1_launches"] == 4 * v["segments"] and v["finite"]
+                                                for v in ml.values()),
+        "K1 four a batch (serving)": serving["k1_launches"] == 4 * serving["batches"] and serving["errors"] == 0,
+        "K2 once a train step": all(line["k2_launches"] == line["steps"] for line in reports["train"]["lines"]
+                                   if "k2_launches" in line),
+        "K2 and plain search equal": all(line.get("exact", True) for line in reports["mas"]["lines"]),
+        "headline beside its same-shape row": head_key in syn,
+    }
+    ours = next(p for p in reports["mfu"]["programs"] if p["program"] == "hifigan_b1_t512")["flops_per_call"]
+    theirs = next(p for p in json.loads(MFU_ARTIFACT.read_text())["programs"]
+                  if p["program"] == "hifigan_b1_t512")["flops_per_call"]
+    checks["mfu HiFi-GAN count within 2 % of the JAX tool's"] = abs(ours / theirs - 1) <= MFU_HIFIGAN_TOL
+    print(f"[bench] K1 mrf_stage calls per request {per_request}; HiFi-GAN v1 at 1 x 512 frames: the port's count "
+          f"{ours / 1e9:.2f} GFLOP, the JAX tool's (XLA's cost model) {theirs / 1e9:.2f} ({ours / theirs - 1:+.2%}); "
+          f"{head_key} {syn.get(head_key)}; launches in the phase: K1 {launches}, K2 {k2}; "
+          f"checks {checks}")
+    if not all(checks.values()):
+        raise RuntimeError(f"[bench] failed: {[k for k, v in checks.items() if not v]}")
+    return dict(k1_launches=sum(n for (_, mode), n in launches.items() if mode == "f32"),
+                k1_bf16_launches=sum(n for (_, mode), n in launches.items() if mode == "bf16"), k2_launches=k2,
+                seconds=seconds, reports=reports)
+
+
 def main() -> int:
+    # before CUDA starts: cuBLAS reads it when it makes its first handle (deterministic(): F10)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU", file=sys.stderr)
         return 1
@@ -2985,16 +3129,19 @@ def main() -> int:
     scratch = timed("scratch", phase_scratch, mas)
     swept = timed("sweep", phase_sweep, mas)
     parallel = timed("parallel", phase_parallel, mas, mrf)
+    bench = timed("bench", phase_bench, mas, mrf)
     # K1 on the main paths: the synthesis requests, the engine's and the webapp's batches, the apps' turns, demos
     # and agent turn, the trained checkpoint,
     # the vocoder proof's two renders, the fine-tuned generator served, the exported bundle's program runs, the
     # live dispatch under sync debug, and the conformer model's requests, its trained checkpoint and bundle; K2:
     # the trainer's steps and get_durations, the conformer's training, the scratch proof and the sweep's trials
-    # and [parallel]'s requests on every rank; K2: [parallel]'s steps, in process and on every rank
+    # and [parallel]'s requests on every rank, and the measurement tools of [bench]; K2: [parallel]'s steps, in
+    # process and on every rank, and [bench]'s train steps and MAS timings
     launches += serving["k1_launches"] + training["k1_launches"] + exported["k1_launches"] \
-        + exported["k1_launches_live"] + conformer["k1_launches"] + apps["k1_launches"] + parallel["k1_launches"]
+        + exported["k1_launches_live"] + conformer["k1_launches"] + apps["k1_launches"] + parallel["k1_launches"] \
+        + bench["k1_launches"]
     k2_launches = training["launches"] + conformer["k2_launches"] + scratch["k2_launches"] + swept["k2_launches"] \
-        + parallel["k2_launches"]
+        + parallel["k2_launches"] + bench["k2_launches"]
 
     stage_rows = rows[:len(STAGE_SHAPES)]
     window_rows = rows[-len(WINDOW_SHAPES):]
@@ -3029,7 +3176,8 @@ def main() -> int:
         "route": "cuda",
         "source": "emojivoice_tpu_torch/csrc/mrf_bf16.cu",
         "replaces": "emojivoice_tpu/ops/pallas_mrf.py:192",
-        "launches": precision["k1_bf16_launches"] + conformer["k1_bf16_launches"] + parallel["k1_bf16_launches"],
+        "launches": precision["k1_bf16_launches"] + conformer["k1_bf16_launches"] + parallel["k1_bf16_launches"]
+        + bench["k1_bf16_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in bf16_rows),
         "ms": sum(r["ms"] for r in bf16_stage),
         "plain_ms": sum(r["plain_ms"] for r in bf16_stage),

@@ -30,9 +30,8 @@ from pathlib import Path
 
 import torch
 
-HEADLINE = ("The quick brown fox jumped over the lazy dog, and everyone at the "
-            "party cheered loudly for the brave little robot.")  # bench.py's headline text
-K1_KERNELS = ("conv_taps_kernel", "k1_bf16_unit_kernel")  # csrc/mrf.cu, csrc/mrf_bf16.cu
+from emojivoice_tpu_torch.bench.util import HEADLINE, profile_call
+
 REPEATS = 7
 
 
@@ -52,20 +51,9 @@ def time_request(pipe, texts, spks, repeats: int, **kw) -> dict:
 
 def profile_request(pipe, texts, spks, **kw) -> dict:
     """Device activity of one call under torch.profiler, against that call's
-    own wall time.  Without a CUDA device there is no device activity and
-    the busy share is None (not measured)."""
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if pipe.device.type == "cuda":
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=acts) as prof:
-        t = time.perf_counter()
-        pipe.synthesise(texts, spks=spks, seed=0, **kw)
-        wall_ms = (time.perf_counter() - t) * 1e3
-    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3
-    k1_ms = sum(e.time_range.elapsed_us() for e in device if any(name in e.name for name in K1_KERNELS)) / 1e3
-    return dict(profiled_wall_ms=wall_ms, device_activities=len(device), device_ms=device_ms,
-                k1_device_ms=k1_ms, busy=device_ms / wall_ms if device else None)
+    own wall time (``bench/util.py::profile_call``).  Without a CUDA device
+    there is no device activity and the busy share is None (not measured)."""
+    return profile_call(lambda: pipe.synthesise(texts, spks=spks, seed=0, **kw), pipe.device)
 
 
 def main(argv=None) -> int:
@@ -98,10 +86,11 @@ def main(argv=None) -> int:
         texts, spks = [HEADLINE] * b, [79] * b
         for _ in range(3):
             pipe.synthesise(texts, spks=spks, seed=0, **kw, **extra)
-        row = dict(request=name, batch=b, mel_bucket=bucket, compute_dtype=args.compute_dtype,
-                   vocoder_dtype=args.vocoder_dtype, **time_request(pipe, texts, spks, REPEATS, **kw, **extra))
-        row.update(profile_request(pipe, texts, spks, **kw, **extra))
-        rows.append(row)
+        rows.append(dict(request=name, batch=b, mel_bucket=bucket, compute_dtype=args.compute_dtype,
+                         vocoder_dtype=args.vocoder_dtype, **time_request(pipe, texts, spks, REPEATS, **kw, **extra)))
+    # profiled after every timed call: after its first torch.profiler session a process's calls ran slower
+    for row, (name, b, extra) in zip(rows, requests):
+        row.update(profile_request(pipe, [HEADLINE] * b, [79] * b, **kw, **extra))
         print(f"[profile] {name} (compute {args.compute_dtype}, vocoder {args.vocoder_dtype}): mel {row['mel_length']} @ {bucket}  wall {row['wall_ms']:.3f} ms  "
               f"rtf_w {row['rtf_w']:.5f}  stage ms "
               + " ".join(f"{k}={v:.3f}" for k, v in row["stage_ms"].items())

@@ -32,6 +32,33 @@ import torch
 BATCH, SEGMENT_FRAMES, REPEATS, TOP = 16, 32, 7, 12
 
 
+def gan_step(cfg, device: torch.device, batch: int, segment_frames: int):
+    """A timed GAN step: ``create_vocoder_state(cfg)`` (weight-norm
+    generator, MPD, MSD, two Adams; seed 0) on `device` and a sampler of
+    `batch` × `segment_frames`-frame segments of the synthetic corpus of
+    ``training/proof.py`` → step(), which runs one ``vocoder_train_step`` on
+    a fresh batch and returns its ms (ended by a synchronise on the card)."""
+    from emojivoice_tpu_torch.training.proof import make_dataset
+    from emojivoice_tpu_torch.training.vocoder_proof import load_pairs, make_segment_sampler
+    from emojivoice_tpu_torch.training.vocoder_train import create_vocoder_state, vocoder_train_step
+
+    with tempfile.TemporaryDirectory(prefix="emojivoice_profile_") as tmp:
+        filelist, _ = make_dataset(Path(tmp), tuple(range(12)), n_utts=8, seconds=2.0, seed=0)
+        paths = [row.split("|")[0] for row in filelist.read_text().splitlines()]
+        pairs = load_pairs(paths, cfg, cfg.total_upsample, 1024, 1024, None)
+    sample = make_segment_sampler(pairs, segment_frames, cfg.total_upsample, batch, seed=0)
+    state = create_vocoder_state(cfg, seed=0, device=device)
+
+    def step():
+        data = {k: torch.from_numpy(v).to(device) for k, v in sample().items()}
+        t = time.perf_counter()
+        vocoder_train_step(state, data)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3
+    return step
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="chiprun_out/profile_vocoder_step.json")
@@ -42,24 +69,9 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     from emojivoice_tpu_torch.config import HiFiGANConfig
-    from emojivoice_tpu_torch.training.proof import make_dataset
-    from emojivoice_tpu_torch.training.vocoder_proof import load_pairs, make_segment_sampler
-    from emojivoice_tpu_torch.training.vocoder_train import create_vocoder_state, vocoder_train_step
 
     cfg = HiFiGANConfig()
-    with tempfile.TemporaryDirectory(prefix="emojivoice_profile_") as tmp:
-        filelist, _ = make_dataset(Path(tmp), tuple(range(12)), n_utts=8, seconds=2.0, seed=0)
-        paths = [row.split("|")[0] for row in filelist.read_text().splitlines()]
-        pairs = load_pairs(paths, cfg, cfg.total_upsample, 1024, 1024, None)
-    sample = make_segment_sampler(pairs, SEGMENT_FRAMES, cfg.total_upsample, BATCH, seed=0)
-    state = create_vocoder_state(cfg, seed=0)
-
-    def step():
-        batch = {k: torch.from_numpy(v).cuda() for k, v in sample().items()}
-        t = time.perf_counter()
-        vocoder_train_step(state, batch)
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t) * 1e3
+    step = gan_step(cfg, torch.device("cuda"), BATCH, SEGMENT_FRAMES)
 
     for _ in range(3):
         step()

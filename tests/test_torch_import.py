@@ -53,7 +53,9 @@ for want in ("ops.mas", "ops.mel", "data.dataset", "data.audio_np", "training.tr
              "training.vocoder_proof", "training.proof", "training.get_durations", "data.stats", "io.export_torch",
              "inference.export", "io.torch_pickle", "models.conformer", "utils.observability",
              "training.scratch_proof", "training.sweep", "apps.adapters", "apps.torch_adapters", "apps.feel_me",
-             "apps.game_ui", "apps.demos", "apps.pepper", "apps.record_audio", "parallel.mesh", "parallel.tp"):
+             "apps.game_ui", "apps.demos", "apps.pepper", "apps.record_audio", "parallel.mesh", "parallel.tp",
+             "bench.util", "bench.synthesis", "bench.breakdown", "bench.serving", "bench.ttfa", "bench.exported",
+             "bench.vocoder", "bench.vocoder_stages", "bench.mas", "bench.train", "bench.mfu", "bench.multilingual"):
     assert "emojivoice_tpu_torch." + want in names, want
 for name in names:
     importlib.import_module(name)
@@ -271,6 +273,52 @@ def test_port_sources_name_no_import_of_the_jax_package():
                         "from emojivoice_tpu ", "import jax", "from jax", "import flax", "import optax",
                         "import orbax"):
                 assert bad not in code + " ", f"{path.relative_to(REPO)}:{n}: {line.strip()}"
+
+
+def test_port_imports_neither_bench_nor_tools():
+    """The JAX repo's measurement scripts (``bench.py``, ``tools/``) import JAX:
+    the port's tools keep their own copies of what they need from them."""
+    import ast
+
+    files = sorted((REPO / "emojivoice_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = [a.name for a in node.names] if isinstance(node, ast.Import) else \
+                [node.module or ""] if isinstance(node, ast.ImportFrom) and node.level == 0 else []
+            for name in names:
+                assert name.split(".")[0] not in ("bench", "tools", "bench_util"), f"{path.relative_to(REPO)}: {name}"
+
+
+def _assigned(path: Path, name: str):
+    """The first literal value assigned to `name` anywhere in the file."""
+    import ast
+
+    for n in ast.walk(ast.parse(path.read_text())):
+        if isinstance(n, ast.Assign) and any(isinstance(t, ast.Name) and t.id == name for t in n.targets):
+            try:
+                return ast.literal_eval(n.value)
+            except ValueError:
+                continue
+    raise KeyError(f"{path.name}: no literal {name}")
+
+
+# the host-side pieces the port's tools copied from the JAX repo's measurement scripts, held equal to them
+BENCH_COPIES = [("serving.py", "TEXTS", "tools/bench_serving.py", "TEXTS"),
+                ("ttfa.py", "TEXTS", "tools/bench_ttfa.py", "TEXTS"),
+                ("multilingual.py", "TEXTS", "tools/multilingual_proof.py", "TEXTS"),
+                ("synthesis.py", "TEXT11", "bench.py", "text11"), ("util.py", "HEADLINE", "bench.py", "text")]
+BENCH_FUNCTIONS = [("util.py", "time_median", "tools/bench_util.py"), ("serving.py", "_pct", "tools/bench_serving.py")]
+
+
+@pytest.mark.parametrize("ours,name,theirs,their_name", BENCH_COPIES, ids=[c[2] for c in BENCH_COPIES])
+def test_bench_copies_equal_the_jax_repos(ours, name, theirs, their_name):
+    assert _assigned(REPO / "emojivoice_tpu_torch" / "bench" / ours, name) == _assigned(REPO / theirs, their_name)
+
+
+@pytest.mark.parametrize("ours,name,theirs", BENCH_FUNCTIONS, ids=[f[1] for f in BENCH_FUNCTIONS])
+def test_bench_functions_equal_the_jax_repos(ours, name, theirs):
+    assert _function(REPO / "emojivoice_tpu_torch" / "bench" / ours, "emojivoice_tpu_torch", name) == \
+        _function(REPO / theirs, "emojivoice_tpu", name)
 
 
 @pytest.mark.parametrize("name", ["ljspeech", "vctk", "emoji_multi", "tiny"])
