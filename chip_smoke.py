@@ -32,7 +32,24 @@ Phases (each one failing fails the run, exit code ≠ 0):
      two-stage call, once to warm and once counted.  Every wav must be
      finite, in [-1, 1] and mel_length·256 long, and every request must
      launch K1 on all four stages.  A short request is also held against the
-     same weights and noise on the CPU;
+     same weights and noise on the CPU.  Every pipeline of the
+     smoke serves through captured CUDA graphs (``inference/graphs.py``, the
+     default on the card; a mesh's stays eager), so these counts and every
+     later phase's read K1 under replay;
+  3b. graphs — fresh emoji_multi + v1 pipelines in f32 and with
+     ``compute_dtype=bf16``, each beside an eager one (``graphs=False``) on
+     the same weights: two-stage and fused at batch 1, 8 and 32, each call a
+     replay held against the eager call with the same inputs (equal to the
+     bit, or the f32 wav within 1e-5 and bf16 within the ``[precision]``
+     bounds, printed), then again with another length_scale, temperature,
+     denoiser strength, seeds and speakers (fused: no new capture), four K1
+     launches a call in the setting's mode; the first key replayed after all
+     the others; K1's kernel nodes in every vocoder graph (the node walk of
+     ``kernels/launches.py``) against its four stages' launches captured
+     alone; the story streamed and long-form against the eager path; the
+     engine's warmup at ``max_batch`` 8 and 32 (graphs and pool bytes), and
+     32 webapp-style calls from threads on its batch-1 key, each equal to its
+     own eager call with no capture;
   4. kernel, K2 — ``maximum_path`` against ``maximum_path_reference`` on the
      same tensors, equal to the bit, on seeded random log-priors with ragged
      lengths at (B, T_x, T_y) = (16, 256, 768), (32, 128, 512), (1, 64, 128),
@@ -248,6 +265,7 @@ import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from emojivoice_tpu_torch.bench.util import abba_ms, cuda_ms
@@ -329,6 +347,10 @@ PAR_BN_RTOL, PAR_BN_ATOL = 1e-4, 1e-6  # the conformer's BatchNorm buffers after
 PAR_WAV_TP, PAR_MEL_MAE = 1e-3, 1e-3  # TP-2 headline, 10 Euler steps: the card-against-CPU bounds of [synth]
 PAR_WAV_DP = 1e-4  # DP-2 rows (tests/test_tp.py:148); bf16 rows at VOCODER_TOL
 ADAPTER_TOL = 1e-4  # Whisper and GPT-2, card against CPU, f32 with TF32 off: first-step logits, top-2 margins
+# [graphs]: each replay against the eager call on the same inputs, equal to the bit; where a library picks another
+# algorithm under capture, the f32 wav within GRAPH_WAV_TOL (bf16: the [precision] bounds, VOCODER_TOL and MEL_MAE_TOL)
+GRAPH_BATCHES, GRAPH_WAV_TOL, GRAPH_THREADS = (1, 8, 32), 1e-5, 32
+K1_KERNEL_NAMES = ("conv_taps_kernel", "k1_bf16_unit_kernel")  # K1's kernels in csrc/mrf.cu and csrc/mrf_bf16.cu
 
 
 @contextlib.contextmanager
@@ -505,6 +527,174 @@ def phase_synthesis(mrf):
     mrf.launches.clear()
     serve("synth")
     return pipe, sum(mrf.launches.values())
+
+
+def graph_check(name: str, got, want, setting: str) -> dict:
+    """A call through the graphs against the eager call with the same
+    arguments: equal to the bit, or within the bounds (printed)."""
+    lengths = [r.mel_length for r in got] == [r.mel_length for r in want]
+    same = lengths and all(np.array_equal(g.wav, w.wav) and np.array_equal(g.mel, w.mel) for g, w in zip(got, want))
+    wav_err = max(float(abs(g.wav - w.wav).max()) for g, w in zip(got, want)) if lengths else float("inf")
+    mel_mae = max(float(abs(g.mel - w.mel).mean()) if g.mel.size else 0.0 for g, w in zip(got, want)) \
+        if lengths else float("inf")
+    ok = same or (wav_err <= (GRAPH_WAV_TOL if setting == "f32" else VOCODER_TOL)
+                  and (setting == "f32" or mel_mae < MEL_MAE_TOL))
+    if not same:
+        print(f"[graphs] {name}: not equal to the bit; wav max-abs {wav_err:.3e}, mel MAE {mel_mae:.3e}")
+    if not ok:
+        raise RuntimeError(f"[graphs] {name}: the replay disagrees with the eager call: lengths equal {lengths}, "
+                           f"wav max-abs {wav_err:.3e}, mel MAE {mel_mae:.3e}")
+    return dict(same_bits=same, wav_max_abs=wav_err, mel_mae=mel_mae)
+
+
+def graph_k1_nodes(mrf, pipe) -> list:
+    """K1's kernel nodes in each vocoder graph of `pipe` (``keep_graphs``),
+    against the kernels that its four stages launch alone at the graph's
+    shapes, read from a capture of each (``kernels/launches.py``); and the
+    store's own count, four ``mrf_stage`` calls a graph."""
+    from emojivoice_tpu_torch.kernels.launches import graph_kernel_nodes, kernel_launches
+
+    cfg, rows = pipe.vocoder_cfg, []
+    ks, ds = cfg.resblock_kernel_sizes, tuple(tuple(d) for d in cfg.resblock_dilation_sizes)
+    for (key, _), g in pipe.graphs.entries().items():
+        if key[0] != "vocoder":
+            continue
+        _, b, frames, dtype = key
+        per_stage, t, c = [], frames, cfg.upsample_initial_channel
+        with mrf.tally() as counted:  # captures, not launches: taken back below
+            for i, u in enumerate(cfg.upsample_rates):
+                t, c = t * u, c // 2
+                x = torch.randn(b, t, c, device="cuda")
+                per_stage.append(kernel_launches(lambda: mrf.mrf_stage(x, pipe.vocoder.stage_weights(i, dtype), ks, ds),
+                                                 K1_KERNEL_NAMES))
+                del x
+        mrf.add_launches(counted, -1)
+        nodes = graph_kernel_nodes(g.graph, K1_KERNEL_NAMES)
+        row = dict(batch=b, frames=frames, mode="bf16" if dtype == torch.bfloat16 else "f32", k1_nodes=nodes,
+                   per_stage=per_stage, mrf_stage_calls=sum(g.k1.values()))
+        if nodes != sum(per_stage) or row["mrf_stage_calls"] != len(cfg.upsample_rates):
+            raise RuntimeError(f"[graphs] vocoder graph {key}: {row}")
+        rows.append(row)
+    return rows
+
+
+def phase_graphs(mrf) -> dict:
+    """Phase [graphs]: serving through captured CUDA graphs (the pipeline's
+    default on the card), each replay against the eager path
+    (``graphs=False``) on the same weights and inputs; every count is read
+    from 0 just before the graph call it counts."""
+    from emojivoice_tpu_torch import config
+    from emojivoice_tpu_torch.apps.emoji import EMOJI_MAPPING
+    from emojivoice_tpu_torch.inference.pipeline import SynthesisPipeline
+    from emojivoice_tpu_torch.inference.serving import BatchingEngine
+    from emojivoice_tpu_torch.inference.streaming import auto_stream, stream_synthesise
+
+    root = config.get_preset("emoji_multi")
+    voices = list(EMOJI_MAPPING.values())
+    out = dict(cases=[], nodes=[], k1_launches=0, k1_bf16_launches=0)
+
+    def counted(pipe, texts, kw):
+        mrf.launches.clear()  # the main path's run: this graph call
+        t = time.perf_counter()
+        res = pipe.synthesise(texts, **kw)
+        wall = (time.perf_counter() - t) * 1e3
+        by_mode = {m: sum(n for (_, mode), n in mrf.launches.items() if mode == m) for m in ("f32", "bf16")}
+        out["k1_launches"] += by_mode["f32"]
+        out["k1_bf16_launches"] += by_mode["bf16"]
+        return res, wall, by_mode
+
+    for setting, extra in (("f32", {}), ("compute_bf16", dict(compute_dtype=torch.bfloat16))):
+        gp = SynthesisPipeline.from_random(root, seed=0, device=DEVICE, cleaners=("basic_cleaners",), graphs=True,
+                                           **extra)
+        gp.graphs.keep_graphs = True  # each graph's nodes stay readable: K1's are counted below
+        ep = SynthesisPipeline(gp.model_cfg, gp.model, gp.vocoder_cfg, gp.vocoder, cleaners=("basic_cleaners",),
+                               device=DEVICE, graphs=False, **extra)
+        mode = "bf16" if setting != "f32" else "f32"
+        first = None
+        for fused in (False, True):
+            for b in GRAPH_BATCHES:
+                base = dict(n_timesteps=STEPS, fused=fused, fused_mel_bucket=512 if fused else None)
+                runs = (dict(spks=[voices[i % len(voices)] for i in range(b)], seed=list(range(b)), length_scale=1.0,
+                             temperature=0.667, denoiser_strength=STRENGTH),
+                        dict(spks=[voices[(i + 5) % len(voices)] for i in range(b)], seed=list(range(100, 100 + b)),
+                             length_scale=0.95, temperature=0.5, denoiser_strength=1e-3))
+                for i, run in enumerate(runs):
+                    name = f"{setting} {'fused' if fused else 'two-stage'} batch {b} run {i}"
+                    kw = {**base, **run}
+                    captures = gp.graphs.captures
+                    got, wall, by_mode = counted(gp, [HEADLINE] * b, kw)
+                    new = gp.graphs.captures - captures
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    want = ep.synthesise([HEADLINE] * b, **kw)
+                    eager_wall = (time.perf_counter() - t) * 1e3
+                    if by_mode != {"f32": 4 if mode == "f32" else 0, "bf16": 4 if mode == "bf16" else 0}:
+                        raise RuntimeError(f"[graphs] {name}: K1 launches by mode {by_mode}, expected 4 {mode}")
+                    if i == 1 and fused and new:
+                        raise RuntimeError(f"[graphs] {name}: other runtime values captured {new} new graphs")
+                    check_wavs(got, name)
+                    row = dict(name=name, new_captures=new, graph_wall_ms=wall, eager_wall_ms=eager_wall,
+                               mel_length=got[0].mel_length, **graph_check(name, got, want, setting))
+                    print("[graphs] " + json.dumps(row))
+                    out["cases"].append(row)
+                    if first is None:
+                        first = (kw, got)
+        # a key replayed after the others: its static buffers and K1's TMA maps still point at the right memory
+        again, _, _ = counted(gp, [HEADLINE], first[0])
+        graph_check(f"{setting} first key again", again, first[1], setting)
+        if not all(np.array_equal(a.wav, f.wav) for a, f in zip(again, first[1])):
+            raise RuntimeError(f"[graphs] {setting}: the first key replayed after the others differs from its first run")
+        out["nodes"] += graph_k1_nodes(mrf, gp)
+        out[f"{setting}_capture_ms"] = gp.graphs.stats()["capture_ms"]
+        out[f"{setting}_pool_bytes"] = gp.graphs.pool_bytes()
+        print(f"[graphs] {setting}: {len(gp.graphs.entries())} graphs, pool {out[f'{setting}_pool_bytes']} bytes, "
+              f"capture ms per key {json.dumps(out[f'{setting}_capture_ms'])}")
+        if setting != "f32":
+            continue
+
+        # streaming: chunked windows and long-form segments through the graphs, against the eager path
+        for strat, fn in (("stream", stream_synthesise), ("auto", auto_stream)):
+            got = np.concatenate(list(fn(gp, STORY, spk=79, n_timesteps=STEPS, seed=3)))
+            want = np.concatenate(list(fn(ep, STORY, spk=79, n_timesteps=STEPS, seed=3)))
+            if got.shape != want.shape or not np.array_equal(got, want):
+                raise RuntimeError(f"[graphs] {strat} on the story differs from the eager path")
+            print(f"[graphs] {strat} on the story: {got.size} samples equal to the eager path's")
+
+        # the engine's warmup, then webapp-style calls from 32 threads on its batch-1 key
+        for max_batch in (8, 32):
+            gp.graphs.drop()
+            torch.cuda.empty_cache()
+            with BatchingEngine(gp, max_batch=max_batch, max_wait_ms=10) as eng:
+                eng.warmup(n_timesteps=STEPS)
+            out[f"pool_bytes_engine_{max_batch}"] = gp.graphs.pool_bytes()
+            out[f"graphs_engine_{max_batch}"] = len(gp.graphs.entries())
+            print(f"[graphs] engine warmup at max_batch {max_batch}: {out[f'graphs_engine_{max_batch}']} graphs, "
+                  f"pool {out[f'pool_bytes_engine_{max_batch}']} bytes")
+            if max_batch != 8:
+                continue
+            captures = gp.graphs.captures
+            kws = [dict(spks=[0], seed=i, temperature=0.4 + i / 100, denoiser_strength=STRENGTH * (1 + i % 4),
+                        n_timesteps=STEPS, keep_mel=False, pcm16=True) for i in range(GRAPH_THREADS)]
+            mrf.launches.clear()
+            with ThreadPoolExecutor(GRAPH_THREADS) as pool:
+                got = list(pool.map(lambda kw: gp.synthesise(["a " * 10], **kw)[0], kws))
+            threaded = sum(mrf.launches.values())
+            out["k1_launches"] += threaded
+            if gp.graphs.captures != captures or threaded != 4 * GRAPH_THREADS:
+                raise RuntimeError(f"[graphs] {GRAPH_THREADS} threads: {gp.graphs.captures - captures} captures, "
+                                   f"{threaded} mrf_stage calls")
+            for i, (g, kw) in enumerate(zip(got, kws)):
+                w = ep.synthesise(["a " * 10], **kw)[0]
+                if not np.array_equal(g.wav, w.wav):
+                    raise RuntimeError(f"[graphs] thread {i}: its result differs from its own eager call "
+                                       f"(max-abs {float(abs(g.wav - w.wav).max()) if g.wav.shape == w.wav.shape else -1})")
+            print(f"[graphs] {GRAPH_THREADS} concurrent calls on the engine's batch-1 key: each equal to its own eager "
+                  f"call, no capture, {threaded} mrf_stage calls")
+        del gp, ep
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[graphs] K1 nodes per vocoder graph against its stages' launches: {json.dumps(out['nodes'])}")
+    return out
 
 
 def receptive_field_frames(cfg) -> int:
@@ -3116,6 +3306,7 @@ def main() -> int:
     if not all(r["ok"] for r in rows):
         raise RuntimeError("K1 disagrees with its plain twin")
     pipe, launches = timed("synth", phase_synthesis, mrf)
+    graphs = timed("graphs", phase_graphs, mrf)
     mas_rows = timed("kernel K2", phase_kernel_mas, mas)
     training = timed("train + vocoder", phase_training, mas, mrf)
     serving = timed("serve", phase_serving, pipe, mrf)
@@ -3139,7 +3330,7 @@ def main() -> int:
     # process and on every rank, and [bench]'s train steps and MAS timings
     launches += serving["k1_launches"] + training["k1_launches"] + exported["k1_launches"] \
         + exported["k1_launches_live"] + conformer["k1_launches"] + apps["k1_launches"] + parallel["k1_launches"] \
-        + bench["k1_launches"]
+        + bench["k1_launches"] + graphs["k1_launches"]
     k2_launches = training["launches"] + conformer["k2_launches"] + scratch["k2_launches"] + swept["k2_launches"] \
         + parallel["k2_launches"] + bench["k2_launches"]
 
@@ -3177,7 +3368,7 @@ def main() -> int:
         "source": "emojivoice_tpu_torch/csrc/mrf_bf16.cu",
         "replaces": "emojivoice_tpu/ops/pallas_mrf.py:192",
         "launches": precision["k1_bf16_launches"] + conformer["k1_bf16_launches"] + parallel["k1_bf16_launches"]
-        + bench["k1_bf16_launches"],
+        + bench["k1_bf16_launches"] + graphs["k1_bf16_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in bf16_rows),
         "ms": sum(r["ms"] for r in bf16_stage),
         "plain_ms": sum(r["plain_ms"] for r in bf16_stage),

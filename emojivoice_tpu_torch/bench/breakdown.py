@@ -1,6 +1,6 @@
 """Where the serving wall clock goes on the card (twin of ``tools/bench_breakdown.py``).
 
-    python -m emojivoice_tpu_torch.bench.breakdown [--repeats 10] [--profiled 3]
+    python -m emojivoice_tpu_torch.bench.breakdown [--repeats 10] [--profiled 3] [--eager]
 
 Splits ``bench.synthesis``'s operating point (batch 1, fused at the headline
 text's mel bucket, 10 Euler steps, pcm16, the denoiser at 0.00025, speaker
@@ -22,7 +22,8 @@ Prints one JSON line with the twin's keys (``compute_ms``, ``e2e_ms``,
 audio length is this run's, where the twin wrote 5.68 s), the busy share
 (compute over the profiled calls' own wall), the device activities, K1's
 device ms and its ``mrf_stage`` calls in one call, the card's name and power
-limit.
+limit.  Through captured CUDA graphs (the pipeline's default on the card)
+unless ``--eager``, as ``graphs`` says.
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ def main(argv=None) -> int:
     ap.add_argument("--repeats", type=int, default=10)
     ap.add_argument("--profiled", type=int, default=3)
     ap.add_argument("--steps", type=int, default=STEPS)
+    util.add_eager_arg(ap)
     args = ap.parse_args(argv)
     device = util.resolve_device(args.cpu, "bench.breakdown")
     m, info = util.Measure(device), util.device_info(device)
@@ -52,7 +54,7 @@ def main(argv=None) -> int:
     from emojivoice_tpu_torch.utils.buckets import pick_bucket
 
     pipe = SynthesisPipeline.from_random(config.get_preset(args.preset), seed=0, device=device,
-                                         cleaners=("basic_cleaners",))
+                                         cleaners=("basic_cleaners",), graphs=False if args.eager else None)
     kw = dict(spks=[args.spk], n_timesteps=args.steps, denoiser_strength=STRENGTH, keep_mel=False, pcm16=True)
     first = pipe.synthesise([util.HEADLINE], seed=0, **kw)[0]
     m_bucket = pick_bucket(first.mel_length, pipe.mel_buckets)
@@ -89,7 +91,7 @@ def main(argv=None) -> int:
         "device_activities": m(profs[0]["device_activities"]),
         "k1_device_ms": m(statistics.median(p["k1_device_ms"] for p in profs)), "k1_launches": k1_launches,
         "audio_s": round(audio_s, 3), "mel_bucket": m_bucket, "n_timesteps": args.steps, "batch": 1,
-        "backend": device.type, "torch": torch.__version__, **info,
+        "backend": device.type, "torch": torch.__version__, **util.graphs_info(pipe), **info,
     }
     util.emit(report)
     return 0

@@ -1,7 +1,7 @@
 """Steady-state serving through the BatchingEngine on the card (twin of ``tools/bench_serving.py``).
 
     python -m emojivoice_tpu_torch.bench.serving [--clients 1,8,32] [--window_s 32] [--rates 2,4,8]
-        [--bundle] [--vocoder_bf16]
+        [--bundle] [--vocoder_bf16] [--eager]
 
 Two measurements over ``BatchingEngine(max_batch=8, max_wait_ms=15)`` on
 emoji_multi + HiFi-GAN v1 (random weights, 10 Euler steps, pcm16):
@@ -23,8 +23,11 @@ emoji_multi + HiFi-GAN v1 (random weights, 10 Euler steps, pcm16):
 ``--bundle`` serves an exported bundle (``inference/export.py``, text bucket
 128 × mel bucket 512, batches 1 and ``--max_batch``, written to a temporary
 folder) through ``BundleSynthesisPipeline`` instead of the live pipeline.
-Prints one JSON line with the twin's keys (``device_kind`` is the card's
-name), the card's count and power limit.
+The live pipeline serves through captured CUDA graphs (its default on the
+card) unless ``--eager``; ``graphs_after_warmup`` holds what the engine's
+warmup captured and the graph pool's bytes then.  Prints one JSON line with
+the twin's keys (``device_kind`` is the card's name), the card's count and
+power limit.
 """
 
 from __future__ import annotations
@@ -157,6 +160,7 @@ def main(argv=None) -> int:
     ap.add_argument("--bundle", action="store_true", help="serve an exported bundle instead of the live pipeline")
     ap.add_argument("--vocoder_bf16", action="store_true", help="K1's bf16 mode for the vocoder (vocoder_dtype)")
     ap.add_argument("--steps", type=int, default=10)
+    util.add_eager_arg(ap)
     args = ap.parse_args(argv)
     device = util.resolve_device(args.cpu, "bench.serving")
     m, info = util.Measure(device), util.device_info(device)
@@ -169,7 +173,8 @@ def main(argv=None) -> int:
 
     pipe = SynthesisPipeline.from_random(config.get_preset(args.preset), seed=0, device=device,
                                          cleaners=("basic_cleaners",),
-                                         vocoder_dtype=torch.bfloat16 if args.vocoder_bf16 else torch.float32)
+                                         vocoder_dtype=torch.bfloat16 if args.vocoder_bf16 else torch.float32,
+                                         graphs=False if args.eager else None)
     b = args.max_batch
     with tempfile.TemporaryDirectory(prefix="emojivoice_serving_bundle_") as tmp:
         backend = pipe
@@ -184,6 +189,7 @@ def main(argv=None) -> int:
         points = []
         with BatchingEngine(backend, max_batch=b, max_wait_ms=15, batch_buckets=(1, b)) as eng:
             eng.warmup(n_timesteps=args.steps)
+            warm_graphs = util.graphs_info(pipe)  # what the engine's warmup captured
             for attempt in range(10):  # settle: every (text, mel) bucket these texts reach, once
                 t0 = time.monotonic()
                 futs = [eng.submit(TEXTS[(attempt + i) % 4], spk=70 + i % 8, n_timesteps=args.steps)
@@ -215,7 +221,8 @@ def main(argv=None) -> int:
         "errors": stats["errors"], "k1_mode": "bf16" if args.vocoder_bf16 and not args.bundle else "f32",
         # mrf_stage calls that launched K1 over the measured points (a bundle's programs launch it through the
         # registered op, counted alike), and the batches they vocoded
-        "k1_launches": k1_launches, "batches": sum(p["batches"] for p in points), **info,
+        "k1_launches": k1_launches, "batches": sum(p["batches"] for p in points),
+        "graphs_after_warmup": warm_graphs, **util.graphs_info(pipe), **info,
     }
     util.emit(report)
     return 0

@@ -1,6 +1,7 @@
 """End-to-end synthesis RTF at 10 Euler steps on the card (twin of ``bench.py``).
 
     python -m emojivoice_tpu_torch.bench.synthesis [--skip_sweep] [--compute_dtype bf16] [--vocoder_dtype bf16]
+        [--eager]
 
 Builds ``SynthesisPipeline.from_random(<preset>, seed=0)`` (emoji_multi +
 HiFi-GAN v1 at full width, random weights), sizes the headline text's mel
@@ -31,7 +32,10 @@ Keys mapped from the twin's provenance: ``jax`` → ``torch`` and ``cuda``;
 card's vocoder always runs K1); ``vocoder_dtype`` is new (the precision
 switches, ``--compute_dtype`` / ``--vocoder_dtype``).  Not ported:
 ``_wait_for_backend`` (a tunnel's), the compilation cache, the
-``EMOJIVOICE_BENCH_SWEEP`` variable (the sweep is a flag).
+``EMOJIVOICE_BENCH_SWEEP`` variable (the sweep is a flag).  The pipeline
+serves through captured CUDA graphs (its default on the card) unless
+``--eager``; ``graphs`` and ``graph_store`` (captures, capture ms per key,
+the pool's bytes) say which.
 """
 
 from __future__ import annotations
@@ -174,6 +178,7 @@ def main(argv=None) -> int:
     ap.add_argument("--compute_dtype", choices=sorted(util.DTYPES), default="f32")
     ap.add_argument("--vocoder_dtype", choices=sorted(util.DTYPES), default="f32")
     ap.add_argument("--steps", type=int, default=STEPS)
+    util.add_eager_arg(ap)
     args = ap.parse_args(argv)
     device = util.resolve_device(args.cpu, "bench.synthesis")
     m, info = util.Measure(device), util.device_info(device)
@@ -184,7 +189,8 @@ def main(argv=None) -> int:
 
     pipe = SynthesisPipeline.from_random(config.get_preset(args.preset), seed=0, device=device,
                                          cleaners=("basic_cleaners",), compute_dtype=util.DTYPES[args.compute_dtype],
-                                         vocoder_dtype=util.DTYPES[args.vocoder_dtype])
+                                         vocoder_dtype=util.DTYPES[args.vocoder_dtype],
+                                         graphs=False if args.eager else None)
     kw = dict(n_timesteps=args.steps, denoiser_strength=STRENGTH, keep_mel=False, pcm16=True)
     t0 = time.perf_counter()
     first = pipe.synthesise([util.HEADLINE], spks=[args.spk], seed=0, **kw)[0]
@@ -220,6 +226,7 @@ def main(argv=None) -> int:
                       f"({check['row_rtf']:.5f}) differ by more than their spread ({check['spread']:.5f})",
                       file=sys.stderr)
     profile_rows(m, *zip(*timed))  # after every timed call
+    report.update(util.graphs_info(pipe))
     report.update(info)
     util.emit(report)
     return 0

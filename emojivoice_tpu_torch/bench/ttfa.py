@@ -1,6 +1,6 @@
 """Conversational time to first audio on the card (twin of ``tools/bench_ttfa.py``).
 
-    python -m emojivoice_tpu_torch.bench.ttfa [--reps 5] [--segment_chars 120]
+    python -m emojivoice_tpu_torch.bench.ttfa [--reps 5] [--segment_chars 120] [--eager]
 
 Per utterance length (the twin's three texts), text in → first audible
 sample out, under four strategies on emoji_multi + HiFi-GAN v1 (random
@@ -19,7 +19,8 @@ Each strategy is warmed first, then the median of ``--reps`` runs of
 (ttfa_ms, total_ms, audio_s) is kept.  Prints one JSON line with the
 twin's keys (``backend`` "cuda", ``device_kind`` the card's name), K1's
 ``mrf_stage`` calls per run of each strategy, the card's count and power
-limit.
+limit.  Through captured CUDA graphs (the pipeline's default on the card;
+streaming windows replay the vocoder's) unless ``--eager``.
 """
 
 from __future__ import annotations
@@ -69,6 +70,7 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--segment_chars", type=int, default=120)
+    util.add_eager_arg(ap)
     args = ap.parse_args(argv)
     device = util.resolve_device(args.cpu, "bench.ttfa")
     m, info = util.Measure(device), util.device_info(device)
@@ -79,7 +81,8 @@ def main(argv=None) -> int:
     from emojivoice_tpu_torch.inference.streaming import auto_stream, stream_synthesise
 
     root = config.get_preset(args.preset)
-    pipe = SynthesisPipeline.from_random(root, seed=0, device=device, cleaners=("basic_cleaners",))
+    pipe = SynthesisPipeline.from_random(root, seed=0, device=device, cleaners=("basic_cleaners",),
+                                         graphs=False if args.eager else None)
     spk = min(args.spk, root.model.n_spks - 1)
     kw = dict(n_timesteps=args.steps, seed=0)
     report = {"preset": args.preset, "steps": args.steps, "backend": device.type, "device_kind": info["device"],
@@ -99,6 +102,7 @@ def main(argv=None) -> int:
         report["lengths"][name] = entry
         print(f"[ttfa] {name}: " + "  ".join(f"{s}={e['ttfa_ms']}ms/{e['audio_s']}s" for s, e in entry.items()),
               file=sys.stderr, flush=True)
+    report.update(util.graphs_info(pipe))
     report.update(info)
     util.emit(report)
     return 0

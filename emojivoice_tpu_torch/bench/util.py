@@ -126,6 +126,20 @@ def add_device_args(ap: argparse.ArgumentParser, preset: bool = True) -> None:
         ap.add_argument("--spk", type=int, default=79, help="speaker id (79 is the 😎 voice of emoji_multi)")
 
 
+def add_eager_arg(ap: argparse.ArgumentParser) -> None:
+    ap.add_argument("--eager", action="store_true",
+                    help="serve eagerly, one kernel launch at a time (SynthesisPipeline(graphs=False)), to time "
+                         "against the default captured CUDA graphs")
+
+
+def graphs_info(pipe) -> dict:
+    """How the pipeline served: through captured CUDA graphs or eagerly, and
+    its graph store's graphs, captures, capture ms per key and pool bytes."""
+    if pipe.graphs is None:
+        return {"graphs": False}
+    return {"graphs": True, "graph_store": {**pipe.graphs.stats(), "pool_bytes": pipe.graphs.pool_bytes()}}
+
+
 def resolve_device(cpu: bool, tool: str) -> torch.device:
     """The tool's device: the CPU when asked, else the card with TF32 off
     (K1's 3xTF32 products aside); without a card the tool stops with a

@@ -44,6 +44,24 @@ does not delay it.  Each call records when every stage ended (CUDA events
 on the card, the host clock on the CPU) and reports per-stage milliseconds
 beside the reference RTF formulas.
 
+**Through captured CUDA graphs** (``graphs=``; the default on a CUDA device
+without a mesh, as ``jax.jit`` is the reference's default): each stage of a
+call is one graph per bucket key (``inference/graphs.py``), replayed from
+static buffers: encoder + durations keyed (text bucket, batch, speakers,
+dtype), the CFM decode (text bucket, mel bucket, batch, steps, dtype), the
+vocoder with K1 on every MRF stage (batch, frames, K1's mode: streaming
+windows replay it too) and the denoiser with the pcm16 cast (batch, samples,
+denoise, pcm16).  A call is then about four graph launches where the eager
+path makes thousands of kernel launches; the clock marks between the graphs
+keep ``stage_ms``'s keys, and the two-stage host read stays between stage A
+and stage B.  The noise is drawn outside the graphs and copied in with the
+ids, lengths, speakers, ``length_scale`` and ``denoiser_strength``.  A key is
+captured at its first use (``warmup`` captures what its request hits), new
+weights drop the graphs, and the store's lock serializes a call's copies in,
+replays and copies out against other threads (the webapp's handlers).
+``graphs=False`` keeps the eager path (the CPU's default, for tests and A/B
+timing); on the CPU ``graphs=True`` runs the same staging without capturing.
+
 **Over a mesh** (``mesh=``, a ``parallel/mesh.py`` mesh over ranks that each
 build the same pipeline and make the same calls): the acoustic model and the
 vocoder are laid out by ``parallel/tp.py``'s rules on the model axis (the
@@ -70,6 +88,7 @@ import torch
 
 from emojivoice_tpu_torch import config as cfglib
 from emojivoice_tpu_torch import text as textlib
+from emojivoice_tpu_torch.inference.graphs import GraphStore
 from emojivoice_tpu_torch.models.matcha import MatchaTTS
 from emojivoice_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, collectives, gather_rows, rows
 from emojivoice_tpu_torch.parallel.tp import shard_params
@@ -138,14 +157,22 @@ class SynthesisPipeline:
                  text_buckets: Sequence[int] = None, mel_buckets: Sequence[int] = None,
                  cleaners: Sequence[str] = ("english_cleaners2",), device="cuda", denoiser_mode: str = "zeros",
                  compute_dtype: torch.dtype = torch.float32, vocoder_dtype: torch.dtype = torch.float32,
-                 mesh: Optional[Mesh] = None):
+                 mesh: Optional[Mesh] = None, graphs: Optional[bool] = None):
         """`denoiser_mode` "zeros" or "normal" picks the denoiser's bias probe;
         `compute_dtype` and `vocoder_dtype` are f32 or bf16; `mesh` serves
-        over ranks (module docstring; `device` is then this rank's)."""
+        over ranks (module docstring; `device` is then this rank's); `graphs`
+        serves through captured CUDA graphs (module docstring): on by default
+        on a CUDA device without a mesh, off otherwise; True on the CPU runs
+        the graph path's staging without capturing."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError('SynthesisPipeline: no CUDA device is available (pass device="cpu" to synthesise '
                                'on the CPU)')
+        if graphs and mesh is not None:
+            raise ValueError("SynthesisPipeline: graphs=True with a mesh: serving over a mesh runs eagerly (its "
+                             "collectives are not captured); pass graphs=False or no mesh")
+        if graphs is None:
+            graphs = self.device.type == "cuda" and mesh is None
         if (vocoder_cfg is None) != (vocoder is None):
             raise ValueError("SynthesisPipeline: give both vocoder_cfg and vocoder, or neither (a mel-only pipeline)")
         for name, dtype in (("compute_dtype", compute_dtype), ("vocoder_dtype", vocoder_dtype)):
@@ -175,6 +202,7 @@ class SynthesisPipeline:
         # the bias probe runs the f32 vocoder in every precision
         self.denoiser = (Denoiser(self.vocoder, num_mels=model_cfg.n_feats, device=self.device, mode=denoiser_mode)
                          if self.vocoder is not None else None)
+        self.graphs = GraphStore(self.device) if graphs else None
 
     # ------------------------------------------------------------------ #
     # constructors
@@ -304,19 +332,45 @@ class SynthesisPipeline:
         """The pipeline's vocoder call, mel (B, T, n_feats) → wav (B, T·hop)
         f32: K1 on every MRF stage on the card, in bf16 mode where the
         pipeline's precision says so.  Chunked streaming vocodes through it,
-        so streamed and monolithic audio come from the same kernels."""
+        so streamed and monolithic audio come from the same kernels, and
+        through one graph per (batch, frames, dtype) where the pipeline
+        serves through graphs."""
+        if self.graphs is None:
+            return self._vocoder_fn(mel)
+        with self.graphs.lock:
+            return self.graphs.run(("vocoder", mel.shape[0], mel.shape[1], self.vocode_dtype), self._vocoder_fn,
+                                   (mel,), weights=(self.vocoder,))[0]
+
+    def _vocoder_fn(self, mel: torch.Tensor) -> torch.Tensor:
         return self.vocoder(mel.float(), compute_dtype=self.vocode_dtype)
+
+    def _post_fn(self, denoise: bool, pcm16: bool):
+        """The stage after the vocoder: the denoiser at a runtime strength,
+        then the pcm16 cast."""
+        def post(wav, strength):
+            if denoise:
+                wav = self.denoiser(wav, strength)
+            if pcm16:
+                # on device, before the copy: clip, scale, truncating cast
+                wav = (torch.clamp(wav, -1.0, 1.0) * 32767.0).to(torch.int16)
+            return wav
+        return post
 
     @torch.no_grad()
     def _vocode_denoise_pcm(self, mel, denoise: bool, denoiser_strength: float, pcm16: bool, clock):
+        """The vocoder, then the denoiser and the pcm16 cast as one stage
+        (one graph keyed (batch, samples, denoise, pcm16) through graphs)."""
         wav = self._vocode(mel)
         clock.mark("vocoder")
-        if denoise:
-            wav = self.denoiser(wav, denoiser_strength)
-            clock.mark("denoiser")
-        if pcm16:
-            # on device, before the copy: clip, scale, truncating cast
-            wav = (torch.clamp(wav, -1.0, 1.0) * 32767.0).to(torch.int16)
+        if denoise or pcm16:
+            post = self._post_fn(denoise, pcm16)
+            if self.graphs is None:
+                wav = post(wav, denoiser_strength)
+            else:
+                wav, = self.graphs.run(("denoiser", wav.shape[0], wav.shape[1], denoise, pcm16), post,
+                                       (wav, float(denoiser_strength)), weights=(self.denoiser.bias_spec,))
+            if denoise:
+                clock.mark("denoiser")
         return wav
 
     # ------------------------------------------------------------------ #
@@ -363,6 +417,12 @@ class SynthesisPipeline:
             if self.mesh is not None:
                 raise ValueError("over a mesh every rank must draw the same noise: pass a seed")
             seed = int(np.random.randint(0, 2**31))
+        if self.graphs is not None:
+            with self.graphs.lock:
+                out, clock = self._staged(x_np, xl_np, spks, seed, n_timesteps, temperature, length_scale,
+                                          denoiser_strength, fused, fused_mel_bucket, keep_mel, vocode, pcm16)
+                out, done = to_host_async(out)
+            return PendingSynthesis(out=out, cleaned=cleaned, b=b, t0=t0, clock=clock, done=done)
         clock = StageClock(self.device)
         # over a mesh whose data axis divides the batch, this rank's rows; all of them otherwise
         group = self.mesh.group(DATA_AXIS) if self.mesh is not None and b % self.mesh.size(DATA_AXIS) == 0 \
@@ -404,6 +464,58 @@ class SynthesisPipeline:
         out, done = to_host_async(out)
         return PendingSynthesis(out=out, cleaned=cleaned, b=b, t0=t0, clock=clock, done=done)
 
+    def _staged(self, x_np, xl_np, spks, seed, n_timesteps, temperature, length_scale, denoiser_strength, fused,
+                fused_mel_bucket, keep_mel, vocode, pcm16):
+        """``synthesise_async``'s work through the graph store, one graph per
+        stage: encoder + durations, CFM decode, vocoder, denoiser + pcm16;
+        called under the store's lock → (device outputs, clock).  The keys
+        carry what the JAX pipeline's keys carry (``_get_stage_a`` /
+        ``_get_stage_b`` / ``_get_fused``) and changes a program here: the
+        buckets, the batch, the step count, the dtypes, denoise and pcm16;
+        `length_scale`, `denoiser_strength`, the noise (with the temperature
+        in it) and the speakers are runtime inputs.  ``keep_mel`` and
+        ``vocode`` pick which outputs are copied out and whether the vocoder's
+        graphs run, not a program."""
+        g = self.graphs
+        b, t_bucket = x_np.shape
+        clock = StageClock(self.device)
+        x = upload(torch.from_numpy(x_np), self.device)
+        x_lengths = upload(torch.from_numpy(xl_np), self.device)
+        spk = self._speakers(spks, b)
+        # fused, the encoder runs in the compute dtype; two-stage, stage A stays f32 (the JAX stage A casts nothing)
+        model = self.compute_model if fused else self.model
+        enc_key = ("encoder", t_bucket, b, spk is not None, self.compute_dtype if fused else torch.float32)
+        enc = g.run(enc_key, model.encode_text, (x, x_lengths, spk, float(length_scale)), weights=(model,))
+        clock.mark("encoder")
+        if fused:
+            m_bucket = fused_mel_bucket or self.mel_buckets[-1]
+        else:
+            # the host sync: the predicted mel length picks the mel bucket
+            m_bucket = pick_bucket(fix_len_compatibility(int(enc[2].max().item())), self.mel_buckets)
+        z = synthesis_noise(seed, b, m_bucket, self.model_cfg.n_feats, temperature, self.device)  # f32
+        mel, mel_lengths = g.run(("decoder", t_bucket, m_bucket, b, n_timesteps, self.compute_dtype),
+                                 self._decode_fn(m_bucket, n_timesteps), (*enc, z), weights=(self.compute_model,))
+        clock.mark("decoder")
+        out = {"mel_lengths": mel_lengths}
+        if keep_mel:
+            out["mel"] = mel.float()
+        if vocode:
+            out["wav"] = self._vocode_denoise_pcm(mel, denoiser_strength > 0, denoiser_strength, pcm16, clock)
+        return out, clock
+
+    def _decode_fn(self, m_bucket: int, n_timesteps: int):
+        """Stage B's decode on stage A's outputs, cast to the compute dtype
+        first (as the JAX stage B casts; a no-op on the fused path's) →
+        (mel, mel_lengths)."""
+        dt = self.compute_dtype
+
+        def decode(mu_x, w_ceil, y_lengths, x_mask, spk_e, z):
+            spk_e = spk_e.to(dt) if spk_e is not None else None
+            dec = self.compute_model.decode_mel(mu_x.to(dt), w_ceil, y_lengths, x_mask.to(dt), spk_e, m_bucket,
+                                                n_timesteps, z)
+            return dec["mel"], dec["mel_lengths"]
+        return decode
+
     def finalize(self, p: PendingSynthesis) -> list[SynthesisResult]:
         """Wait for an enqueued batch's host copies and build the results.
         The RTF clock spans enqueue → copy of this batch."""
@@ -430,8 +542,10 @@ class SynthesisPipeline:
 
     def warmup(self, n_timesteps: int = 10, batch: int = 1, fused: bool = False, keep_mel: bool = True,
                vocode: bool = True, pcm16: bool = False):
-        """Run one short request with the serving flags (first-call
-        allocations, cuFFT plans and the kernel build happen here)."""
+        """Run one short request with the serving flags: through graphs,
+        this captures the keys it hits, as the reference's warmup compiles
+        them; eagerly, first-call allocations, cuFFT plans and the kernel
+        build happen here."""
         self.synthesise(["a " * 10] * batch, spks=[0] * batch if self.model_cfg.n_spks > 1 else None,
                         n_timesteps=n_timesteps, seed=0, fused=fused, keep_mel=keep_mel, vocode=vocode,
                         pcm16=pcm16)

@@ -180,9 +180,10 @@ class BatchingEngine:
     def warmup(self, n_timesteps: Optional[int] = None,
                batches: Optional[Sequence[int]] = None):
         """Run one request per batch bucket with the flags this engine
-        dispatches (keep_mel off, its pcm16), so first-call costs (the kernel
-        build, allocator growth, cuDNN/cuFFT plan selection per shape) are
-        paid before serving.  ``n_timesteps=None`` warms the backend's own
+        dispatches (keep_mel off, its pcm16), so first-call costs (on the
+        card the capture of each stage's CUDA graph at these keys, with the
+        kernel build, allocator growth and cuFFT plans before it) are paid
+        before serving.  ``n_timesteps=None`` warms the backend's own
         operating point, like submit()."""
         if n_timesteps is None:
             n_timesteps = int(getattr(self.pipe, "n_timesteps", 10))

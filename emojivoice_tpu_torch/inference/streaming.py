@@ -30,8 +30,9 @@ class StreamingVocoder:
     def __init__(self, vocoder, chunk_frames: int = 64, overlap: int = 8, vocode_fn=None):
         """``vocode_fn(mel) -> wav`` overrides the vocoder's plain forward:
         the pipeline passes its own ``_vocode`` so chunks take the same path
-        (K1 on the card) as monolithic vocoding, and the exactness contract
-        compares like with like."""
+        (K1 on the card, through one captured graph per window shape where
+        the pipeline serves through graphs) as monolithic vocoding, and the
+        exactness contract compares like with like."""
         self.vocoder = vocoder
         self.chunk_frames = chunk_frames
         self.overlap = overlap

@@ -5,6 +5,9 @@ whose name the CUDA driver API gives back.
 
     n = kernel_launches(lambda: mrf.mrf_stage(x, packed, ks, ds), ("k1_bf16_unit_kernel",))
 
+``graph_kernel_nodes`` reads a graph captured elsewhere the same way (the
+serving pipeline's, ``inference/graphs.py`` with ``keep_graphs=True``).
+
 The call must launch on torch's current stream (the port's kernel wrappers
 do) and must not synchronize.  The profiler's device events are no substitute
 here: late in a long process on an H100 they lost one or more of a stage's
@@ -28,10 +31,18 @@ def _check(err: int, what: str) -> None:
 def kernel_launches(fn, names) -> int:
     """Kernels that one call of fn() launches whose (mangled) function name
     holds one of `names`."""
-    cuda = ctypes.CDLL("libcuda.so.1")
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(graph, capture_error_mode="thread_local"):
         fn()
+    count = graph_kernel_nodes(graph, names)
+    graph.reset()
+    return count
+
+
+def graph_kernel_nodes(graph: torch.cuda.CUDAGraph, names) -> int:
+    """Kernel nodes of a captured graph (made with ``keep_graph=True``)
+    whose (mangled) function name holds one of `names`."""
+    cuda = ctypes.CDLL("libcuda.so.1")
     raw = ctypes.c_void_p(graph.raw_cuda_graph())
     n = ctypes.c_size_t(0)
     _check(cuda.cuGraphGetNodes(raw, None, ctypes.byref(n)), "cuGraphGetNodes")
@@ -48,5 +59,4 @@ def kernel_launches(fn, names) -> int:
         name = ctypes.c_char_p()
         _check(cuda.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p.from_buffer(params, 0)), "cuFuncGetName")
         count += any(k in name.value.decode() for k in names)
-    graph.reset()
     return count

@@ -33,7 +33,7 @@ the one-device ones.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 import torch.nn as nn
@@ -68,9 +68,13 @@ class MatchaTTS(nn.Module):
         return None
 
     @torch.no_grad()
-    def encode_text(self, x, x_lengths, spks=None, length_scale: float = 1.0):
+    def encode_text(self, x, x_lengths, spks=None, length_scale: Union[float, torch.Tensor] = 1.0):
         """Stage A: encoder + durations → (mu_x, w_ceil, y_lengths, x_mask, spk_e).
-        The caller reads y_lengths on the host to pick a mel bucket."""
+        The caller reads y_lengths on the host to pick a mel bucket.
+        `length_scale` is a float or a 0-d f32 tensor on x's device: a
+        captured graph reads the tensor's value at each replay, where a float
+        would be baked into it (``inference/graphs.py``); both give the same
+        bits."""
         spk_e = self._embed_spks(spks)
         x_mask = sequence_mask(x_lengths, x.shape[1]).float()[..., None]
         mu_x, logw = self.encoder(x, x_mask, spk_e)

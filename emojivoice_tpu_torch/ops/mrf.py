@@ -46,6 +46,7 @@ bits.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import threading
 from typing import NamedTuple, Sequence, Tuple
@@ -58,7 +59,10 @@ KC = 32  # input channels per slice of K1's tiled weights (csrc/mrf.cu)
 BF16_BM = 128  # frames of one conv pass of a block of K1's bf16 mode (csrc/mrf_bf16.cu)
 
 # K1 launches by (channel width, mode "f32" or "bf16"): one per ``mrf_stage`` call on a CUDA tensor
+# (``inference/graphs.py`` adds a captured graph's count on each replay)
 launches: collections.Counter = collections.Counter()
+# the open ``tally()`` blocks of each thread
+_tallies = threading.local()
 # Serving threads (HTTP handlers, the batching engine's worker) vocode at the same time, and ctypes
 # releases the GIL during a call.  K1's host code sets a kernel's dynamic shared-memory size and then
 # launches it; a second thread setting a smaller size in between would make that launch fail, and an
@@ -215,6 +219,35 @@ def _check(x: torch.Tensor, packed, kernel_sizes, dilation_sizes) -> bool:
     return bf16
 
 
+@contextlib.contextmanager
+def tally():
+    """Counts this thread's K1 launches inside the block, beside
+    ``launches``: yields a Counter keyed as ``launches`` is."""
+    counts = collections.Counter()
+    stack = _tallies.__dict__.setdefault("stack", [])
+    stack.append(counts)
+    try:
+        yield counts
+    finally:
+        stack.remove(counts)
+
+
+def count_launch(c: int, mode: str) -> None:
+    """One ``mrf_stage`` launch of width `c` in `mode`, in ``launches`` and
+    in this thread's open tallies.  Called under ``_launch_lock``."""
+    launches[(c, mode)] += 1
+    for counts in getattr(_tallies, "stack", ()):
+        counts[(c, mode)] += 1
+
+
+def add_launches(counts: collections.Counter, sign: int = 1) -> None:
+    """Adds (or with `sign` −1 takes back) `counts` to ``launches``: a
+    replayed graph's launches, or a graph build's."""
+    with _launch_lock:
+        for key, n in counts.items():
+            launches[key] += sign * n
+
+
 def _raise_on(lib, err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"K1 {what} launch failed: CUDA error {err} ({lib.mrf_error_string(err).decode()})")
@@ -273,7 +306,7 @@ def _launch_k1(x: torch.Tensor, weights, kernel_sizes, dilation_sizes) -> torch.
                 rb.w1.data_ptr(), rb.b1.data_ptr(), rb.w2.data_ptr(), rb.b2.data_ptr(),
                 b, t, c, k, len(dils), dil_arr, int(r > 0), 1.0 / n, stream)
             _raise_on(lib, err, f"mrf_resblock_{mode} at B={b} T={t} C={c} k={k}")
-        launches[(c, mode)] += 1
+        count_launch(c, mode)
     return out
 
 

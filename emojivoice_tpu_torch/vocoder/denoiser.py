@@ -16,6 +16,8 @@ is ``ops.stft.istft``'s overlap-add, which reads nothing on the host.
 
 from __future__ import annotations
 
+from typing import Union
+
 import torch
 
 from emojivoice_tpu_torch.ops.stft import istft, stft_complex
@@ -25,9 +27,11 @@ HOP = N_FFT // 4
 WIN = 1024
 
 
-def denoise(audio: torch.Tensor, bias_spec: torch.Tensor, strength: float) -> torch.Tensor:
+def denoise(audio: torch.Tensor, bias_spec: torch.Tensor, strength: Union[float, torch.Tensor]) -> torch.Tensor:
     """audio (B, L) → denoised audio (B, hop · (n_frames − 1)) with the bias
-    spectrum `bias_spec` (1, 1, F)."""
+    spectrum `bias_spec` (1, 1, F).  `strength` is a float or a 0-d f32
+    tensor on audio's device (a captured graph's runtime value: a float would
+    be baked into the graph); both give the same bits."""
     spec = stft_complex(audio, N_FFT, HOP, WIN)
     mag = spec.abs()
     mag_d = torch.clamp_min(mag - bias_spec * strength, 0.0)
@@ -49,6 +53,7 @@ class Denoiser:
         self.bias_spec = spec[:, 0:1, :].abs()  # (1, 1, F)
 
     @torch.no_grad()
-    def __call__(self, audio: torch.Tensor, strength: float = 0.0005) -> torch.Tensor:
-        """audio (B, L) → denoised audio (B, hop · (n_frames − 1))."""
+    def __call__(self, audio: torch.Tensor, strength: Union[float, torch.Tensor] = 0.0005) -> torch.Tensor:
+        """audio (B, L) → denoised audio (B, hop · (n_frames − 1)); `strength`
+        as ``denoise`` takes it."""
         return denoise(audio, self.bias_spec, strength)

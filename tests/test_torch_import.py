@@ -49,6 +49,7 @@ names = [m.name for m in pkgutil.walk_packages(emojivoice_tpu_torch.__path__, "e
 for want in ("ops.mas", "ops.mel", "data.dataset", "data.audio_np", "training.train", "training.state",
              "training.synthetic", "io.checkpoint", "io.from_jax", "kernels.build", "config", "apps.emoji",
              "inference.serving", "inference.streaming", "inference.longform", "inference.cli", "apps.webapp",
+             "inference.graphs",
              "io.torch_ckpt", "utils.assets", "vocoder.discriminators", "training.vocoder_train",
              "training.vocoder_proof", "training.proof", "training.get_durations", "data.stats", "io.export_torch",
              "inference.export", "io.torch_pickle", "models.conformer", "utils.observability",
@@ -71,6 +72,10 @@ pipe = SynthesisPipeline.from_random(cfglib.RootConfig(model=model, vocoder=voc)
 res = pipe.synthesise(["no jax here"], spks=[1], n_timesteps=2, seed=0, pcm16=True)[0]
 assert res.mel_length > 0 and res.wav.shape == (res.mel_length * 16,), res.wav.shape
 assert np.isfinite(res.wav).all()
+# the graph path's staging (inference/graphs.py; nothing is captured on the CPU)
+staged = SynthesisPipeline.from_random(cfglib.RootConfig(model=model, vocoder=voc), seed=0, device="cpu",
+                                       mel_buckets=(64, 128, 256), text_buckets=(64, 128), graphs=True)
+assert np.array_equal(staged.synthesise(["no jax here"], spks=[1], n_timesteps=2, seed=0, pcm16=True)[0].wav, res.wav)
 # the conformer decoder: a tiny synthesis with every block type conformer
 import dataclasses
 conf = dataclasses.replace(model, decoder=dataclasses.replace(
