@@ -60,16 +60,19 @@ Phases (each one failing fails the run, exit code ≠ 0):
   5. training — a synthetic alignable corpus (the 11 emoji speakers, long
      texts, 32 utterances) is written to a temporary folder and
      ``emojivoice_tpu_torch.training.train.main`` is called as a user would,
-     at emoji_multi width and batch 16: 20 steps on one overfit batch with a
-     validation pass, a probe and a checkpoint every 10, then 4 more after
-     ``--resume``.  Losses and gradient norms must be finite, K2 must launch
+     at emoji_multi width and batch 16, each step through its captured CUDA
+     graph (``training/graphs.py``, the trainer's default on the card): 20
+     steps on one overfit batch with a validation pass, a probe and a
+     checkpoint every 10, then 4 more after ``--resume``.  Losses and gradient norms must be finite, K2 must launch
      once per train step, validation batch and probe and no more, the
      resumed run must go from step 20 to 24, and the eval step's
      ``dur_loss + prior_loss`` on the overfit batch must be lower after the
      20 steps than before.  K2 is held against its plain version on the
      batch's own log-prior, one step is timed by stage, and a four-row train
      step on the card (K2) is held against the CPU (plain MAS on the same
-     log-prior).  Then ``[precision]``: the same step in ``bf16-mixed`` from
+     log-prior).  The step by stage is read on the eager step (a graph has
+     no stages to mark), steps per second through the graph.  Then
+     ``[precision]``: the same step in ``bf16-mixed`` from
      the same weights, its loss within rtol 0.05 of the f32 step's, K2 on its
      bf16 log-prior equal to the plain search, the step by stage (two warm,
      median of 5), steps per second beside f32's and peak memory.  Before the
@@ -214,6 +217,23 @@ Phases (each one failing fails the run, exit code ≠ 0):
      (each rank's counts are added into the kernel record); (d) the TP-2
      state through ``torch.distributed.checkpoint`` and back into a state
      from another seed, equal to the bit.  Every rank's wait is bounded.
+ 16. train_graphs (before bench) — the acoustic train step through its
+     captured CUDA graphs against the eager step at the [train] step's shape
+     (16 × 256 × 1,536) and one of half its length, interleaved, from one
+     seeded state, dropout on, under deterministic kernels: (a) f32,
+     bf16-mixed and the conformer decoder, metrics, parameters, Adam's
+     moments and buffers equal to the bit; (b) a checkpoint written from
+     graphs resumed eagerly on a state from another seed, and the reverse,
+     equal to the bit, and a plain (not capturable) Adam's checkpoint, as one
+     written on the CPU or before the card's was capturable holds it, resumed through graphs and
+     eagerly, equal to the bit with the optimizer capturable again; (c) ``train.py``'s validation render (a mel-only
+     pipeline made once on the live model) after the graphed steps equal to
+     the one after the eager steps and to a pipeline made afresh; (d) K2
+     once a step, replays included; (e) steps per second in turns eager /
+     graphs / graphs / eager, capture ms per key, pool bytes, and one
+     profiled step of each (device ms, busy share); (f) the card's
+     capturable Adam against the plain one on 4 M elements, 5 steps: the
+     largest difference within a hundredth of lr.
  15. bench (last) — the twelve measurement tools of ``emojivoice_tpu_torch/bench/``
      (the twins of ``bench.py`` and ``tools/``) called in process at
      emoji_multi + HiFi-GAN v1 width with short settings (``BENCH_ARGS``):
@@ -547,6 +567,59 @@ def graph_check(name: str, got, want, setting: str) -> dict:
     return dict(same_bits=same, wav_max_abs=wav_err, mel_mae=mel_mae)
 
 
+def capture_beside_threads(gp, ep, voices) -> dict:
+    """Captures that nothing outside them may end: every key of one call
+    captured anew while a second thread queries, waits on and times events
+    and allocates pinned and device memory (as the serving engine's results
+    thread does while its worker captures), with the cycle collector's
+    threshold at 1, so that it would run inside a capture if it could (a
+    graph it frees there ends the capture).  The result against the eager
+    path's, and no collection counted inside a capture."""
+    stop, calls, errors, inside = threading.Event(), [0], [], []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    end.record()
+
+    def busy():
+        try:
+            while not stop.is_set():
+                end.query()
+                end.synchronize()
+                start.elapsed_time(end)
+                torch.empty(1 << 20, pin_memory=True)
+                torch.empty(1 << 20, device=DEVICE)
+                calls[0] += 1
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(repr(e))
+
+    def watch(phase, info):
+        if phase == "start" and torch.cuda.is_current_stream_capturing():
+            inside.append(info["generation"])
+
+    kw = dict(spks=[voices[0]], seed=[7], n_timesteps=STEPS, denoiser_strength=STRENGTH)
+    gp.graphs.drop()
+    captures, threshold = gp.graphs.captures, gc.get_threshold()
+    thread = threading.Thread(target=busy, daemon=True)
+    gc.callbacks.append(watch)
+    gc.set_threshold(1)
+    thread.start()
+    try:
+        got = gp.synthesise([HEADLINE], **kw)
+    finally:
+        stop.set()
+        thread.join()
+        gc.set_threshold(*threshold)
+        gc.callbacks.remove(watch)
+    row = dict(new_captures=gp.graphs.captures - captures, other_thread_rounds=calls[0],
+               other_thread_errors=errors, collections_inside_captures=len(inside),
+               **graph_check("beside threads", got, ep.synthesise([HEADLINE], **kw), "f32"))
+    print("[graphs] keys captured beside a thread that waits on events and allocates, the cycle collector at "
+          "threshold 1: " + json.dumps(row))
+    if errors or inside or row["new_captures"] != 4 or not calls[0]:
+        raise RuntimeError(f"[graphs] captures beside other threads: {row}")
+    return row
+
+
 def graph_k1_nodes(mrf, pipe) -> list:
     """K1's kernel nodes in each vocoder graph of `pipe` (``keep_graphs``),
     against the kernels that its four stages launch alone at the graph's
@@ -659,6 +732,8 @@ def phase_graphs(mrf) -> dict:
             if got.shape != want.shape or not np.array_equal(got, want):
                 raise RuntimeError(f"[graphs] {strat} on the story differs from the eager path")
             print(f"[graphs] {strat} on the story: {got.size} samples equal to the eager path's")
+
+        out["beside_threads"] = capture_beside_threads(gp, ep, voices)
 
         # the engine's warmup, then webapp-style calls from 32 threads on its batch-1 key
         for max_batch in (8, 32):
@@ -1856,8 +1931,10 @@ def phase_training(mas, mrf) -> dict:
 
 def step_by_stage(matcha, state, batch, seed: int) -> dict:
     """One train step by stage (CUDA events; two to warm, the median of five),
-    MAS timed inside the forward, then steps per second over ten steps on the
-    host clock, and the peak memory of these steps."""
+    MAS timed inside the forward, all on the eager step (a captured step has
+    no stages to mark), then steps per second over ten steps on the host
+    clock through the step's captured graph (the trainer's default), and the
+    peak memory of these steps."""
     from emojivoice_tpu_torch.training.state import train_step
     from emojivoice_tpu_torch.utils.timing import StageClock
 
@@ -1878,18 +1955,21 @@ def step_by_stage(matcha, state, batch, seed: int) -> dict:
     try:
         for _ in range(2 + 5):  # two to warm
             clock = StageClock(torch.device(DEVICE))
-            train_step(state, batch, seed, clock=clock)
+            train_step(state, batch, seed, clock=clock, graphs=False)
             torch.cuda.synchronize()
             stage_ms.append(clock.elapsed_ms())
     finally:
         matcha.maximum_path = real
     med = {k: statistics.median(m[k] for m in stage_ms[2:]) for k in stage_ms[0]}
     n = 10
+    train_step(state, batch, seed)  # the capture
+    torch.cuda.synchronize()
     t = time.perf_counter()
     for _ in range(n):
         train_step(state, batch, seed)
     torch.cuda.synchronize()
-    return {"steps_per_s": n / (time.perf_counter() - t), "forward_ms": med["forward"],
+    return {"steps_per_s": n / (time.perf_counter() - t), "steps_through": "graphs", "stages_from": "eager",
+            "forward_ms": med["forward"],
             "mas_ms": statistics.median(a.elapsed_time(b) for a, b in mas_events[2:]), "backward_ms": med["backward"],
             "optimizer_ms": med["optimizer"], "batch": batch["y"].shape[0], "t_text": batch["x"].shape[1],
             "t_mel": batch["y"].shape[1], "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
@@ -2476,7 +2556,8 @@ def precision_training(matcha, mas, state, batch, seed: int, f32_steps_per_s: fl
     matcha.maximum_path = capture
     try:
         for precision in ("f32", "bf16-mixed"):
-            losses[precision] = {k: float(v) for k, v in train_step(fresh(), batch, seed, precision=precision).items()}
+            losses[precision] = {k: float(v) for k, v in
+                                 train_step(fresh(), batch, seed, precision=precision, graphs=False).items()}
     finally:
         matcha.maximum_path = real
     value, mask, path = seen[torch.bfloat16]
@@ -2494,13 +2575,15 @@ def precision_training(matcha, mas, state, batch, seed: int, f32_steps_per_s: fl
     torch.cuda.reset_peak_memory_stats()
     mas.launches = 0  # the main path's run: K2 in the bf16-mixed steps
     stage_ms = []
-    for _ in range(2 + 5):  # two to warm
+    for _ in range(2 + 5):  # two to warm; by stage on the eager step
         clock = StageClock(torch.device(DEVICE))
-        train_step(st, batch, seed, clock=clock, precision="bf16-mixed")
+        train_step(st, batch, seed, clock=clock, precision="bf16-mixed", graphs=False)
         torch.cuda.synchronize()
         stage_ms.append(clock.elapsed_ms())
     med = {k: statistics.median(m[k] for m in stage_ms[2:]) for k in stage_ms[0]}
     n = 10
+    train_step(st, batch, seed, precision="bf16-mixed")  # the capture: steps per second through the graph
+    torch.cuda.synchronize()
     t = time.perf_counter()
     for _ in range(n):
         train_step(st, batch, seed, precision="bf16-mixed")
@@ -2512,8 +2595,8 @@ def precision_training(matcha, mas, state, batch, seed: int, f32_steps_per_s: fl
                peak_gb=torch.cuda.max_memory_allocated() / 1e9, loss_rel_vs_f32=rel, k2_exact=k2_exact,
                k2_launches=mas.launches)
     print("[precision] bf16-mixed step " + json.dumps(out))
-    if mas.launches != 2 + 5 + n:
-        raise RuntimeError(f"[precision] {mas.launches} K2 launches in {2 + 5 + n} bf16-mixed steps")
+    if mas.launches != 2 + 5 + 1 + n:
+        raise RuntimeError(f"[precision] {mas.launches} K2 launches in {2 + 5 + 1 + n} bf16-mixed steps")
     del st
     return out
 
@@ -3149,6 +3232,252 @@ def phase_parallel(mas, mrf) -> dict:
     return out
 
 
+# [train_graphs]: graphed steps against eager ones from the same seeded state, two bucket keys interleaved (the
+# [train] step's shape and one of half its length), dropout on, under deterministic kernels: equal to the bit
+TG_SEED, TG_KEYS, TG_ORDER = 1234, ((TRAIN_BATCH, 256, 1536), (TRAIN_BATCH, 128, 768)), (0, 1, 0, 1)
+TG_TIMED = 5  # steps per turn of the eager / graphs / graphs / eager timing at the first key
+ADAM_STEPS = 5  # capturable Adam against the plain one: steps on one tensor, gradients of many scales
+
+
+def states_differ(a, b) -> list:
+    """Names of the tensors where two train states differ: parameters, Adam's moments and step counts, buffers."""
+    out = []
+    for (name, p), q in zip(a.model.named_parameters(), b.model.parameters()):
+        if not torch.equal(p, q):
+            out.append(name)
+        sa, sb = a.optimizer.state[p], b.optimizer.state[q]
+        out += [f"{name}.{k}" for k in ("exp_avg", "exp_avg_sq", "step") if not torch.equal(sa[k], sb[k])]
+    return out + [name for (name, x), y in zip(a.model.named_buffers(), b.model.buffers()) if not torch.equal(x, y)]
+
+
+def metrics_differ(got: list, want: list) -> list:
+    return [(i, k) for i, (g, w) in enumerate(zip(got, want)) for k in g if not torch.equal(g[k].cpu(), w[k].cpu())]
+
+
+def val_render(cfg, model):
+    """``train.py``'s ``render_val_samples`` on `model`: one mel-only pipeline on the live model, made once
+    (through its own serving graphs), the headline at speaker 79, 10 steps, seed 0, in eval mode."""
+    from emojivoice_tpu_torch.inference.pipeline import SynthesisPipeline
+
+    pipe = SynthesisPipeline(cfg, model, device=DEVICE, cleaners=("basic_cleaners",))
+
+    def render():
+        model.eval()
+        try:
+            return pipe.synthesise([TEXT11], spks=[79], n_timesteps=10, seed=0, vocode=False)[0].mel
+        finally:
+            model.train()
+    return pipe, render
+
+
+def graphed_against_eager(mas, cfg, opt_cfg, precision: str, batches: list, render: bool = False) -> dict:
+    """The same steps through graphs and eagerly from one seeded initial state → the two states, their
+    metrics, K2's count in each run, and (`render`) the render of each before and after the steps, and after
+    them through a pipeline made afresh."""
+    from emojivoice_tpu_torch.training.state import create_train_state, train_step
+
+    out = {"states": {}, "metrics": {}, "k2": {}, "renders": {}}
+    for mode in ("graphs", "eager"):
+        st = create_train_state(cfg, opt_cfg, seed=TG_SEED, device=DEVICE)
+        if render:
+            pipe, fn = val_render(cfg, st.model)
+            before = fn()
+        k2 = mas.launches
+        out["metrics"][mode] = [train_step(st, b, TG_SEED, precision=precision, graphs=mode == "graphs")
+                                for b in batches]
+        torch.cuda.synchronize()
+        out["k2"][mode] = mas.launches - k2
+        if render:
+            out["renders"][mode] = dict(before=before, after=fn(), fresh=val_render(cfg, st.model)[1](),
+                                        drops=None if pipe.graphs is None else pipe.graphs.stats()["drops"])
+        out["states"][mode] = st
+    out["metrics_differ"] = metrics_differ(out["metrics"]["graphs"], out["metrics"]["eager"])
+    out["tensors_differ"] = states_differ(out["states"]["graphs"], out["states"]["eager"])
+    return out
+
+
+def resumed_across_modes(cfg, opt_cfg, state, graphs_from: bool, batches: list) -> dict:
+    """A checkpoint of `state` (written as the trainer writes one) resumed in the other mode on a state made
+    from another seed, against `state` itself going on in its own mode: the metrics and every tensor equal."""
+    import io
+
+    from emojivoice_tpu_torch.training.state import create_train_state, train_step
+
+    buf = io.BytesIO()
+    torch.save(state.state_dict(), buf)
+    want = [train_step(state, b, TG_SEED, graphs=graphs_from) for b in batches]
+    other = create_train_state(cfg, opt_cfg, seed=TG_SEED + 1, device=DEVICE)
+    buf.seek(0)
+    other.load_state_dict(torch.load(buf, map_location=DEVICE, weights_only=False))
+    got = [train_step(other, b, TG_SEED, graphs=not graphs_from) for b in batches]
+    torch.cuda.synchronize()
+    out = dict(metrics_differ=metrics_differ(got, want), tensors_differ=states_differ(other, state))
+    del other
+    return out
+
+
+def resumed_from_plain_adam(cfg, opt_cfg, first: list, then: list) -> dict:
+    """A checkpoint of a plain (not capturable) Adam after the steps `first`, as one written on the CPU or
+    before the card's optimizer was capturable holds it, resumed through graphs and eagerly on states
+    from another seed over the steps `then`: the two equal to the bit, each optimizer capturable again."""
+    import io
+
+    from emojivoice_tpu_torch.training.state import create_train_state, make_optimizer, train_step
+
+    plain = create_train_state(cfg, opt_cfg, seed=TG_SEED, device=DEVICE)
+    plain.optimizer = make_optimizer(plain.model.parameters(), opt_cfg)  # capturable=False
+    for b in first:
+        train_step(plain, b, TG_SEED, graphs=False)
+    buf = io.BytesIO()
+    torch.save(plain.state_dict(), buf)
+    del plain
+    states, metrics, capturable = {}, {}, {}
+    for mode in ("graphs", "eager"):
+        st = create_train_state(cfg, opt_cfg, seed=TG_SEED + 1, device=DEVICE)
+        buf.seek(0)
+        st.load_state_dict(torch.load(buf, map_location=DEVICE, weights_only=False))
+        capturable[mode] = all(g["capturable"] and torch.is_tensor(g["lr"]) for g in st.optimizer.param_groups)
+        metrics[mode] = [train_step(st, b, TG_SEED, graphs=mode == "graphs") for b in then]
+        states[mode] = st
+    torch.cuda.synchronize()
+    out = dict(metrics_differ=metrics_differ(metrics["graphs"], metrics["eager"]),
+               tensors_differ=states_differ(states["graphs"], states["eager"]), capturable=capturable)
+    del states
+    return out
+
+
+def capturable_adam_check() -> dict:
+    """The card's capturable Adam (bias corrections from device step counts in f32 tensors, the rate a device
+    tensor) against the plain one (bias corrections as Python floats) on the same tensor and gradients, the
+    config's betas at lr 1e-4, gradients from 1e-8 to 1 in size: how far the two updates part."""
+    from emojivoice_tpu_torch.config import OptimizerConfig
+
+    cfg = OptimizerConfig()
+    g = torch.Generator(device=DEVICE).manual_seed(3)
+    n = 1 << 22
+    start = torch.randn(n, generator=g, device=DEVICE) * 0.05
+    a, b = start.clone().requires_grad_(), start.clone().requires_grad_()
+    kw = dict(betas=(cfg.b1, cfg.b2), eps=1e-8, foreach=True)
+    plain = torch.optim.Adam([a], lr=cfg.lr, **kw)
+    cap = torch.optim.Adam([b], lr=torch.tensor(cfg.lr, device=DEVICE), capturable=True, **kw)
+    for _ in range(ADAM_STEPS):
+        scale = 10.0 ** (-8.0 * torch.rand(n, generator=g, device=DEVICE))
+        grad = torch.randn(n, generator=g, device=DEVICE) * scale
+        a.grad, b.grad = grad, grad.clone()
+        plain.step()
+        cap.step()
+    diff = (a.detach() - b.detach()).abs()
+    moved = (a.detach() - start).abs()
+    return dict(elements=n, steps=ADAM_STEPS, lr=cfg.lr, max_abs_diff=float(diff.max()),
+                share_differ=float((diff > 0).float().mean()), max_diff_over_lr=float(diff.max()) / cfg.lr,
+                mean_move_over_lr=float(moved.mean()) / cfg.lr)
+
+
+def phase_train_graphs(mas) -> dict:
+    """[train_graphs]: the acoustic train step through its captured CUDA graphs against the eager step at the
+    [train] step's shape, under deterministic kernels with dropout on: (a) f32, bf16-mixed and a conformer
+    decoder, two bucket keys interleaved, metrics, parameters, Adam's moments and buffers equal to the bit;
+    (b) a checkpoint of each mode resumed exactly in the other; (c) the validation render after graphed steps
+    equal to the one after eager steps (and to a pipeline made afresh); (d) K2 once a step, replays included;
+    then, outside the deterministic context: (e) steps per second in turns eager / graphs / graphs / eager, the
+    capture ms per key and pool bytes, one profiled step of each (device ms, busy share); (f) the capturable
+    Adam against the plain one."""
+    from emojivoice_tpu_torch import config
+    from emojivoice_tpu_torch.bench import util
+    from emojivoice_tpu_torch.bench.train import make_batch
+    from emojivoice_tpu_torch.training.state import train_step
+
+    root = config.get_preset(PRESET)
+    cfg, opt_cfg = root.model, root.optimizer
+    batches = [make_batch(cfg, *TG_KEYS[k], DEVICE, seed=100 + i) for i, k in enumerate(TG_ORDER)]
+    more = [make_batch(cfg, *TG_KEYS[k], DEVICE, seed=200 + i) for i, k in enumerate(TG_ORDER[:2])]
+    out = {}
+    mas.launches = 0  # the main path's run: the train steps of this phase, graphed and eager
+    with deterministic("train_graphs"):
+        runs = {}
+        for name, c, precision in (("f32", cfg, "f32"), ("bf16-mixed", cfg, "bf16-mixed"),
+                                   ("conformer f32", conformer_root().model, "f32")):
+            t = time.perf_counter()
+            run = graphed_against_eager(mas, c, opt_cfg, precision, batches, render=name == "f32")
+            g = run["states"]["graphs"].graphs
+            out[name] = dict(metrics_differ=run["metrics_differ"], tensors_differ=run["tensors_differ"][:8],
+                             n_tensors_differ=len(run["tensors_differ"]), k2=run["k2"], captures=g.captures,
+                             replays=g.stats()["replays"], seconds=time.perf_counter() - t)
+            print(f"[train_graphs] (a) {name}: {len(TG_ORDER)} steps over keys {TG_KEYS} through graphs against "
+                  f"eager " + json.dumps(out[name]))
+            if name == "f32":
+                runs = run
+            else:
+                del run
+            gc.collect()
+        # (b) a checkpoint written from graphs resumed eagerly, and the reverse
+        for mode, graphs_from in (("graphs -> eager", True), ("eager -> graphs", False)):
+            written_by = runs["states"]["graphs" if graphs_from else "eager"]
+            out[f"resume {mode}"] = r = resumed_across_modes(cfg, opt_cfg, written_by, graphs_from, more)
+            print(f"[train_graphs] (b) checkpoint {mode}: " + json.dumps(r))
+        out["resume plain Adam"] = r = resumed_from_plain_adam(cfg, opt_cfg, batches[:2], more + batches[2:])
+        print("[train_graphs] (b) a plain Adam's checkpoint through graphs and eagerly: " + json.dumps(r))
+        # (c) the validation render after the graphed steps, against the eager steps' and a fresh pipeline's
+        rg, re_ = runs["renders"]["graphs"], runs["renders"]["eager"]
+        out["render"] = dict(graphs_equal_eager=bool(np.array_equal(rg["after"], re_["after"])),
+                             equal_to_fresh_pipeline=bool(np.array_equal(rg["after"], rg["fresh"])),
+                             moved_from_before=not np.array_equal(rg["after"], rg["before"]),
+                             pipeline_graph_drops=rg["drops"], mel_shape=list(rg["after"].shape))
+        print("[train_graphs] (c) val render " + json.dumps(out["render"]))
+    k2 = mas.launches
+    # (a): three runs in two modes; (b): two steps on each side of two resumes, and the plain Adam's two steps
+    # and the four after its resume in two modes (two of them replays)
+    steps = 3 * 2 * len(TG_ORDER) + 4 * len(more) + 2 + 2 * (len(more) + len(TG_ORDER) - 2)
+    out["k2_launches"], out["steps"] = k2, steps
+    print(f"[train_graphs] (d) K2 launches {k2} in {steps} steps (graphed: one a replay)")
+
+    # (e) eager against graphs on the f32 states at the first key, outside the deterministic context
+    sg, se = runs["states"]["graphs"], runs["states"]["eager"]
+    timing = {"eager": [], "graphs": []}
+    for mode in ("eager", "graphs", "graphs", "eager"):
+        st = sg if mode == "graphs" else se
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(TG_TIMED):
+            train_step(st, batches[0], TG_SEED, graphs=mode == "graphs")
+        torch.cuda.synchronize()
+        timing[mode].append(TG_TIMED / (time.perf_counter() - t))
+    stats = sg.graphs.stats()
+    prof = {mode: util.profile_call(lambda st=st, mode=mode: train_step(st, batches[0], TG_SEED,
+                                                                        graphs=mode == "graphs"), torch.device(DEVICE))
+            for mode, st in (("graphs", sg), ("eager", se))}
+    out["timing"] = dict(key=list(TG_KEYS[0]), steps_per_s_eager=timing["eager"], steps_per_s_graphs=timing["graphs"],
+                         capture_ms=stats["capture_ms"], first_step_ms=stats["first_step_ms"],
+                         pool_bytes=sg.graphs.pool_bytes(),
+                         device_ms={m: p["device_ms"] for m, p in prof.items()},
+                         busy={m: p["busy"] for m, p in prof.items()},
+                         profiled_wall_ms={m: p["profiled_wall_ms"] for m, p in prof.items()})
+    print("[train_graphs] (e) " + json.dumps(out["timing"]))
+    out["adam"] = capturable_adam_check()
+    print("[train_graphs] (f) capturable Adam against the plain one " + json.dumps(out["adam"]))
+    del runs, sg, se
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    bad = [n for n in ("f32", "bf16-mixed", "conformer f32")
+           if out[n]["metrics_differ"] or out[n]["n_tensors_differ"] or out[n]["k2"] != {"graphs": len(TG_ORDER),
+                                                                                        "eager": len(TG_ORDER)}
+           or out[n]["captures"] != len(TG_KEYS) or out[n]["replays"] != len(TG_ORDER) - len(TG_KEYS)]
+    bad += [n for n in ("resume graphs -> eager", "resume eager -> graphs", "resume plain Adam")
+            if out[n]["metrics_differ"] or out[n]["tensors_differ"]]
+    if not all(out["resume plain Adam"]["capturable"].values()):
+        bad.append("plain Adam's checkpoint: optimizer not capturable after the load")
+    if not all(out["render"][k] for k in ("graphs_equal_eager", "equal_to_fresh_pipeline", "moved_from_before")):
+        bad.append("render")
+    if k2 != steps:
+        bad.append("K2 count")
+    if not out["adam"]["max_abs_diff"] <= 1e-2 * out["adam"]["lr"]:
+        bad.append("capturable Adam")
+    if bad:
+        raise RuntimeError(f"[train_graphs] failed: {bad}")
+    return out
+
+
 # [bench]: each measurement tool's main in process at full width, with short settings
 BENCH_ARGS = {
     "synthesis": ["--repeats", "3", "--sweep_repeats", "2", "--buckets", "512", "--batches", "1"],
@@ -3320,6 +3649,7 @@ def main() -> int:
     scratch = timed("scratch", phase_scratch, mas)
     swept = timed("sweep", phase_sweep, mas)
     parallel = timed("parallel", phase_parallel, mas, mrf)
+    train_graphs = timed("train graphs", phase_train_graphs, mas)
     bench = timed("bench", phase_bench, mas, mrf)
     # K1 on the main paths: the synthesis requests, the engine's and the webapp's batches, the apps' turns, demos
     # and agent turn, the trained checkpoint,
@@ -3332,7 +3662,7 @@ def main() -> int:
         + exported["k1_launches_live"] + conformer["k1_launches"] + apps["k1_launches"] + parallel["k1_launches"] \
         + bench["k1_launches"] + graphs["k1_launches"]
     k2_launches = training["launches"] + conformer["k2_launches"] + scratch["k2_launches"] + swept["k2_launches"] \
-        + parallel["k2_launches"] + bench["k2_launches"]
+        + parallel["k2_launches"] + train_graphs["k2_launches"] + bench["k2_launches"]
 
     stage_rows = rows[:len(STAGE_SHAPES)]
     window_rows = rows[-len(WINDOW_SHAPES):]
@@ -3413,6 +3743,8 @@ def main() -> int:
         "bound_by": k2["bound_by"],
         "library_ms": None,  # no PyTorch call computes MAS
         "shape": f"the training batch's log-prior, ({k2['B']}, {k2['T_x']}, {k2['T_y']})",
+        # one K2 node in every captured train step's graph, counted once a replay ([train_graphs] (d))
+        "launches_train_graphs": train_graphs["k2_launches"],
         "ms_16x256x768": k2_sized["ms"],
         "plain_ms_16x256x768": k2_sized["plain_ms"],
         "bound_ms_16x256x768": k2_sized["bound_ms"],

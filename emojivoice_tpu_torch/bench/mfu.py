@@ -6,7 +6,8 @@ The twin's three sections, on emoji_multi + HiFi-GAN v1 (random weights, seed
 0), 10 Euler steps, the bench's headline text at batch 1:
 
 1. ``programs``: the fused synthesis call, a training step (batch
-   ``--train_batch``, 96 text × 384 mel frames, ``out_size`` 172) and the
+   ``--train_batch``, 96 text × 384 mel frames, ``out_size`` 172; timed
+   through its captured CUDA graph, as the trainer runs it) and the
    HiFi-GAN generator alone at 1 × ``--voc_frames``;
 2. ``stages``: the fused call cut at its seams (encoder with durations; the
    alignment expansion and the Euler decode; HiFi-GAN through K1; the
@@ -386,7 +387,9 @@ def main(argv=None) -> int:
             "x": rng.integers(1, 170, (b, tx)), "x_lengths": np.full((b,), tx),
             "y": rng.normal(size=(b, ty, model_cfg.n_feats)).astype(np.float32), "y_lengths": np.full((b,), ty),
             "spks": rng.integers(0, model_cfg.n_spks, (b,))}, device)
-        fwd = count_call(state.model, lambda: train_step(state, batch, 0), grad=True)  # the backward runs no hook
+        # counted on the eager step (the backward runs no hook); a first graphed step would run the forward twice,
+        # for real and under its capture; timed through the step's captured graph, the trainer's default
+        fwd = count_call(state.model, lambda: train_step(state, batch, 0, graphs=False), grad=True)
         out = min(args.out_size, ty)
         fwd.add(2 * b * tx * ty * model_cfg.n_feats + 2 * b * tx * out * model_cfg.n_feats)  # log-prior, expansion
         rows.append(("programs", f"train_step_b{b}_tx{tx}_ty{ty}_outsize{args.out_size}", fwd.scaled(3.0),

@@ -175,7 +175,7 @@ class ConvModule(nn.Module):
 
     def forward(self, x):
         h = self.net[0](x).transpose(1, 2)
-        for layer in self.net[2:8]:
+        for layer in list(self.net)[2:8]:  # a slice of the Sequential would build a new module each call
             h = layer(h)
         return self.net[8](h.transpose(1, 2))
 

@@ -21,19 +21,59 @@ way to the plain version.  On a CPU tensor it runs
 ``maximum_path_reference``, which repeats the kernel's arithmetic column by
 column.  Any other device raises.  MAS has no gradient (the model cuts it
 before the search), so both run under ``torch.no_grad()``.
+
+``launches`` counts the calls that launched K2.  The wrapper counts when it
+runs, so inside a captured CUDA graph it counts at the capture and never at
+a replay; ``tally()`` counts one thread's launches inside a block, so that a
+graph's owner (``training/graphs.py``) can take the capture's count back out
+and add it on every replay (``add_launches``), as ``ops/mrf.py`` does for K1.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import threading
 
 import numpy as np
 import torch
 
 MAX_NEG = -1e9
 
-# K2 launches: one per ``maximum_path`` call on a CUDA tensor
+# K2 launches: one per ``maximum_path`` call on a CUDA tensor (the module docstring)
 launches = 0
+_tallies = threading.local()
+_launch_lock = threading.Lock()
+
+
+@contextlib.contextmanager
+def tally():
+    """Counts this thread's K2 launches inside the block, beside
+    ``launches``: yields a one-entry list holding the count."""
+    counts = [0]
+    stack = _tallies.__dict__.setdefault("stack", [])
+    stack.append(counts)
+    try:
+        yield counts
+    finally:
+        stack.remove(counts)
+
+
+def count_launch() -> None:
+    """One K2 launch, in ``launches`` and in this thread's open tallies."""
+    global launches
+    with _launch_lock:
+        launches += 1
+        for counts in getattr(_tallies, "stack", ()):
+            counts[0] += 1
+
+
+def add_launches(n: int) -> None:
+    """Adds (a negative `n`: takes back) `n` launches to ``launches``: a
+    replayed graph's, or a graph build's."""
+    global launches
+    with _launch_lock:
+        launches += n
 
 
 @torch.no_grad()
@@ -141,7 +181,6 @@ def _check(value: torch.Tensor, mask: torch.Tensor) -> None:
 @torch.no_grad()
 def maximum_path(value: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Batched MAS (B, T_x, T_y) → binary path; see the module docstring."""
-    global launches
     if value.device.type == "cpu":
         return maximum_path_reference(value, mask)
     if value.device.type != "cuda":
@@ -166,5 +205,5 @@ def maximum_path(value: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"K2 mas_path_f32 launch failed: CUDA error {err} "
                            f"({lib.mas_error_string(err).decode()}) at B={b} T_x={t_x} T_y={t_y}")
-    launches += 1
+    count_launch()
     return path

@@ -50,7 +50,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Optional
+from typing import TYPE_CHECKING, Callable, Optional
 
 import numpy as np
 import torch
@@ -60,6 +60,9 @@ from emojivoice_tpu_torch.models.matcha import MatchaTTS
 from emojivoice_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, collectives, mean_over
 from emojivoice_tpu_torch.parallel.tp import MODEL_AXIS, is_sharded, shard_params, tp_shardings
 from emojivoice_tpu_torch.utils.prng import step_seed, training_draws
+
+if TYPE_CHECKING:
+    from emojivoice_tpu_torch.training.graphs import TrainGraphs
 
 
 def _dtype_for(precision: Optional[str]) -> torch.dtype:
@@ -98,13 +101,62 @@ def make_schedule(cfg: OptimizerConfig) -> Callable[[int], float]:
     return lambda step: cfg.lr * step / warmup if step < warmup else main(step - warmup)
 
 
-def make_optimizer(params, cfg: OptimizerConfig) -> torch.optim.Optimizer:
+def make_optimizer(params, cfg: OptimizerConfig, capturable: bool = False) -> torch.optim.Optimizer:
     """Adam, or AdamW where the config has a weight decay; the step sets the
-    learning rate from the schedule before every update."""
+    learning rate from the schedule before every update (``set_lr_``).
+
+    `capturable` (``create_train_state`` asks for it on the card): the step
+    counts live on the parameters' device, the bias corrections are
+    computed there, and the learning rate is a 0-d f32 device tensor filled
+    in place before each update, so that a captured step
+    (``training/graphs.py``) reads this step's values and not the ones of
+    its capture.  The eager step of such a state takes the same optimizer,
+    so the two compute the same update, and so does a step over a mesh,
+    which runs eagerly: a one-rank mesh trains as one card does (within
+    rounding; with a plain Adam there it would part by Adam's bias
+    corrections).
+    The CPU's Adam refuses ``capturable``.  A load keeps the optimizer as it
+    was made (``_as_made``), whatever kind of optimizer wrote the
+    checkpoint."""
+    params = list(params)
     kwargs = dict(lr=cfg.lr, betas=(cfg.b1, cfg.b2), eps=1e-8)
+    if capturable:
+        kwargs.update(lr=torch.tensor(float(cfg.lr), device=params[0].device), capturable=True)
     if cfg.weight_decay:
-        return torch.optim.AdamW(params, weight_decay=cfg.weight_decay, **kwargs)
-    return torch.optim.Adam(params, **kwargs)
+        opt = torch.optim.AdamW(params, weight_decay=cfg.weight_decay, **kwargs)
+    else:
+        opt = torch.optim.Adam(params, **kwargs)
+    opt.register_load_state_dict_post_hook(lambda optimizer: _as_made(optimizer, capturable))
+    return opt
+
+
+def _as_made(optimizer: torch.optim.Optimizer, capturable: bool) -> None:
+    """A loaded optimizer in the form ``make_optimizer`` gave it.
+    ``load_state_dict`` takes every hyperparameter from the file,
+    ``capturable`` included, and leaves the step counts where that flag put
+    them; a checkpoint written on the other kind of device, or by a plain
+    optimizer, holds the other form.  So the flag is set back, the
+    step counts go to the parameter's device as f32 (capturable) or to the
+    CPU, and the rate becomes a new 0-d f32 device tensor or a float."""
+    for group in optimizer.param_groups:
+        group["capturable"] = capturable
+        lr = float(group["lr"])
+        group["lr"] = torch.tensor(lr, dtype=torch.float32, device=group["params"][0].device) if capturable else lr
+        for p in group["params"]:
+            st = optimizer.state.get(p)
+            if st and torch.is_tensor(st.get("step")):
+                st["step"] = st["step"].to(device=p.device, dtype=torch.float32) if capturable \
+                    else st["step"].to("cpu")
+
+
+def set_lr_(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """Set every group's learning rate: a device tensor is filled in place
+    (a kernel argument, no copy from the host), a float replaced."""
+    for group in optimizer.param_groups:
+        if torch.is_tensor(group["lr"]):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
 
 
 @torch.no_grad()
@@ -136,6 +188,7 @@ class TrainState:
     step: int = 0
     mesh: Optional[Mesh] = None
     ddp: Optional[torch.nn.Module] = None  # the model under DistributedDataParallel, over the data axis
+    graphs: Optional["TrainGraphs"] = None  # the captured steps (training/graphs.py), made at the first graphed step
 
     @property
     def device(self) -> torch.device:
@@ -145,6 +198,9 @@ class TrainState:
         return {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(), "step": self.step}
 
     def load_state_dict(self, saved: dict) -> None:
+        """Restore a ``state_dict``.  The optimizer's load replaces its state
+        tensors, so the captured steps are dropped (``TrainGraphs`` does so on
+        every optimizer load, this one included)."""
         self.model.load_state_dict(saved["model"], strict=True)
         self.optimizer.load_state_dict(saved["optimizer"])
         self.step = int(saved["step"])
@@ -165,17 +221,23 @@ class TrainState:
 
         model = {k: wrap(k, v) for k, v in self.model.state_dict(keep_vars=False).items()}
         moments = {}
+        capturable = self.optimizer.defaults.get("capturable", False)
         for name, p in self.model.named_parameters():
             st = self.optimizer.state[p]
             if not st:  # Adam's own lazy initial state, so that a fresh optimizer can be loaded into
-                st.update(step=torch.tensor(0.0), exp_avg=torch.zeros_like(p), exp_avg_sq=torch.zeros_like(p))
+                step = torch.zeros((), dtype=torch.float32, device=p.device) if capturable else torch.tensor(0.0)
+                st.update(step=step, exp_avg=torch.zeros_like(p), exp_avg_sq=torch.zeros_like(p))
             moments[name] = {"step": st["step"], "exp_avg": wrap(name, st["exp_avg"]),
                              "exp_avg_sq": wrap(name, st["exp_avg_sq"])}
         return {"model": model, "optimizer": moments, "step": torch.tensor(self.step)}
 
     def load_sharded_state_dict(self, sd: dict) -> None:
         """Take the state from a ``sharded_state_dict`` that a checkpoint
-        was loaded into."""
+        was loaded into (in place; the captured steps are dropped all the
+        same)."""
+        if self.graphs is not None:
+            self.graphs.drop()
+
         def local(t):
             return t.to_local() if hasattr(t, "to_local") else t
 
@@ -205,8 +267,9 @@ def create_train_state(model_cfg: ModelConfig, opt_cfg: OptimizerConfig, seed: i
     ddp = None
     if mesh is not None:
         ddp = distribute(model, mesh)
-    return TrainState(model=model, optimizer=make_optimizer(model.parameters(), opt_cfg), opt_cfg=opt_cfg,
-                      schedule=make_schedule(opt_cfg), mesh=mesh, ddp=ddp)
+    optimizer = make_optimizer(model.parameters(), opt_cfg, capturable=torch.device(device).type == "cuda")
+    return TrainState(model=model, optimizer=optimizer, opt_cfg=opt_cfg, schedule=make_schedule(opt_cfg), mesh=mesh,
+                      ddp=ddp)
 
 
 def distribute(model: MatchaTTS, mesh: Mesh) -> torch.nn.Module:
@@ -275,26 +338,77 @@ def average_replicated_grads_(params, model_group) -> None:
     torch._foreach_copy_(grads, [part.view_as(g) for part, g in zip(flat.split([g.numel() for g in grads]), grads)])
 
 
-def apply_gradients(state: TrainState):
-    """Clip the gradients that a backward pass left on the model, set the
-    schedule's learning rate and take the optimizer step → (the gradient norm
-    from before the clip, the learning rate used).  Under tensor parallelism
-    the replicated parameters' gradients are first averaged over the model
-    group (``average_replicated_grads_``)."""
+def _update(state: TrainState) -> torch.Tensor:
+    """Clip the gradients that a backward pass left on the model and take the
+    optimizer step at the rate already set → the gradient norm from before
+    the clip.  Under tensor parallelism the replicated parameters' gradients
+    are first averaged over the model group (``average_replicated_grads_``)."""
     params = [p for p in state.model.parameters() if p.requires_grad]
     model_group = state.mesh.group(MODEL_AXIS) if state.mesh is not None and state.mesh.size(MODEL_AXIS) > 1 else None
     if model_group is not None:
         average_replicated_grads_(params, model_group)
     grad_norm = clip_by_global_norm_(params, state.opt_cfg.grad_clip, model_group)
-    lr = state.schedule(state.step)
-    for group in state.optimizer.param_groups:
-        group["lr"] = lr
     state.optimizer.step()
+    return grad_norm
+
+
+def apply_gradients(state: TrainState):
+    """Set the schedule's learning rate, clip the gradients that a backward
+    pass left on the model and take the optimizer step → (the gradient norm
+    from before the clip, the learning rate used)."""
+    lr = state.schedule(state.step)
+    set_lr_(state.optimizer, lr)
+    grad_norm = _update(state)
     state.step += 1
     return grad_norm, lr
 
 
-def train_step(state: TrainState, batch: dict, seed: int, clock=None, precision: Optional[str] = "f32") -> dict:
+def step_body(state: TrainState, batch: dict, draws: dict, precision: Optional[str], clock=None) -> dict:
+    """Forward, backward, clip and optimizer step on device tensors alone →
+    the step's metrics as 0-d tensors (the learning rate aside).  No host
+    value is read, no random generator seeded and no host state moved, so a
+    CUDA graph can capture it (``training/graphs.py``); the caller sets the
+    rate, seeds dropout, makes the draws and counts the step."""
+    model = state.model
+    dur, prior, diff = _losses(state.ddp or model, batch, draws, model.cfg.out_size, precision)
+    total = dur + prior + diff
+    if clock is not None:
+        clock.mark("forward")
+    state.optimizer.zero_grad(set_to_none=True)
+    total.backward()
+    if clock is not None:
+        clock.mark("backward")
+    grad_norm = _update(state)
+    if clock is not None:
+        clock.mark("optimizer")
+    losses = mean_over({"loss": total, "dur_loss": dur, "prior_loss": prior, "diff_loss": diff},
+                       model.data_group)
+    return {**{k: v.detach() for k, v in losses.items()}, "grad_norm": grad_norm}
+
+
+def step_draws(state: TrainState, batch: dict, seed: int, out: Optional[dict] = None) -> dict:
+    """The CFM draws and crop uniforms of this step from ``(seed,
+    state.step)``, for the global batch and sliced to this data rank's rows;
+    written into `out`'s tensors where given (one device, no slicing)."""
+    mesh = state.mesh
+    b, frames, n_feats = batch["y"].shape
+    out_size = state.model.cfg.out_size
+    crop = out_size is not None and out_size < frames
+    n_data, data_rank = (mesh.size(DATA_AXIS), mesh.rank(DATA_AXIS)) if mesh is not None else (1, 0)
+    draws = training_draws(seed, state.step, b * n_data, out_size if crop else frames, n_feats, state.device,
+                           crop=crop, out=out)
+    return draws if n_data == 1 else {k: v[data_rank * b:(data_rank + 1) * b] for k, v in draws.items()}
+
+
+def dropout_seed(state: TrainState, seed: int) -> int:
+    """The seed of this step's dropout masks: ``(seed, state.step)`` and the
+    data rank, so the ranks of one model group draw one mask."""
+    data_rank = state.mesh.rank(DATA_AXIS) if state.mesh is not None else 0
+    return step_seed(seed, state.step, "dropout" if data_rank == 0 else f"dropout/{data_rank}")
+
+
+def train_step(state: TrainState, batch: dict, seed: int, clock=None, precision: Optional[str] = "f32",
+               graphs: Optional[bool] = None) -> dict:
     """One optimizer step on a device batch → metrics as 0-d tensors (the
     caller decides when to read them, so the step itself does not wait for
     the device).  The CFM draws, the crop offsets and dropout are seeded from
@@ -303,33 +417,40 @@ def train_step(state: TrainState, batch: dict, seed: int, clock=None, precision:
     "bf16-mixed" (the module docstring; the JAX names of each are taken).
     Over a mesh `batch` is this data rank's rows of the global batch
     (``parallel/mesh.py::shard_batch``), and the metrics are the global
-    batch's."""
-    model, dev, mesh = state.model, state.device, state.mesh
-    model.train()
-    out_size = model.cfg.out_size
-    b, frames, n_feats = batch["y"].shape
-    crop = out_size is not None and out_size < frames
-    n_data, data_rank = (mesh.size(DATA_AXIS), mesh.rank(DATA_AXIS)) if mesh is not None else (1, 0)
-    draws = training_draws(seed, state.step, b * n_data, out_size if crop else frames, n_feats, dev, crop=crop)
-    draws = {k: v[data_rank * b:(data_rank + 1) * b] for k, v in draws.items()}
+    batch's.
+
+    `graphs`: through one captured CUDA graph per bucket key
+    (``training/graphs.py``, the counterpart of the JAX trainer's jitted
+    step), the default on the card without a mesh; ``graphs=False`` runs the
+    step eagerly, the CPU's default.  A mesh or a `clock` with
+    ``graphs=True`` raises: collectives are not captured, and a graph has no
+    stages to mark."""
+    dev = state.device
+    if graphs is None:
+        graphs = dev.type == "cuda" and state.mesh is None
+    if graphs:
+        if state.mesh is not None:
+            raise ValueError("train_step: graphs=True with a mesh: training over a mesh runs eagerly (its "
+                             "collectives are not captured); pass graphs=False or no mesh")
+        if clock is not None:
+            raise ValueError("train_step: clock= with graphs=True: a captured step has no stages to mark; pass "
+                             "graphs=False to time the step by stage")
+        if state.graphs is None:
+            from emojivoice_tpu_torch.training.graphs import TrainGraphs
+
+            state.graphs = TrainGraphs(state)
+        return state.graphs.step(batch, seed, precision)
+    state.model.train()
+    draws = step_draws(state, batch, seed)
+    lr = state.schedule(state.step)
+    set_lr_(state.optimizer, lr)
     # nn.Dropout draws from the global generator: give it this step's seed
     # inside a fork, so the caller's random state is left alone
     with torch.random.fork_rng(devices=[dev] if dev.type == "cuda" else []):
-        torch.manual_seed(step_seed(seed, state.step, "dropout" if data_rank == 0 else f"dropout/{data_rank}"))
-        dur, prior, diff = _losses(state.ddp or model, batch, draws, out_size, precision)
-    total = dur + prior + diff
-    if clock is not None:
-        clock.mark("forward")
-    state.optimizer.zero_grad(set_to_none=True)
-    total.backward()
-    if clock is not None:
-        clock.mark("backward")
-    grad_norm, lr = apply_gradients(state)
-    if clock is not None:
-        clock.mark("optimizer")
-    losses = mean_over({"loss": total, "dur_loss": dur, "prior_loss": prior, "diff_loss": diff},
-                       model.data_group)
-    return {**{k: v.detach() for k, v in losses.items()}, "grad_norm": grad_norm, "lr": torch.tensor(lr)}
+        torch.manual_seed(dropout_seed(state, seed))
+        metrics = step_body(state, batch, draws, precision, clock)
+    state.step += 1
+    return {**metrics, "lr": torch.tensor(lr)}
 
 
 @torch.no_grad()

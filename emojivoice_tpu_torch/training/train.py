@@ -18,6 +18,13 @@ from (seed, step), so a resumed run repeats an unbroken one exactly.
 parameters, losses, gradients and Adam (``training/state.py``); the default is
 the preset's ``trainer.precision``.
 
+On the card each step runs through one captured CUDA graph per bucket key
+(``training/graphs.py``), as the JAX trainer compiles its step once per
+shape; ``--eager`` runs it op by op instead.  The ``shapes`` record counts
+each key's capture and its milliseconds, and the graphs' pool bytes.  Over
+ranks (``--num_devices``, ``--tp``, ``--dcn_*``) the step runs eagerly, and
+the trainer says so once.
+
 ``--from_torch_ckpt`` fine-tunes from a reference-format ``.ckpt`` (a
 released voice, or what ``io/export_torch.py`` wrote): the model takes the
 checkpoint's own architecture, and a checkpoint that does not fit the
@@ -105,6 +112,9 @@ def build_parser():
                    help="bf16-mixed: bf16 compute, f32 parameters, losses and optimizer; default: the preset's "
                         "trainer.precision")
     p.add_argument("--out_size", type=int, default=None, help="Grad-TTS segment crop (multiple of 4)")
+    p.add_argument("--eager", action="store_true",
+                   help="run the train step op by op instead of through one captured CUDA graph per bucket key "
+                        "(the default on the card without ranks)")
     p.add_argument("--from_torch_ckpt", default=None, help="fine-tune from a reference-format .ckpt")
     p.add_argument("--resume", action="store_true", help="resume from the latest checkpoint in out_dir")
     p.add_argument("--num_devices", type=int, default=0,
@@ -290,11 +300,17 @@ def _run(args, tb, mesh) -> int:
     def count(module):
         return sum(p.numel() for p in module.parameters())
 
+    # through captured CUDA graphs on the card without ranks (training/graphs.py); a mesh's step runs eagerly
+    graphs = device.type == "cuda" and mesh is None and not args.eager
     if is_main:
         print(f"[train] device={device} preset={args.preset} params total={count(model) / 1e6:.2f}M "
               f"encoder={count(model.encoder) / 1e6:.2f}M decoder={count(model.decoder) / 1e6:.2f}M  "
-              f"lr={opt_cfg.lr} out_size={args.out_size} precision={precision}"
+              f"lr={opt_cfg.lr} out_size={args.out_size} precision={precision} "
+              f"step={'graphs' if graphs else 'eager'}"
               + ("" if mesh is None else f" ranks={world} mesh={mesh.shape}"), flush=True)
+        if mesh is not None and device.type == "cuda" and not args.eager:
+            print("[train] over ranks the step runs eagerly: its collectives are not captured in CUDA graphs",
+                  flush=True)
     ckpt_dir = Path(args.out_dir) / "ckpts"
     mgr = CheckpointManager(str(ckpt_dir), max_to_keep=root.trainer.save_top_k, sharded=world > 1)
     resumed_data_state = None
@@ -480,7 +496,7 @@ def _run(args, tb, mesh) -> int:
         base = state.step
         shape_key = (int(batch_np["x"].shape[0]), int(batch_np["x"].shape[1]), int(batch_np["y"].shape[1]))
         seen_shapes.setdefault(shape_key, base)
-        m = train_step(state, to_rows(batch_np), args.seed, precision=precision)
+        m = train_step(state, to_rows(batch_np), args.seed, precision=precision, graphs=graphs)
         flush_log()  # the previous step's metrics
         pending_log = (state.step, m)
         step = state.step
@@ -520,10 +536,17 @@ def _run(args, tb, mesh) -> int:
     flush_log()
 
     if seen_shapes:
+        census = state.graphs.stats() if state.graphs is not None else {}
+        capture_ms = {}  # (B, T_text, T_mel) → the capture ms of its key (one key a shape in a run)
+        for (key, _), g in (state.graphs.entries().items() if state.graphs is not None else ()):
+            capture_ms[key[:3]] = g.capture_ms
         log_metrics("shapes", state.step, {}, extra={
             "distinct_shapes": len(seen_shapes),
-            "shapes": [{"batch": b, "t_text": tx, "t_mel": ty, "first_step": s}
+            "shapes": [{"batch": b, "t_text": tx, "t_mel": ty, "first_step": s,
+                        "capture_ms": capture_ms.get((b, tx, ty))}
                        for (b, tx, ty), s in sorted(seen_shapes.items())],
+            "graphs": graphs, "captures": census.get("captures", 0), "replays": census.get("replays", 0),
+            "pool_bytes": state.graphs.pool_bytes() if state.graphs is not None else None,
         })
     # final save, unless the loop just wrote this step; fast_dev_run writes none
     if not args.fast_dev_run and mgr.latest_step() != state.step:

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import hashlib
 import numbers
-from typing import Sequence, Union
+from typing import Optional, Sequence, Union
 
 import torch
 
@@ -60,18 +60,21 @@ def step_generator(seed: int, step: int, purpose: str, device) -> torch.Generato
 
 
 def training_draws(seed: int, step: int, batch: int, frames: int, n_feats: int, device,
-                   crop: bool = False) -> dict:
+                   crop: bool = False, out: Optional[dict] = None) -> dict:
     """The random inputs of one training forward: ``t`` (B, 1, 1) uniform,
     ``z`` (B, frames, n_feats) normal and, with `crop`, ``crop_u`` (B,)
-    uniform for the segment crop's offsets."""
+    uniform for the segment crop's offsets.  With `out` (the same keys, f32
+    tensors of those shapes on `device`) the draws are written into its
+    tensors, with the values a call without it returns, and `out` comes back."""
     device = torch.device(device)
-    out = {
-        "t": torch.rand((batch, 1, 1), generator=step_generator(seed, step, "cfm_t", device),
-                        device=device, dtype=torch.float32),
-        "z": torch.randn((batch, frames, n_feats), generator=step_generator(seed, step, "cfm_z", device),
-                         device=device, dtype=torch.float32),
-    }
+    out = out or {}
+
+    def draw(fn, key, shape, purpose):
+        out[key] = fn(shape, generator=step_generator(seed, step, purpose, device), device=device,
+                      dtype=torch.float32, out=out.get(key))
+
+    draw(torch.rand, "t", (batch, 1, 1), "cfm_t")
+    draw(torch.randn, "z", (batch, frames, n_feats), "cfm_z")
     if crop:
-        out["crop_u"] = torch.rand((batch,), generator=step_generator(seed, step, "crop", device),
-                                   device=device, dtype=torch.float32)
+        draw(torch.rand, "crop_u", (batch,), "crop")
     return out

@@ -83,7 +83,9 @@ TOOLS = {
             {"metric", "lines"}, ["lines[0].value", "lines[1].compile_s", "lines[2].value"]),
     "train": (TINY + ["--b", "2", "--tx", "16", "--ty", "48", "--out_size", "16", "--iters", "1", "--gan_batch", "1",
                       "--gan_segment", "32", "--gan_iters", "1"],
-              {"metric", "lines"}, ["lines[0].value", "lines[0].forward_ms", "lines[1].steps_per_s", "lines[4].value"]),
+              {"metric", "lines"}, ["lines[0].value", "lines[0].forward_ms", "lines[1].steps_per_s", "lines[4].value",
+                                    "lines[0].profile_graphs.device_ms", "lines[0].profile_graphs.busy",
+                                    "lines[0].profile_eager.device_ms", "lines[0].profile_eager.busy"]),
     "mfu": (TINY + ["--steps", "2", "--repeats", "1", "--train_batch", "2", "--train_tx", "16", "--train_ty", "48",
                     "--out_size", "16", "--voc_frames", "16"],
             {"device_kind", "backend", "compute_dtype", "note", "programs", "stages", "precision_sweep"},
@@ -107,7 +109,9 @@ NESTED = {
     "exported": {"exported": {"audio_s", "wall_s_mean", "wall_s_std", "rtf"}, "live": {"audio_s", "wall_s_mean",
                                                                                          "wall_s_std", "rtf"}},
     "mas": {"lines[0]": {"metric", "value", "unit", "shape", "compile_s"}, "lines[2]": {"metric", "value", "unit"}},
-    "train": {"lines[0]": {"metric", "value", "unit", "loss0", "compile_s", "shape"},
+    "train": {"lines[0]": {"metric", "value", "unit", "loss0", "compile_s", "shape", "graphs", "graph_store",
+                           "stages_from", "profile_graphs", "profile_eager"},
+              "lines[0].profile_graphs": {"device_ms", "busy", "profiled_wall_ms", "device_activities"},
               "lines[1]": {"metric", "value", "unit", "steps_per_s"}, "lines[4]": {"metric", "value", "unit"}},
     "mfu": {"programs[0]": {"program", "flops_per_call", "gflops_per_call", "device_ms_per_call", "achieved_tflops",
                             "bytes_per_call", "mbytes_per_call", "achieved_gbps", "arith_intensity_flop_per_byte",
@@ -159,6 +163,32 @@ def test_tool_runs_on_the_cpu_with_its_twins_keys(name, tiny_preset, tmp_path, m
     for path in times:
         assert at(report, path) == NM, (path, at(report, path))
     assert not list(tmp_path.rglob("*")), list(tmp_path.rglob("*"))
+    if name == "train":
+        check_train_modes(report, eager=False)
+
+
+def check_train_modes(report: dict, eager: bool) -> None:
+    """``bench.train`` times the step through its graphs (on the CPU: their
+    staging, nothing captured) or, with ``--eager``, op by op, says which,
+    and reads a profiled step of each mode whatever the flag."""
+    for line in report["lines"]:
+        if line["metric"].startswith("train_step_") and "graphs" in line:
+            assert line["graphs"] is not eager
+            if line["metric"].endswith("pipelined_ms"):
+                continue
+            assert line["stages_from"] == "eager" and line["k2_launches"] == 0  # the plain search on the CPU
+            store = line["graph_store"]
+            assert (store is None) if eager else (store["captures"] == 0 and store["graphs"] == 1
+                                                  and store["replays"] == line["steps"] - 1 - 1)
+            assert line["profile_graphs"]["busy"] == NM and line["profile_eager"]["device_ms"] == NM
+
+
+@pytest.mark.parametrize("eager", [True])  # the graphs mode (False) is the ``train`` case above
+def test_train_tool_reads_graphs_and_eager(eager, tiny_preset, tmp_path, monkeypatch):
+    """``bench.train --eager``: the same report, timed op by op, with the
+    profiled step of each mode."""
+    monkeypatch.chdir(tmp_path)
+    check_train_modes(run("train", TOOLS["train"][0] + ["--eager"]), eager=eager)
 
 
 @pytest.mark.parametrize("name", sorted(TOOLS))

@@ -288,7 +288,8 @@ def test_replays_count_k1_launches(monkeypatch):
     (warm run and capture) back out and adds the capture's count on every
     replay: one launch per stage per call, first call included."""
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _StubGraph)
-    monkeypatch.setattr(torch.cuda, "graph", lambda graph, pool=None: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "graph", lambda graph, pool=None, capture_error_mode="global":
+                        contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "Stream", lambda device=None: _StubStream())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: _StubStream())
     monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
