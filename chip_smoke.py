@@ -367,6 +367,8 @@ PAR_BN_RTOL, PAR_BN_ATOL = 1e-4, 1e-6  # the conformer's BatchNorm buffers after
 PAR_WAV_TP, PAR_MEL_MAE = 1e-3, 1e-3  # TP-2 headline, 10 Euler steps: the card-against-CPU bounds of [synth]
 PAR_WAV_DP = 1e-4  # DP-2 rows (tests/test_tp.py:148); bf16 rows at VOCODER_TOL
 ADAPTER_TOL = 1e-4  # Whisper and GPT-2, card against CPU, f32 with TF32 off: first-step logits, top-2 margins
+# (the same bound holds the adapters' graphed decode against their eager one, graphs=False, on the card)
+APP_ROUNDS = 3  # [apps] (c): rounds of (eager, graphs, graphs, eager) for each timed reading
 # [graphs]: each replay against the eager call on the same inputs, equal to the bit; where a library picks another
 # algorithm under capture, the f32 wav within GRAPH_WAV_TOL (bf16: the [precision] bounds, VOCODER_TOL and MEL_MAE_TOL)
 GRAPH_BATCHES, GRAPH_WAV_TOL, GRAPH_THREADS = (1, 8, 32), 1e-5, 32
@@ -1337,56 +1339,132 @@ def apps_case_studies(pipe, mrf, tmp: str) -> dict:
     return out
 
 
-def decode_against_cpu(name: str, card, cpu, run, hook: str) -> dict:
-    """One greedy decode on the card and on the CPU (the same weights): the
-    first step's logits within ADAPTER_TOL, and the ids equal up to the first
-    step whose top-2 margin on the CPU is under it.  ``hook`` names the
-    adapter's method that sees each step's logits."""
-    seen = {"card": [], "cpu": []}
-    for side, adapter in (("card", card), ("cpu", cpu)):
-        real = getattr(adapter, hook)
+def in_turns(fns: dict, rounds: int = APP_ROUNDS) -> dict:
+    """``fns["graphs"]`` and ``fns["eager"]`` each run once to warm, then
+    timed in turns (eager, graphs, graphs, eager) `rounds` times, host ms to
+    the end on the device → {mode: median ms, mode + "_all": every time}."""
+    for fn in fns.values():
+        fn()
+    times = {mode: [] for mode in fns}
+    for _ in range(rounds):
+        for mode in ("eager", "graphs", "graphs", "eager"):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fns[mode]()
+            torch.cuda.synchronize()
+            times[mode].append((time.perf_counter() - t) * 1e3)
+    return {**{mode: statistics.median(v) for mode, v in times.items()},
+            **{f"{mode}_all": v for mode, v in times.items()}}
 
-        def spy(logits, *a, real=real, side=side):
-            out = real(logits, *a)
-            seen[side].append((out if hook == "_logits" else logits)[0].float().cpu().clone())
-            return out
 
-        setattr(adapter, hook, spy)
-    try:
-        ids = {side: run(adapter) for side, adapter in (("card", card), ("cpu", cpu))}
-    finally:
-        for adapter in (card, cpu):
-            delattr(adapter, hook)
-    first, first_cpu = seen["card"][0], seen["cpu"][0]
-    finite = torch.isfinite(first_cpu)
-    err = float((first[finite] - first_cpu[finite]).abs().max())
-    margins = [float(s.topk(2).values[0] - s.topk(2).values[1]) for s in seen["cpu"]]
+def decoded(ids: list, eos: set) -> int:
+    """Tokens a decode ran: up to and with the first eos."""
+    return next((i + 1 for i, t in enumerate(ids) if t in eos), len(ids))
+
+
+def decode_against(name: str, got, ref, run, what: str) -> dict:
+    """One greedy decode by two adapters on the same weights (``run(adapter,
+    logits_out)`` → the new ids; each step's logits land in logits_out): the
+    first step's logits within ADAPTER_TOL, and the ids equal up to the
+    first step whose top-2 margin in `ref`'s logits is under it."""
+    seen = {"got": [], "ref": []}
+    ids = {side: run(adapter, seen[side]) for side, adapter in (("got", got), ("ref", ref))}
+    first, first_ref = seen["got"][0][0].float().cpu(), seen["ref"][0][0].float().cpu()
+    finite = torch.isfinite(first_ref)
+    err = float((first[finite] - first_ref[finite]).abs().max())
+    margins = [float(v[0] - v[1]) for v in (s[0].float().topk(2).values.cpu() for s in seen["ref"])]
     close = next((k for k, m in enumerate(margins) if m < ADAPTER_TOL), len(margins))
-    card_ids, cpu_ids = ids["card"], ids["cpu"]
-    diff = next((k for k, (a, b) in enumerate(zip(card_ids, cpu_ids)) if a != b), None)
+    diff = next((k for k, (a, b) in enumerate(zip(ids["got"], ids["ref"])) if a != b), None)
     row = dict(first_step_max_abs_err=err, steps=len(margins), first_close_step=close, first_differing_step=diff,
                min_margin=min(margins))
     if not (err <= ADAPTER_TOL and (diff is None or diff >= close)):
-        raise RuntimeError(f"[apps] (c) {name}: card against CPU {row}")
+        raise RuntimeError(f"[apps] (c) {name}: {what} {row}")
     return row
+
+
+def sampled_against(got, ref, run, u: torch.Tensor, temperature: float) -> dict:
+    """One sampled decode by two adapters on the same weights and uniforms
+    `u` (``run`` as in ``decode_against``): the ids equal up to the first step
+    whose uniform lies within ADAPTER_TOL of the total of a boundary of the
+    drawn token's span of the top-50 CDF in `ref`'s logits."""
+    from emojivoice_tpu_torch.apps.decode import TOP_K
+
+    seen = {"got": [], "ref": []}
+    ids = {side: run(adapter, seen[side]) for side, adapter in (("got", got), ("ref", ref))}
+    margins = []
+    for k, logits in enumerate(seen["ref"]):
+        scaled = logits[0].double().cpu() / temperature
+        kth = scaled.topk(TOP_K).values[-1]
+        probs = torch.softmax(scaled.masked_fill(scaled < kth, float("-inf")), -1)
+        cdf = probs.cumsum(-1)
+        x, tok = float(u[k]) * float(cdf[-1]), ids["ref"][k]
+        margins.append(min(x - float(cdf[tok] - probs[tok]), float(cdf[tok]) - x) / float(cdf[-1]))
+    close = next((k for k, m in enumerate(margins) if m < ADAPTER_TOL), len(margins))
+    diff = next((k for k, (a, b) in enumerate(zip(ids["got"], ids["ref"])) if a != b), None)
+    row = dict(steps=len(margins), first_close_step=close, first_differing_step=diff, min_margin=min(margins))
+    if diff is not None and diff < close:
+        raise RuntimeError(f"[apps] (c) sampled GPT-2: graphed against eager {row}")
+    return row
+
+
+def agent_turn(pipe, mrf, asr, llm, wav: str, out_dir: str, counted: bool) -> dict:
+    """One whole ``FeelMe.run`` turn (recorder stub → `asr` → `llm` →
+    synthesis → sink), the second transcription ending the session: its
+    wall and first audio on the host clock, its synthesis calls, with K1
+    read from ``mrf.launches`` at 0 where `counted` (the main path's run)."""
+    import builtins
+    import shutil
+
+    from emojivoice_tpu_torch.apps.feel_me import FeelMe
+
+    class Recorder:
+        def record(self, path):
+            shutil.copy(wav, path)
+            return True
+
+    heard = []
+    real = asr.transcribe
+    asr.transcribe = lambda path: heard.append(real(path)) or (heard[0] if len(heard) == 1 else "end session")
+    sink = TimedSink(out_dir)
+    app = FeelMe(pipe, asr=asr, llm=llm, sink=sink, recorder=Recorder(), record_path=f"{out_dir}_in.wav")
+    real_input = builtins.input
+    builtins.input = lambda *a: ""
+    try:
+        if counted:
+            mrf.launches.clear()  # the main path's run of (c): one agent turn
+        with Synthesised(pipe, mrf, "(c) FeelMe.run") as calls:
+            t = time.perf_counter()
+            app.run()
+            wall = (time.perf_counter() - t) * 1e3
+        launches = sum(mrf.launches.values())
+    finally:
+        builtins.input = real_input
+        del asr.transcribe
+    if len(heard) != 2 or len(app.history) != 2 or not sink.chunks or not all(np.isfinite(c).all() for c in sink.chunks):
+        raise RuntimeError(f"[apps] (c) FeelMe.run: heard {heard}, history {app.history}, {len(sink.chunks)} plays")
+    return dict(wall_ms=wall, ttfa_ms=(sink.marks[0] - t) * 1e3, calls=len(calls.results), k1_launches=launches,
+                transcript_words=len(heard[0].split()), reply_words=len(app.history[1]["content"].split()))
 
 
 def apps_adapters(pipe, mrf, tmp: str, wav: str) -> dict:
     """(c) Whisper and the chat LM on the card at published widths
     (``WhisperConfig()``: whisper-tiny's, ``GPT2Config()``: GPT-2's 124 M),
-    random weights from seed 0, the stub tokenizer: a wav of (a) transcribed,
-    one chat turn of 64 new tokens greedy and sampled (a second adapter with
-    the same seed replays the draw), one whole ``FeelMe.run`` turn (recorder
-    stub → ``TorchWhisperASR`` → ``TorchChatLM`` → synthesis) with all three
-    models on the card, and each model's greedy decode held against the CPU."""
-    import builtins
-    import shutil
-
-    import numpy as np
-
+    random weights from seed 0, the stub tokenizer.  Each adapter decodes
+    through its captured graphs (the default) and, as the yardstick, through
+    transformers' forward (``graphs=False``), timed in turns: a wav of (a)
+    transcribed, one chat turn of 64 new tokens greedy and sampled.  Graphed
+    against eager and the card against the CPU (the CPU decodes through the
+    same steps, uncaptured): first-step logits within ADAPTER_TOL and the ids
+    equal up to the first close margin, for Whisper and greedy GPT-2; the
+    sampled reply equal draw for draw up to the first uniform within
+    ADAPTER_TOL of a boundary, and replaying from its seed.  Then whole
+    ``FeelMe.run`` turns (recorder stub → ``TorchWhisperASR`` →
+    ``TorchChatLM`` → synthesis) with all three models on the card, one to
+    warm, then through graphs (the main path's run) and eagerly, in turns."""
     from emojivoice_tpu_torch.apps import adapters as ad
-    from emojivoice_tpu_torch.apps.feel_me import PROMPT, FeelMe
+    from emojivoice_tpu_torch.apps.feel_me import PROMPT
     from emojivoice_tpu_torch.apps.torch_adapters import TorchChatLM, TorchWhisperASR, _load_wav_16k, import_transformers
+    from emojivoice_tpu_torch.utils.prng import step_generator
 
     tf = import_transformers()
     with torch.random.fork_rng(devices=[]):
@@ -1397,75 +1475,114 @@ def apps_adapters(pipe, mrf, tmp: str, wav: str) -> dict:
     params = {"whisper": sum(p.numel() for p in whisper.parameters()),
               "gpt2": sum(p.numel() for p in gpt2.parameters())}
     asr = TorchWhisperASR(model=whisper, tokenizer=StubTokenizer(), device=DEVICE)
+    asr_eager = TorchWhisperASR(model=whisper, tokenizer=StubTokenizer(), device=DEVICE, graphs=False)
     asr_cpu = TorchWhisperASR(model=whisper_cpu, tokenizer=StubTokenizer(), device="cpu")
     chat = dict(tokenizer=StubTokenizer(), max_new_tokens=64)
     greedy = TorchChatLM(model=gpt2, temperature=0.0, device=DEVICE, **chat)
+    greedy_eager = TorchChatLM(model=gpt2, temperature=0.0, device=DEVICE, graphs=False, **chat)
     greedy_cpu = TorchChatLM(model=gpt2_cpu, temperature=0.0, device="cpu", **chat)
-
-    def median_ms(fn, runs: int = 3):
-        fn()  # warm
-        times = []
-        for _ in range(runs):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t) * 1e3)
-        return statistics.median(times)
-
     out = dict(params=params)
+
     text = asr.transcribe(wav)
-    if not text:
-        raise RuntimeError("[apps] (c) Whisper transcribed nothing")
-    out["whisper_ms"] = median_ms(lambda: asr.transcribe(wav))
-    audio = _load_wav_16k(wav)
-    feats = asr._fe(audio, sampling_rate=16000, return_tensors="np").input_features
-    out["whisper_vs_cpu"] = decode_against_cpu("Whisper", asr, asr_cpu, lambda a: a._generate(feats)[0].tolist(),
-                                               "_logits")
+    if not text or text != asr_eager.transcribe(wav):
+        raise RuntimeError(f"[apps] (c) Whisper transcribed nothing, or not what the eager decode did: {text!r}")
+    feats = asr._fe(_load_wav_16k(wav), sampling_rate=16000, return_tensors="np").input_features
+    out["transcribe_ms"] = in_turns({"graphs": lambda: asr.transcribe(wav), "eager": lambda: asr_eager.transcribe(wav)})
+    out["whisper_decode_ms"] = in_turns({"graphs": lambda: asr._generate(feats),
+                                         "eager": lambda: asr_eager._generate(feats)})
+
+    def run_whisper(adapter, logits):
+        return adapter._generate(feats, logits)[0, 1:].tolist()
+
+    out["whisper_graphs_vs_eager"] = decode_against("Whisper", asr, asr_eager, run_whisper, "graphed against eager")
+    out["whisper_vs_cpu"] = decode_against("Whisper", asr, asr_cpu, run_whisper, "card against CPU")
 
     user = "hello robot, tell me a story about the sea"
-    out["chat_greedy_ms"] = median_ms(lambda: greedy.chat(PROMPT, [], user))
-    messages = ad.build_messages(PROMPT, [], user)
-    ids, mask, bucket = greedy._encode(messages)
+    ids, mask, bucket = greedy._encode(ad.build_messages(PROMPT, [], user))
     out["chat_bucket"] = bucket
-    out["gpt2_vs_cpu"] = decode_against_cpu("GPT-2", greedy, greedy_cpu,
-                                            lambda a: a._generate(ids, mask)[0, bucket:].tolist(), "_next_token")
+    out["chat_greedy_ms"] = in_turns({"graphs": lambda: greedy.chat(PROMPT, [], user),
+                                      "eager": lambda: greedy_eager.chat(PROMPT, [], user)})
+
+    def run_greedy(adapter, logits):
+        return adapter._generate(ids, mask, None, logits)[0, bucket:].tolist()
+
+    out["gpt2_graphs_vs_eager"] = decode_against("GPT-2", greedy, greedy_eager, run_greedy, "graphed against eager")
+    out["gpt2_vs_cpu"] = decode_against("GPT-2", greedy, greedy_cpu, run_greedy, "card against CPU")
+
     sampled = [TorchChatLM(model=gpt2, temperature=0.6, seed=0, device=DEVICE, **chat) for _ in range(2)]
+    sampled_eager = TorchChatLM(model=gpt2, temperature=0.6, seed=0, device=DEVICE, graphs=False, **chat)
     replies = [[lm.chat(PROMPT, [], user) for _ in range(2)] for lm in sampled]
     if replies[0] != replies[1] or replies[0][0] == replies[0][1] or replies[0][0] == greedy.chat(PROMPT, [], user):
         raise RuntimeError(f"[apps] (c) sampling does not replay from its seed, or does not sample: {replies}")
-    out["chat_sampled_ms"] = median_ms(lambda: sampled[0].chat(PROMPT, [], user))
 
-    class Recorder:
-        def record(self, path):
-            shutil.copy(wav, path)
-            return True
+    def run_sampled(adapter, logits):
+        return adapter._generate(ids, mask, step_generator(0, 0, "chat", DEVICE), logits)[0, bucket:].tolist()
 
-    heard = []
-    real = asr.transcribe
-    asr.transcribe = lambda path: heard.append(real(path)) or (heard[0] if len(heard) == 1 else "end session")
-    sink = TimedSink(f"{tmp}/agent")
+    uniforms = torch.rand(64, generator=step_generator(0, 0, "chat", DEVICE), device=DEVICE).cpu()
+    out["sampled_graphs_vs_eager"] = sampled_against(sampled[0], sampled_eager, run_sampled, uniforms, 0.6)
+    out["chat_sampled_ms"] = in_turns({"graphs": lambda: sampled[0].chat(PROMPT, [], user),
+                                       "eager": lambda: sampled_eager.chat(PROMPT, [], user)})
+    # the tokens each reading decodes: up to and with eos (random weights rarely reach it)
+    out["whisper_tokens"] = decoded(run_whisper(asr, None), asr._eos)
+    out["chat_greedy_tokens"] = decoded(run_greedy(greedy, None), greedy._eos)
+    out["chat_sampled_tokens"] = decoded(run_sampled(sampled[0], None), greedy._eos)
+
     # the agent's reply is spoken: the stub spells a token as "w<id>", and English cleaning spells the id out
     # ("wfifty thousand one hundred ..."), so four tokens keep the reply inside the largest text bucket
-    agent_llm = TorchChatLM(model=gpt2, temperature=0.0, device=DEVICE, tokenizer=StubTokenizer(), max_new_tokens=4)
-    app = FeelMe(pipe, asr=asr, llm=agent_llm, sink=sink, recorder=Recorder(), record_path=f"{tmp}/agent_in.wav")
-    real_input = builtins.input
-    builtins.input = lambda *a: ""
-    try:
-        mrf.launches.clear()  # the main path's run of (c): one agent turn
-        with Synthesised(pipe, mrf, "(c) FeelMe.run") as calls:
-            t = time.perf_counter()
-            app.run()
-            out["agent_turn_ms"] = (time.perf_counter() - t) * 1e3
-        launches = sum(mrf.launches.values())
-    finally:
-        builtins.input = real_input
-        del asr.transcribe
-    if len(heard) != 2 or len(app.history) != 2 or not sink.chunks or not all(np.isfinite(c).all() for c in sink.chunks):
-        raise RuntimeError(f"[apps] (c) FeelMe.run: heard {heard}, history {app.history}, {len(sink.chunks)} plays")
-    out.update(agent_ttfa_ms=(sink.marks[0] - t) * 1e3, agent_calls=len(calls.results), k1_launches=launches,
-               transcript_words=len(heard[0].split()), reply_words=len(app.history[1]["content"].split()))
+    agent_kw = dict(model=gpt2, temperature=0.0, device=DEVICE, tokenizer=StubTokenizer(), max_new_tokens=4)
+    agent_llm, agent_eager = TorchChatLM(**agent_kw), TorchChatLM(graphs=False, **agent_kw)
+    # one turn to warm: the reply's text and mel bucket keys of the pipeline, the prompt's bucket of the LM
+    agent_turn(pipe, mrf, asr, agent_llm, wav, f"{tmp}/agent_warm", counted=False)
+    replays = asr.graphs.stats()["replays"] + agent_llm.graphs.stats()["replays"]
+    turns = {"graphs": [agent_turn(pipe, mrf, asr, agent_llm, wav, f"{tmp}/agent", counted=True)]}
+    if asr.graphs.stats()["replays"] + agent_llm.graphs.stats()["replays"] <= replays:
+        raise RuntimeError("[apps] (c) FeelMe.run did not decode through the adapters' graphs")
+    turns["eager"] = []
+    for i, mode in enumerate(("eager", "eager", "graphs")):
+        pair = (asr, agent_llm) if mode == "graphs" else (asr_eager, agent_eager)
+        turns[mode].append(agent_turn(pipe, mrf, *pair, wav, f"{tmp}/agent_{i}", counted=False))
+    main = turns["graphs"][0]
+    out.update(agent_turn_ms=main["wall_ms"], agent_ttfa_ms=main["ttfa_ms"], agent_calls=main["calls"],
+               k1_launches=main["k1_launches"], transcript_words=main["transcript_words"],
+               reply_words=main["reply_words"],
+               agent_turns={mode: [dict(wall_ms=r["wall_ms"], ttfa_ms=r["ttfa_ms"]) for r in rows]
+                            for mode, rows in turns.items()})
+    out["graphs"] = {}
+    for name, adapter in (("whisper", asr), ("gpt2_greedy", greedy), ("gpt2_sampled", sampled[0]),
+                          ("gpt2_agent", agent_llm)):
+        stats = adapter.graphs.stats()
+        if not adapter.graphs.capture or stats["captures"] < 2 or stats["graphs"] != stats["captures"]:
+            raise RuntimeError(f"[apps] (c) {name} did not decode through captured graphs: {stats}")
+        out["graphs"][name] = {**stats, "pool_bytes": adapter.graphs.pool_bytes()}
     print("[apps] (c) adapters on the card " + json.dumps(out))
+    return out
+
+
+def apps_profile() -> dict:
+    """(c) One greedy 64-token reply of the chat LM under ``torch.profiler``,
+    through graphs and eagerly (the weights and prompt of (c)): device ms,
+    device activities and the busy share against the call's own wall.  Run
+    after the smoke's timed phases: a process's calls run slower after its
+    first profiler session."""
+    from emojivoice_tpu_torch.apps import adapters as ad
+    from emojivoice_tpu_torch.apps.feel_me import PROMPT
+    from emojivoice_tpu_torch.apps.torch_adapters import TorchChatLM, import_transformers
+    from emojivoice_tpu_torch.bench.util import profile_call
+
+    tf = import_transformers()
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        gpt2 = tf.GPT2LMHeadModel(tf.GPT2Config()).eval()
+    messages = ad.build_messages(PROMPT, [], "hello robot, tell me a story about the sea")
+    out = {}
+    for mode in ("graphs", "eager"):
+        lm = TorchChatLM(model=gpt2, tokenizer=StubTokenizer(), temperature=0.0, max_new_tokens=64, device=DEVICE,
+                         graphs=mode == "graphs")
+        ids, mask, _ = lm._encode(messages)
+        lm._generate(ids, mask)  # warm: the captures, cuBLAS
+        row = profile_call(lambda lm=lm, ids=ids, mask=mask: lm._generate(ids, mask), torch.device(DEVICE))
+        out[mode] = {k: row[k] for k in ("profiled_wall_ms", "device_ms", "device_activities", "busy")}
+    print("[apps] (c) one greedy 64-token reply profiled " + json.dumps(out))
     return out
 
 
@@ -3651,6 +3768,7 @@ def main() -> int:
     parallel = timed("parallel", phase_parallel, mas, mrf)
     train_graphs = timed("train graphs", phase_train_graphs, mas)
     bench = timed("bench", phase_bench, mas, mrf)
+    timed("apps profiled reply", apps_profile)
     # K1 on the main paths: the synthesis requests, the engine's and the webapp's batches, the apps' turns, demos
     # and agent turn, the trained checkpoint,
     # the vocoder proof's two renders, the fine-tuned generator served, the exported bundle's program runs, the

@@ -3,23 +3,34 @@ counterparts of the JAX package's ``apps/flax_adapters.py``.
 
 The reference's feel_me agent chains torch Whisper (feel_me.py:29,268) and an
 Ollama server (feel_me.py:115-119) around the TTS.  Here both run on the same
-device as synthesis, through transformers' PyTorch model classes:
+device as synthesis, on transformers' PyTorch model classes:
 
   TorchWhisperASR — Whisper's encoder once, then a greedy decode loop over
                     the decoder's key/value cache; the features are fixed at
                     (1, 80, 3000), as the JAX adapter has them.
-  TorchChatLM     — causal-LM chat (e.g. the GPT-2 family) with the JAX
-                    adapter's prompt handling (bucketed, left-padded prompts
-                    that never lose the system message) and a decode loop of
-                    its own: sampling draws from a ``torch.Generator`` on the
-                    model's device seeded from (seed, turn), which
-                    transformers' ``generate`` cannot take, so a conversation
-                    replays from its seed.
+  TorchChatLM     — causal-LM chat (the GPT-2 family) with the JAX adapter's
+                    prompt handling (bucketed, left-padded prompts that never
+                    lose the system message); sampling draws from a
+                    ``torch.Generator`` on the model's device seeded from
+                    (seed, turn), so a conversation replays from its seed.
+
+By default (``graphs=True``) both decode through the port's own steps over a
+static key/value cache (``apps/decode.py``), one captured CUDA graph per
+key on the card, as the JAX adapters compile one program per ``generate``:
+Whisper's encoder with the cross-attention keys and values, and its decode
+step; the chat LM's prefill per prompt bucket and its decode step.  A turn
+copies its inputs into static buffers, replays the prefill (or the encoder)
+once and the decode step once a token, and reads each token through one
+pinned copy for the end-of-sequence check.  On the CPU the same keys run
+the steps without capture.  ``graphs=False`` keeps transformers' own
+forward over its growing cache, a token at a time, as the yardstick.
 
 Both decode loops apply what the Flax ``generate`` applied: greedy decoding
 gives the Flax adapters' token ids on the same weights
 (``io/from_jax.py::hf_flax_params_to_torch``), and sampling draws from the
-same distribution (temperature, then the 50 most likely tokens).
+same distribution (temperature, then the 50 most likely tokens) by inverse
+CDF from the turn's uniforms, drawn at once before its first token
+(``decode.sample_top_k``), in both modes alike.
 
 Both take either a pretrained name or an injected (model, tokenizer); tests
 drive them with tiny random-init configs and stub tokenizers.  Each runs on
@@ -35,12 +46,10 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from emojivoice_tpu_torch.apps.decode import DecodeGraphs, GPT2Decoder, WhisperDecoder, sample_top_k
 from emojivoice_tpu_torch.utils.prng import step_generator
 
 WHISPER_SAMPLE_RATE = 16_000
-# the Flax generate's default sampling warpers: temperature, then top-k with
-# k = 50 (transformers' GenerationConfig default); the chat adapter keeps them
-TOP_K = 50
 
 
 def import_transformers():
@@ -95,7 +104,9 @@ class TorchWhisperASR:
     features are always (1, 80, 3000)); the encoder runs once and the decoder
     greedily, one token a step over its cache, applying the generation
     config's ``suppress_tokens``, ``begin_suppress_tokens`` and
-    ``forced_decoder_ids`` as the Flax ``generate`` does.
+    ``forced_decoder_ids`` as the Flax ``generate`` does: through
+    ``decode.WhisperDecoder``'s graphs by default, transformers' forward with
+    ``graphs=False``.
     """
 
     needs_audio = True  # reads a recorded wav — the loop must supply one
@@ -109,6 +120,7 @@ class TorchWhisperASR:
         max_length: Optional[int] = None,
         device="cuda",
         local_files_only: bool = False,
+        graphs: bool = True,
     ):
         self.device = _device(device, "TorchWhisperASR")
         transformers = import_transformers()
@@ -136,6 +148,12 @@ class TorchWhisperASR:
         self._forced = {int(i): int(t) for i, t in forced}
         # the first free step: after the start token and the last forced one
         self._begin_index = 1 + (int(forced[-1][0]) if forced else 0)
+        self.graphs = DecodeGraphs(self.device) if graphs else None
+        self._dec = self._decoder() if graphs else None
+
+    def _decoder(self) -> WhisperDecoder:
+        return WhisperDecoder(self._model, self._max_length, self._start, self._suppress, self._begin_suppress,
+                              self._begin_index, self._forced)
 
     def _logits(self, logits: torch.Tensor, cur: int) -> torch.Tensor:
         """The Flax processors' order: suppress, suppress at begin, force."""
@@ -149,18 +167,42 @@ class TorchWhisperASR:
         return logits
 
     @torch.inference_mode()
-    def _generate(self, feats: np.ndarray) -> np.ndarray:
+    def _generate(self, feats: np.ndarray, logits_out: Optional[list] = None) -> np.ndarray:
         """Features (1, n_mels, 3000) → the (1, max_length) sequence: the start
         token, the greedy tokens up to and with eos, then pad (the Flax
-        ``generate``'s ``sequences``)."""
+        ``generate``'s ``sequences``).  With `logits_out`, each step's logits
+        after the rules, (1, V) f32 on the device, are appended to it."""
         seq = np.full((1, self._max_length), self._pad, dtype=np.int64)
         seq[0, 0] = self._start
-        enc = self._model.get_encoder()(torch.from_numpy(np.asarray(feats, np.float32)).to(self.device))
+        feats = torch.from_numpy(np.asarray(feats, np.float32))
+        if self.graphs is None:
+            return self._generate_eager(feats.to(self.device), seq, logits_out)
+        with self.graphs.lock:
+            if self.graphs.watch(self._model):
+                self._dec = self._decoder()
+            dec = self._dec
+            dec.feats.copy_(feats)
+            self.graphs.run(("encode",), dec.encode)
+            for cur in range(1, self._max_length):
+                self.graphs.run(("decode", self._max_length), dec.step)
+                tok = self.graphs.read(dec.tok)
+                if logits_out is not None:
+                    logits_out.append(dec.logits.clone())
+                seq[0, cur] = tok
+                if tok in self._eos:
+                    break
+        return seq
+
+    def _generate_eager(self, feats: torch.Tensor, seq: np.ndarray, logits_out: Optional[list]) -> np.ndarray:
+        enc = self._model.get_encoder()(feats)
         ids = torch.tensor([[self._start]], device=self.device)
         past = None
         for cur in range(1, self._max_length):
             out = self._model(encoder_outputs=enc, decoder_input_ids=ids, past_key_values=past, use_cache=True)
-            tok = int(self._logits(out.logits[:, -1].float(), cur).argmax(-1))
+            logits = self._logits(out.logits[:, -1].float(), cur)
+            if logits_out is not None:
+                logits_out.append(logits.clone())
+            tok = int(logits.argmax(-1))
             seq[0, cur] = tok
             if tok in self._eos:
                 break
@@ -189,7 +231,10 @@ class TorchChatLM:
     Prompt tokens are left-padded to the smallest bucket that fits, as the
     JAX adapter does; each turn's sampling generator is seeded from the
     constructor's seed and the turn counter, so a conversation replays
-    draw for draw from the same seed.
+    draw for draw from the same seed.  GPT-2 models decode through
+    ``decode.GPT2Decoder``'s graphs by default: one prefill graph per prompt
+    bucket and one decode graph over a cache of the largest bucket plus
+    ``max_new_tokens`` slots; another causal LM needs ``graphs=False``.
     """
 
     def __init__(
@@ -202,6 +247,7 @@ class TorchChatLM:
         seed: int = 0,
         prompt_buckets: Sequence[int] = (64, 128, 256, 512),
         device="cuda",
+        graphs: bool = True,
     ):
         self.device = _device(device, "TorchChatLM")
         transformers = import_transformers()
@@ -235,6 +281,11 @@ class TorchChatLM:
         self._eos = set(_token_list(model.config.eos_token_id))
         # what follows eos in a sequence (the Flax generate fills with the generation config's pad)
         self._fill = _token_list(gen.pad_token_id if gen.pad_token_id is not None else gen.eos_token_id)[0]
+        self.graphs = DecodeGraphs(self.device) if graphs else None
+        self._dec = self._decoder() if graphs else None
+
+    def _decoder(self) -> GPT2Decoder:
+        return GPT2Decoder(self._model, self.prompt_buckets, self.max_new_tokens)
 
     # -- prompt construction (the JAX adapter's, unchanged) -------------------
 
@@ -280,32 +331,68 @@ class TorchChatLM:
 
     # -- generation ---------------------------------------------------------
 
-    def _next_token(self, logits: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
-        if generator is None:
+    def _next_token(self, logits: torch.Tensor, u: Optional[torch.Tensor] = None,
+                    temperature: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if u is None:
             return logits.argmax(-1, keepdim=True)
-        logits = logits / self.temperature
-        kth = torch.topk(logits, min(TOP_K, logits.shape[-1]), dim=-1).values[:, -1:]
-        logits = logits.masked_fill(logits < kth, -float("inf"))
-        return torch.multinomial(torch.softmax(logits, dim=-1), 1, generator=generator)
+        return sample_top_k(logits, temperature, u)
 
     @torch.inference_mode()
-    def _generate(self, ids: np.ndarray, mask: np.ndarray, generator: Optional[torch.Generator] = None) -> np.ndarray:
+    def _generate(self, ids: np.ndarray, mask: np.ndarray, generator: Optional[torch.Generator] = None,
+                  logits_out: Optional[list] = None) -> np.ndarray:
         """Left-padded prompt (1, bucket) → the (1, bucket + max_new_tokens)
         sequence: the prompt, the new tokens up to and with eos, then the fill
-        (the Flax ``generate``'s ``sequences``).  Greedy without a generator.
-        Positions count the prompt's real tokens from 0, as the Flax GPT-2
-        does; a pad's own position is never attended to."""
+        (the Flax ``generate``'s ``sequences``).  Greedy without a generator;
+        with one, the turn's ``max_new_tokens`` uniforms are drawn from it at
+        once, one a new token.  Positions count the prompt's real tokens from
+        0, as the Flax GPT-2 does; a pad's own position is never attended to.
+        With `logits_out`, each step's logits, (1, V) f32 on the device, are
+        appended to it."""
         bucket = ids.shape[1]
         seq = np.full((1, bucket + self.max_new_tokens), self._fill, dtype=np.int64)
         seq[0, :bucket] = ids[0]
-        inp = torch.from_numpy(np.asarray(ids, np.int64)).to(self.device)
-        attn = torch.from_numpy(np.asarray(mask, np.int64)).to(self.device)
+        ids_t, mask_t = torch.from_numpy(np.asarray(ids, np.int64)), torch.from_numpy(np.asarray(mask, np.int64))
+        if self.graphs is None:
+            return self._generate_eager(ids_t.to(self.device), mask_t.to(self.device), generator, seq, logits_out)
+        sample = generator is not None
+        with self.graphs.lock:
+            if self.graphs.watch(self._model):
+                self._dec = self._decoder()
+            dec = self._dec
+            static_ids, static_mask = dec.inputs(bucket)
+            static_ids.copy_(ids_t)
+            static_mask.copy_(mask_t)
+            if sample:
+                torch.rand(self.max_new_tokens, generator=generator, device=self.device, out=dec.u)
+                dec.temperature.fill_(self.temperature)
+            for cur in range(bucket, seq.shape[1]):
+                if cur == bucket:
+                    self.graphs.run(("prefill", bucket, sample), lambda: dec.prefill(bucket, sample))
+                else:
+                    self.graphs.run(("decode", sample), lambda: dec.step(sample))
+                seq[0, cur] = self.graphs.read(dec.tok)
+                if logits_out is not None:
+                    logits_out.append(dec.logits.clone())
+                if seq[0, cur] in self._eos:
+                    break
+        return seq
+
+    def _generate_eager(self, inp: torch.Tensor, attn: torch.Tensor, generator: Optional[torch.Generator],
+                        seq: np.ndarray, logits_out: Optional[list]) -> np.ndarray:
+        bucket = inp.shape[1]
+        u = temperature = None
+        if generator is not None:
+            u = torch.rand(self.max_new_tokens, generator=generator, device=self.device)
+            temperature = torch.full((), self.temperature, dtype=torch.float32, device=self.device)
         pos = (attn.cumsum(-1) - 1).clamp(min=0)
         past = None
         for cur in range(bucket, seq.shape[1]):
             out = self._model(input_ids=inp, attention_mask=attn, position_ids=pos, past_key_values=past,
                               use_cache=True)
-            tok = self._next_token(out.logits[:, -1].float(), generator)
+            logits = out.logits[:, -1].float()
+            if logits_out is not None:
+                logits_out.append(logits.clone())
+            tok = self._next_token(logits, None if u is None else u[cur - bucket: cur - bucket + 1], temperature)
             seq[0, cur] = int(tok)
             if seq[0, cur] in self._eos:
                 break

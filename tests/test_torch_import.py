@@ -53,8 +53,9 @@ for want in ("ops.mas", "ops.mel", "data.dataset", "data.audio_np", "training.tr
              "io.torch_ckpt", "utils.assets", "vocoder.discriminators", "training.vocoder_train",
              "training.vocoder_proof", "training.proof", "training.get_durations", "data.stats", "io.export_torch",
              "inference.export", "io.torch_pickle", "models.conformer", "utils.observability",
-             "training.scratch_proof", "training.sweep", "apps.adapters", "apps.torch_adapters", "apps.feel_me",
-             "apps.game_ui", "apps.demos", "apps.pepper", "apps.record_audio", "parallel.mesh", "parallel.tp",
+             "training.scratch_proof", "training.sweep", "apps.adapters", "apps.torch_adapters", "apps.decode",
+             "apps.feel_me", "apps.game_ui", "apps.demos", "apps.pepper", "apps.record_audio", "parallel.mesh",
+             "parallel.tp",
              "bench.util", "bench.synthesis", "bench.breakdown", "bench.serving", "bench.ttfa", "bench.exported",
              "bench.vocoder", "bench.vocoder_stages", "bench.mas", "bench.train", "bench.mfu", "bench.multilingual"):
     assert "emojivoice_tpu_torch." + want in names, want
