@@ -81,9 +81,12 @@ Phases (each one failing fails the run, exit code ≠ 0):
      trainer wrote: one utterance on the card, K1 on all four stages;
   6. vocoder training — still inside the training run's folder: (a)
      ``get_durations.main`` on the run's ``ckpts/`` and filelist with
-     ``--gen_mels``: K2 launches once per batch, every teacher-forced mel has
-     as many frames as its durations sum to, and the first batch's path
-     equals the plain search on the same log-prior to the bit; (b)
+     ``--gen_mels``, each batch's forward through its captured graph (the
+     default): K2 launches once per batch, every teacher-forced mel has
+     as many frames as its durations sum to, the first batch's path
+     equals the plain search on the same log-prior to the bit, and every
+     durations file and mel equals that of the same call with ``--eager``
+     to the bit; (b)
      ``run_vocoder_proof`` at HiFi-GAN v1 width with the full MPD + MSD,
      batch 16 × 32 frames (8,192 samples), conditioned on (a)'s mels, 60
      steps logged every 5: the harness's own assert wants the windowed
@@ -198,7 +201,17 @@ Phases (each one failing fails the run, exit code ≠ 0):
      ``FeelMe.run`` turn with all three models on the card, ms per call, and
      each greedy decode held against the CPU (first-step logits within 1e-4,
      ids equal up to the first step whose top-2 margin on the CPU is under
-     1e-4).
+     1e-4); (d) the Llama family at full width: Llama-3.2-1B at its
+     published config (``LLAMA32``: 16 layers, 32 / 8 heads, ``llama3``
+     rotary at base 500000, tied head), random f32 weights made on the card,
+     through ``TorchChatLM``'s default (``LlamaDecoder``'s graphs) against
+     ``graphs=False``: its rotary tables against the model's own, 64-token
+     replies at bucket 256 greedy and sampled in turns, graphed against eager
+     and the card against the CPU (the prefill and three steps) as in (c)
+     with ``LLAMA_TOL``, capture ms and pool bytes; a tiny gpt_neo through
+     ``TorchChatLM()`` on the card decodes eagerly and says so.  After
+     [bench], one greedy 64-token reply of GPT-2 and of Llama-3.2-1B
+     profiled each way.
 
  14. parallel (last) — (a) ``train.main`` with ``--num_devices 1`` (NCCL at
      world size 1, DDP), batch 16, 3 steps, a checkpoint and ``--resume`` for
@@ -231,9 +244,15 @@ Phases (each one failing fails the run, exit code ≠ 0):
      the one after the eager steps and to a pipeline made afresh; (d) K2
      once a step, replays included; (e) steps per second in turns eager /
      graphs / graphs / eager, capture ms per key, pool bytes, and one
-     profiled step of each (device ms, busy share); (f) the card's
-     capturable Adam against the plain one on 4 M elements, 5 steps: the
-     largest difference within a hundredth of lr.
+     profiled step of each (device ms, busy share); (f) the eval step at the
+     same two keys, each call between two graphed train steps, and the
+     trainer's probe on a fixed batch and noise, through their captured
+     graphs (``training/eval_graphs.py``) against the eager forwards on the
+     same weights, under deterministic kernels: losses and probe outputs
+     equal to the bit, K2 once a call (replays included), capture ms per key
+     and pool bytes, host ms a call of each in turns (run before (e)'s
+     profiled steps); (g) the card's capturable Adam against the plain one on
+     4 M elements, 5 steps: the largest difference within a hundredth of lr.
  15. bench (last) — the twelve measurement tools of ``emojivoice_tpu_torch/bench/``
      (the twins of ``bench.py`` and ``tools/``) called in process at
      emoji_multi + HiFi-GAN v1 width with short settings (``BENCH_ARGS``):
@@ -369,6 +388,18 @@ PAR_WAV_DP = 1e-4  # DP-2 rows (tests/test_tp.py:148); bf16 rows at VOCODER_TOL
 ADAPTER_TOL = 1e-4  # Whisper and GPT-2, card against CPU, f32 with TF32 off: first-step logits, top-2 margins
 # (the same bound holds the adapters' graphed decode against their eager one, graphs=False, on the card)
 APP_ROUNDS = 3  # [apps] (c): rounds of (eager, graphs, graphs, eager) for each timed reading
+# [apps] (d): Llama-3.2-1B's published config (meta-llama/Llama-3.2-1B config.json), the agent's default chat model
+# (Ollama's llama3.2:1b), random weights; its rotary form is given in whichever form the installed transformers takes
+LLAMA32 = dict(vocab_size=128256, hidden_size=2048, intermediate_size=8192, num_hidden_layers=16,
+               num_attention_heads=32, num_key_value_heads=8, head_dim=64, max_position_embeddings=131072,
+               rms_norm_eps=1e-5, hidden_act="silu", tie_word_embeddings=True, bos_token_id=128000,
+               eos_token_id=128001, attention_bias=False, mlp_bias=False)
+LLAMA32_ROPE = dict(rope_type="llama3", factor=32.0, low_freq_factor=1.0, high_freq_factor=4.0,
+                    original_max_position_embeddings=8192)
+LLAMA32_THETA = 500000.0
+LLAMA_TOL = 1e-4  # Llama-3.2-1B f32, TF32 off: graphed against eager and card against CPU, first-step logits and
+# the top-2 margin below which ids may part (the adapters' bound)
+LLAMA_CPU_TOKENS = 4  # card against CPU: the prefill and three steps (the CPU reads 4.9 GB of weights a token)
 # [graphs]: each replay against the eager call on the same inputs, equal to the bit; where a library picks another
 # algorithm under capture, the f32 wav within GRAPH_WAV_TOL (bf16: the [precision] bounds, VOCODER_TOL and MEL_MAE_TOL)
 GRAPH_BATCHES, GRAPH_WAV_TOL, GRAPH_THREADS = (1, 8, 32), 1e-5, 32
@@ -1378,11 +1409,11 @@ def decode_against(name: str, got, ref, run, what: str) -> dict:
     row = dict(first_step_max_abs_err=err, steps=len(margins), first_close_step=close, first_differing_step=diff,
                min_margin=min(margins))
     if not (err <= ADAPTER_TOL and (diff is None or diff >= close)):
-        raise RuntimeError(f"[apps] (c) {name}: {what} {row}")
+        raise RuntimeError(f"[apps] {name}: {what} {row}")
     return row
 
 
-def sampled_against(got, ref, run, u: torch.Tensor, temperature: float) -> dict:
+def sampled_against(got, ref, run, u: torch.Tensor, temperature: float, name: str = "(c) sampled GPT-2") -> dict:
     """One sampled decode by two adapters on the same weights and uniforms
     `u` (``run`` as in ``decode_against``): the ids equal up to the first step
     whose uniform lies within ADAPTER_TOL of the total of a boundary of the
@@ -1403,7 +1434,7 @@ def sampled_against(got, ref, run, u: torch.Tensor, temperature: float) -> dict:
     diff = next((k for k, (a, b) in enumerate(zip(ids["got"], ids["ref"])) if a != b), None)
     row = dict(steps=len(margins), first_close_step=close, first_differing_step=diff, min_margin=min(margins))
     if diff is not None and diff < close:
-        raise RuntimeError(f"[apps] (c) sampled GPT-2: graphed against eager {row}")
+        raise RuntimeError(f"[apps] {name}: graphed against eager {row}")
     return row
 
 
@@ -1494,8 +1525,8 @@ def apps_adapters(pipe, mrf, tmp: str, wav: str) -> dict:
     def run_whisper(adapter, logits):
         return adapter._generate(feats, logits)[0, 1:].tolist()
 
-    out["whisper_graphs_vs_eager"] = decode_against("Whisper", asr, asr_eager, run_whisper, "graphed against eager")
-    out["whisper_vs_cpu"] = decode_against("Whisper", asr, asr_cpu, run_whisper, "card against CPU")
+    out["whisper_graphs_vs_eager"] = decode_against("(c) Whisper", asr, asr_eager, run_whisper, "graphed against eager")
+    out["whisper_vs_cpu"] = decode_against("(c) Whisper", asr, asr_cpu, run_whisper, "card against CPU")
 
     user = "hello robot, tell me a story about the sea"
     ids, mask, bucket = greedy._encode(ad.build_messages(PROMPT, [], user))
@@ -1506,8 +1537,8 @@ def apps_adapters(pipe, mrf, tmp: str, wav: str) -> dict:
     def run_greedy(adapter, logits):
         return adapter._generate(ids, mask, None, logits)[0, bucket:].tolist()
 
-    out["gpt2_graphs_vs_eager"] = decode_against("GPT-2", greedy, greedy_eager, run_greedy, "graphed against eager")
-    out["gpt2_vs_cpu"] = decode_against("GPT-2", greedy, greedy_cpu, run_greedy, "card against CPU")
+    out["gpt2_graphs_vs_eager"] = decode_against("(c) GPT-2", greedy, greedy_eager, run_greedy, "graphed against eager")
+    out["gpt2_vs_cpu"] = decode_against("(c) GPT-2", greedy, greedy_cpu, run_greedy, "card against CPU")
 
     sampled = [TorchChatLM(model=gpt2, temperature=0.6, seed=0, device=DEVICE, **chat) for _ in range(2)]
     sampled_eager = TorchChatLM(model=gpt2, temperature=0.6, seed=0, device=DEVICE, graphs=False, **chat)
@@ -1558,6 +1589,124 @@ def apps_adapters(pipe, mrf, tmp: str, wav: str) -> dict:
     return out
 
 
+def llama32(tf, device):
+    """Llama-3.2-1B at its published config with random weights from seed 0, f32, made on `device` (the card's
+    own initialisation: on the CPU a 1.24 B-parameter init takes minutes)."""
+    import inspect
+
+    if "rope_parameters" in inspect.signature(tf.LlamaConfig.__init__).parameters:
+        cfg = tf.LlamaConfig(**LLAMA32, rope_parameters=dict(LLAMA32_ROPE, rope_theta=LLAMA32_THETA))
+    else:
+        cfg = tf.LlamaConfig(**LLAMA32, rope_theta=LLAMA32_THETA, rope_scaling=dict(LLAMA32_ROPE))
+    with torch.random.fork_rng(devices=[torch.device(device)] if torch.device(device).type == "cuda" else []):
+        torch.manual_seed(0)
+        with torch.device(device):
+            model = tf.LlamaForCausalLM(cfg).float().eval()
+    return model
+
+
+def apps_llama(tmp: str) -> dict:
+    """(d) The chat LM's Llama family at full width: Llama-3.2-1B (``LLAMA32``, the agent's default chat
+    model) with random weights from seed 0, f32, the stub tokenizer, through ``TorchChatLM``'s default (the
+    ``LlamaDecoder`` steps' captured graphs) against ``graphs=False`` (transformers' forward), 64-token replies
+    at the prompt's bucket (256), greedy and sampled, in turns; the decoder's rotary tables against the model's
+    own rotary module; graphed against eager (first-step logits within LLAMA_TOL, ids equal up to the first
+    close margin, the sampled reply draw for draw) and the card against the CPU (the same steps, uncaptured) on
+    the prefill and three steps; capture ms per key and pool bytes.  Then a tiny gpt_neo, which has no decode
+    steps in the port, through ``TorchChatLM()`` on the card: it must say ``eager`` and decode as
+    ``graphs=False`` does."""
+    from emojivoice_tpu_torch.apps import adapters as ad
+    from emojivoice_tpu_torch.apps.feel_me import PROMPT
+    from emojivoice_tpu_torch.apps.torch_adapters import TorchChatLM, import_transformers
+    from emojivoice_tpu_torch.utils.prng import step_generator
+
+    tf = import_transformers()
+    t = time.perf_counter()
+    model = llama32(tf, DEVICE)
+    torch.cuda.synchronize()
+    out = dict(build_s=time.perf_counter() - t, params=sum(p.numel() for p in model.parameters()),
+               weight_bytes=sum(p.numel() * p.element_size() for p in model.parameters()))
+    chat = dict(tokenizer=StubTokenizer(), max_new_tokens=64)
+    greedy = TorchChatLM(model=model, temperature=0.0, device=DEVICE, **chat)
+    greedy_eager = TorchChatLM(model=model, temperature=0.0, device=DEVICE, graphs=False, **chat)
+    if greedy.decode != "graphs" or type(greedy._dec).__name__ != "LlamaDecoder":
+        raise RuntimeError(f"[apps] (d) Llama-3.2-1B decodes {greedy.decode} through {type(greedy._dec).__name__}")
+    dec, rotary = greedy._dec, model.model.rotary_emb
+    slots = torch.arange(dec.kv.length, device=DEVICE)[None]
+    cos, sin = rotary(dec.cos[None], slots)
+    out["rope"] = dict(model_rope_type=getattr(rotary, "rope_type", None), decoder_rope_type=dec.rope_type,
+                       inv_freq_equal=bool(torch.equal(dec.inv_freq, rotary.inv_freq.float())),
+                       attention_scaling=float(rotary.attention_scaling),
+                       cos_max_abs_err=float((cos[0] - dec.cos).abs().max()),
+                       sin_max_abs_err=float((sin[0] - dec.sin).abs().max()), slots=dec.kv.length)
+    print("[apps] (d) Llama-3.2-1B rotary: " + json.dumps(out["rope"]))
+    if not (out["rope"]["decoder_rope_type"] == "llama3" and out["rope"]["inv_freq_equal"]
+            and max(out["rope"]["cos_max_abs_err"], out["rope"]["sin_max_abs_err"]) <= 1e-6):
+        raise RuntimeError(f"[apps] (d) the decoder's rotary tables are not the model's: {out['rope']}")
+
+    user = "hello robot, tell me a story about the sea"
+    ids, mask, bucket = greedy._encode(ad.build_messages(PROMPT, [], user))
+    out["bucket"], out["prompt_tokens"] = bucket, int(mask.sum())
+
+    def run_greedy(adapter, logits):
+        return adapter._generate(ids, mask, None, logits)[0, bucket:].tolist()
+
+    def run_sampled(adapter, logits):
+        return adapter._generate(ids, mask, step_generator(0, 0, "chat", DEVICE), logits)[0, bucket:].tolist()
+
+    out["greedy_ms"] = in_turns({"graphs": lambda: greedy.chat(PROMPT, [], user),
+                                 "eager": lambda: greedy_eager.chat(PROMPT, [], user)})
+    out["graphs_vs_eager"] = decode_against("(d) Llama-3.2-1B", greedy, greedy_eager, run_greedy, "graphed against eager")
+    sampled = TorchChatLM(model=model, temperature=0.6, seed=0, device=DEVICE, **chat)
+    sampled_eager = TorchChatLM(model=model, temperature=0.6, seed=0, device=DEVICE, graphs=False, **chat)
+    uniforms = torch.rand(64, generator=step_generator(0, 0, "chat", DEVICE), device=DEVICE).cpu()
+    out["sampled_graphs_vs_eager"] = sampled_against(sampled, sampled_eager, run_sampled, uniforms, 0.6,
+                                                     "(d) sampled Llama-3.2-1B")
+    out["sampled_ms"] = in_turns({"graphs": lambda: sampled.chat(PROMPT, [], user),
+                                  "eager": lambda: sampled_eager.chat(PROMPT, [], user)})
+    out["greedy_tokens"] = decoded(run_greedy(greedy, None), greedy._eos)
+    out["sampled_tokens"] = decoded(run_sampled(sampled, None), greedy._eos)
+    out["graphs"] = {}
+    for name, adapter in (("greedy", greedy), ("sampled", sampled)):
+        stats = adapter.graphs.stats()
+        if not adapter.graphs.capture or stats["captures"] != 2 or stats["graphs"] != 2:
+            raise RuntimeError(f"[apps] (d) Llama {name} did not decode through captured graphs: {stats}")
+        out["graphs"][name] = {**stats, "pool_bytes": adapter.graphs.pool_bytes()}
+    del greedy_eager, sampled, sampled_eager
+
+    # the card against the CPU: the prefill and three steps, the same steps uncaptured on a copy of the weights
+    t = time.perf_counter()
+    short = dict(tokenizer=StubTokenizer(), temperature=0.0, max_new_tokens=LLAMA_CPU_TOKENS)
+    card = TorchChatLM(model=model, device=DEVICE, **short)
+    cpu_model = copy.deepcopy(model).to("cpu")
+    cpu = TorchChatLM(model=cpu_model, device="cpu", **short)
+    out["vs_cpu"] = decode_against("(d) Llama-3.2-1B", card, cpu, run_greedy, "card against CPU")
+    out["vs_cpu"]["seconds"] = time.perf_counter() - t
+    del cpu, cpu_model, card
+    print("[apps] (d) Llama-3.2-1B on the card " + json.dumps(out))
+    del greedy, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a causal LM without decode steps in the port: the eager loop on the card, said on one line
+    with torch.random.fork_rng(devices=[torch.device(DEVICE)]):
+        torch.manual_seed(0)
+        neo = tf.GPTNeoForCausalLM(tf.GPTNeoConfig(vocab_size=96, hidden_size=64, num_layers=2, num_heads=4,
+                                                   attention_types=[[["global", "local"], 1]], window_size=16,
+                                                   max_position_embeddings=1024, bos_token_id=1,
+                                                   eos_token_id=2)).eval()
+    lm = TorchChatLM(model=neo, device=DEVICE, temperature=0.0, **chat)
+    lm_eager = TorchChatLM(model=neo, device=DEVICE, temperature=0.0, graphs=False, **chat)
+    reply = lm.chat(PROMPT, [], user)
+    same = bool(np.array_equal(lm._generate(ids, mask), lm_eager._generate(ids, mask)))
+    out["gpt_neo"] = dict(decode=lm.decode, has_graphs=lm.graphs is not None, reply_words=len(reply.split()),
+                          ids_equal_graphs_false=same, device=str(next(neo.parameters()).device))
+    print("[apps] (d) tiny gpt_neo through TorchChatLM() " + json.dumps(out["gpt_neo"]))
+    if lm.decode != "eager" or lm.graphs is not None or not reply or not same or lm.device.type != "cuda":
+        raise RuntimeError(f"[apps] (d) gpt_neo: {out['gpt_neo']}")
+    return out
+
+
 def apps_profile() -> dict:
     """(c) One greedy 64-token reply of the chat LM under ``torch.profiler``,
     through graphs and eagerly (the weights and prompt of (c)): device ms,
@@ -1583,6 +1732,21 @@ def apps_profile() -> dict:
         row = profile_call(lambda lm=lm, ids=ids, mask=mask: lm._generate(ids, mask), torch.device(DEVICE))
         out[mode] = {k: row[k] for k in ("profiled_wall_ms", "device_ms", "device_activities", "busy")}
     print("[apps] (c) one greedy 64-token reply profiled " + json.dumps(out))
+    del gpt2, lm
+    llama = llama32(tf, DEVICE)
+    out["llama"] = {}
+    for mode in ("graphs", "eager"):
+        lm = TorchChatLM(model=llama, tokenizer=StubTokenizer(), temperature=0.0, max_new_tokens=64, device=DEVICE,
+                         graphs=mode == "graphs")
+        ids, mask, _ = lm._encode(messages)
+        lm._generate(ids, mask)  # warm
+        row = profile_call(lambda lm=lm, ids=ids, mask=mask: lm._generate(ids, mask), torch.device(DEVICE))
+        out["llama"][mode] = {k: row[k] for k in ("profiled_wall_ms", "device_ms", "device_activities", "busy")}
+        del lm
+    print("[apps] (d) one greedy 64-token Llama-3.2-1B reply profiled " + json.dumps(out["llama"]))
+    del llama
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1596,7 +1760,10 @@ def phase_apps(pipe, mrf) -> dict:
         cases = apps_case_studies(pipe, mrf, tmp)
         cases["k1_launches"] = sum(mrf.launches.values())
         adapters = apps_adapters(pipe, mrf, tmp, turns["wav"])
-    return dict(turns=turns, cases=cases, adapters=adapters,
+        t = time.perf_counter()
+        llama = apps_llama(tmp)
+        print(f"[time] apps (d) Llama: {time.perf_counter() - t:.1f} s")
+    return dict(turns=turns, cases=cases, adapters=adapters, llama=llama,
                 k1_launches=turns["k1_launches"] + cases["k1_launches"] + adapters["k1_launches"])
 
 
@@ -2027,7 +2194,7 @@ def phase_training(mas, mrf) -> dict:
             return real(value, mask)
         matcha.maximum_path = capture
         try:
-            eval_step(state.model, batch)
+            eval_step(state.model, batch, graphs=False)  # eagerly: a replay runs no Python, so it would capture nothing
         finally:
             matcha.maximum_path = real
         path_row = mas_row(mas, captured["value"], captured["mask"], tag="train")
@@ -2149,10 +2316,25 @@ def phase_vocoder_training(mas, mrf, matcha, tmp: Path, filelist: Path, ckpt_dir
     plain = mas.maximum_path_reference(value, mask)
     if not torch.equal(path, plain) or mas.path_faults(path, mask):
         raise RuntimeError("(a) K2's path differs from the plain search on get_durations' first log-prior")
+    # the same call with each batch's forward run op by op: every file equal to the bit
+    eager_dir = tmp / "aligned_eager"
+    t = time.perf_counter()
+    with deterministic("vocoder"):
+        if get_durations.main(["--checkpoint_path", str(ckpt_dir), "--filelist", str(filelist), "--preset", PRESET,
+                               "--output_dir", str(eager_dir), "--batch_size", str(DURATION_BATCH), "--gen_mels",
+                               "--n_timesteps", str(STEPS), "--eager"]) != 0:
+            raise RuntimeError("(a) get_durations --eager failed")
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t
+    files = sorted(p.relative_to(eager_dir) for p in eager_dir.rglob("*.npy"))
+    differ = [str(f) for f in files if not np.array_equal(np.load(aligned / f), np.load(eager_dir / f))]
+    if len(files) != 2 * len(rows) or differ:
+        raise RuntimeError(f"(a) get_durations through graphs against --eager: {len(files)} files, differing {differ}")
     print(f"[vocoder] (a) get_durations --gen_mels on {ckpt_dir.name}/: {len(rows)} utterances in {n_batches} batches, "
-          f"{durations_s:.2f} s ({len(rows) / durations_s:.2f} utterances/s with {STEPS} Euler steps and the files), "
-          f"K2 launches {k2_launches}, frames {min(frames.values())}..{max(frames.values())}, first batch "
-          f"{tuple(value.shape)} equal to the plain search")
+          f"{durations_s:.2f} s through graphs ({len(rows) / durations_s:.2f} utterances/s with {STEPS} Euler steps "
+          f"and the files; {eager_s:.2f} s with --eager, every file equal to the bit), K2 launches {k2_launches}, "
+          f"frames {min(frames.values())}..{max(frames.values())}, first batch {tuple(value.shape)} equal to the "
+          f"plain search")
 
     # (b) the GAN fine-tune on those mels, through the harness a user calls
     mrf.launches.clear()
@@ -3547,6 +3729,10 @@ def phase_train_graphs(mas) -> dict:
     steps = 3 * 2 * len(TG_ORDER) + 4 * len(more) + 2 + 2 * (len(more) + len(TG_ORDER) - 2)
     out["k2_launches"], out["steps"] = k2, steps
     print(f"[train_graphs] (d) K2 launches {k2} in {steps} steps (graphed: one a replay)")
+    # (f) before (e): its timings come before this process's first profiled call
+    out["eval"] = eval_graphed_against_eager(mas, cfg, opt_cfg, batches)
+    out["k2_launches"] += out["eval"]["k2_launches"]
+    gc.collect()
 
     # (e) eager against graphs on the f32 states at the first key, outside the deterministic context
     sg, se = runs["states"]["graphs"], runs["states"]["eager"]
@@ -3571,7 +3757,7 @@ def phase_train_graphs(mas) -> dict:
                          profiled_wall_ms={m: p["profiled_wall_ms"] for m, p in prof.items()})
     print("[train_graphs] (e) " + json.dumps(out["timing"]))
     out["adam"] = capturable_adam_check()
-    print("[train_graphs] (f) capturable Adam against the plain one " + json.dumps(out["adam"]))
+    print("[train_graphs] (g) capturable Adam against the plain one " + json.dumps(out["adam"]))
     del runs, sg, se
     gc.collect()
     torch.cuda.empty_cache()
@@ -3593,6 +3779,80 @@ def phase_train_graphs(mas) -> dict:
     if bad:
         raise RuntimeError(f"[train_graphs] failed: {bad}")
     return out
+
+
+def eval_graphed_against_eager(mas, cfg, opt_cfg, batches: list) -> dict:
+    """[train_graphs] (f): the eval step (``training/eval_graphs.py``) at the two bucket keys, each call
+    between two graphed train steps, and the trainer's probe on a fixed batch and noise, each through its
+    captured graph against the eager forward on the same weights, under deterministic kernels: the losses and
+    every probe output equal to the bit, one K2 launch a call (replays counted by the graphs), capture ms per
+    key and the pool's bytes; then host ms a call of each, graphed and eager, in turns.  The main path's run of
+    the eval graphs (K2 read from its value at the start)."""
+    from emojivoice_tpu_torch.bench.train import make_batch
+    from emojivoice_tpu_torch.training.eval_graphs import graphs_for
+    from emojivoice_tpu_torch.training.state import create_train_state, eval_step, train_step
+    from emojivoice_tpu_torch.utils.prng import step_generator
+
+    evals = [make_batch(cfg, *TG_KEYS[k], DEVICE, seed=300 + i) for i, k in enumerate(TG_ORDER)]
+    probe = make_batch(cfg, *TG_KEYS[1], DEVICE, seed=400)
+    z = torch.randn(probe["y"].shape, generator=step_generator(0, 0, "probe", DEVICE), device=DEVICE) * 0.667
+    out = {"differ": [], "k2_per_graphed_call": []}
+    t = time.perf_counter()
+    launches = mas.launches
+    with deterministic("eval_graphs"):
+        st = create_train_state(cfg, opt_cfg, seed=TG_SEED, device=DEVICE)
+        graphs = graphs_for(st.model).follow(st.optimizer)
+        for i, (b, e) in enumerate(zip(batches, evals)):
+            train_step(st, b, TG_SEED, graphs=True)
+            for name, fn in (("eval", lambda g: eval_step(st.model, e, graphs=g)),
+                             ("probe", lambda g: graphs.probe(probe, z) if g else eager_probe(st.model, probe, z))):
+                k2 = mas.launches
+                got = fn(True)
+                torch.cuda.synchronize()
+                out["k2_per_graphed_call"].append(mas.launches - k2)
+                want = fn(False)
+                out["differ"] += [f"{name} {i} {k}" for k in want if not torch.equal(got[k], want[k])]
+        torch.cuda.synchronize()
+    # host ms a call at the first key (and the probe), in turns eager / graphs / graphs / eager, TG_TIMED calls a turn
+    timed = {"eval": lambda g: eval_step(st.model, evals[0], graphs=g),
+             "probe": lambda g: graphs.probe(probe, z) if g else eager_probe(st.model, probe, z)}
+    for name, fn in timed.items():
+        ms = {"eager": [], "graphs": []}
+        for mode in ("eager", "graphs", "graphs", "eager"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(TG_TIMED):
+                fn(mode == "graphs")
+            torch.cuda.synchronize()
+            ms[mode].append((time.perf_counter() - t0) * 1e3 / TG_TIMED)
+        out[f"{name}_ms"] = ms
+    stats = graphs.stats()
+    # a train step, and the eval step and the probe each graphed and eager, between two train steps; the timed calls
+    out.update(k2_launches=mas.launches - launches, calls=5 * len(batches) + 2 * 4 * TG_TIMED,
+               keys=[repr(k) for k in graphs.keys()],
+               captures=stats["captures"], replays=stats["replays"], capture_ms=stats["capture_ms"],
+               pool_bytes=graphs.pool_bytes(), seconds=time.perf_counter() - t)
+    print("[train_graphs] (f) eval step at two keys between graphed train steps, and the probe, through graphs "
+          "against eager " + json.dumps(out))
+    bad = out["differ"] + [f"K2 {n} a graphed call" for n in out["k2_per_graphed_call"] if n != 1]
+    if out["k2_launches"] != out["calls"] or out["captures"] != len(TG_KEYS) + 1 \
+            or out["replays"] != 2 * len(batches) - out["captures"] + 2 * 2 * TG_TIMED:
+        bad.append(f"K2 {out['k2_launches']} for {out['calls']} calls, captures {out['captures']}, replays "
+                   f"{out['replays']}")
+    if bad:
+        raise RuntimeError(f"[train_graphs] (f) failed: {bad}")
+    del st, graphs
+    return out
+
+
+def eager_probe(model, batch: dict, z: torch.Tensor) -> dict:
+    """The trainer's eager probe: ``training_probe`` in eval mode."""
+    model.eval()
+    try:
+        return model.training_probe(batch["x"], batch["x_lengths"], batch["y"], batch["y_lengths"], batch.get("spks"),
+                                    z=z)
+    finally:
+        model.train()
 
 
 # [bench]: each measurement tool's main in process at full width, with short settings

@@ -7,8 +7,9 @@ then ``decode`` over ``init_cache``), which
 (``FlaxWhisperASR._generate``) and one per (prompt bucket, sampling) for the
 chat LM (``FlaxChatLM._program``).
 
-``GPT2Decoder`` and ``WhisperDecoder`` compute on a transformers PyTorch
-model's own parameter tensors (shared, not copied) and read and write only
+``GPT2Decoder``, ``LlamaDecoder`` and ``WhisperDecoder`` compute on a
+transformers PyTorch model's own parameter tensors (shared, not copied) and
+read and write only
 tensors made at construction: a ``StaticKV`` cache, the input buffers, the
 last token, the step's logits and the step counters, all on the model's
 device.  No step takes a decision on the host, so each can be captured:
@@ -23,6 +24,15 @@ device.  No step takes a decision on the host, so each can be captured:
   query attends to itself alone, so that its row, and the keys and values
   it caches, stay finite (the masks select, they add nothing: a NaN under
   an additive mask would poison every later softmax).
+* The Llama family (llama, mistral, gemma): the same contract and cache,
+  which holds the key/value heads (fewer than the query heads under grouped
+  attention; each group of query heads reads its own).  RMSNorm (Gemma's
+  scales by 1 + w in f32), rotary positions from cos/sin tables made once
+  for the cache's slots from the model's own rotary module (its
+  ``inv_freq`` and ``attention_scaling``, so every static rope type the
+  module implements: default, linear, llama3, yarn), the gated MLP (SiLU;
+  Gemma's tanh GELU), Gemma's embedding scaled by √hidden.  Positions and
+  pad queries as GPT-2's.
 * Whisper.  ``encode()`` runs the encoder on the (1, n_mels, 3000)
   features, makes each decoder layer's cross-attention keys and values once
   and resets the cache; ``step()`` feeds the last token and applies the
@@ -115,21 +125,63 @@ def _merge(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(x.shape[0], x.shape[2], -1)
 
 
-def _attend(q, k, v, allowed=None) -> torch.Tensor:
-    """Softmax attention scaled by 1/√d; `allowed` (bool, broadcast to the
-    scores) selects the keys a query sees.  A row with none would be NaN,
-    and so would every output that weighs its value by 0, so every row keeps
-    at least one."""
-    scores = (q @ k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
+def _attend(q, k, v, allowed=None, scale=None) -> torch.Tensor:
+    """Softmax attention of q (1, H, T, d) over k, v (1, G, L, d), H = G · r:
+    query head h reads key/value head h // r (grouped attention; r = 1 for
+    GPT-2 and Whisper) without copying the keys and values out per query
+    head.  Scores are scaled by `scale` (1/√d where None) and the softmax is
+    taken in f32; `allowed` (bool, (1, 1, T | 1, L)) selects the keys a query
+    sees.  A row with none would be NaN, and so would every output that
+    weighs its value by 0, so every row keeps at least one."""
+    b, h, t, d = q.shape
+    g = k.shape[1]
+    if g != h:
+        q = q.reshape(b, g, (h // g) * t, d)
+    scores = q @ k.transpose(-1, -2)
+    scores = (scores / math.sqrt(d) if scale is None else scores * scale).view(b, g, h // g, t, -1)
     if allowed is not None:
-        scores = scores.masked_fill(~allowed, NEG_INF)
-    return torch.softmax(scores, dim=-1) @ v
+        scores = scores.masked_fill(~allowed.unsqueeze(2), NEG_INF)
+    weights = torch.softmax(scores.float(), dim=-1).to(v.dtype)
+    return (weights.view(b, g, (h // g) * t, -1) @ v).view(b, h, t, d)
+
+
+def _rms_norm(module: nn.Module, offset: bool) -> Callable[[torch.Tensor], torch.Tensor]:
+    """RMSNorm on `module`'s own weight and epsilon: w · x̂ in the input's
+    dtype (Llama, Mistral), or (1 + w) · x̂ in f32 and then cast (`offset`:
+    Gemma), x̂ normalised in f32."""
+    w = module.weight
+    eps = getattr(module, "variance_epsilon", None)
+    eps = module.eps if eps is None else eps
+
+    def norm(x):
+        h = x.float()
+        h = h * torch.rsqrt(h.pow(2).mean(-1, keepdim=True) + eps)
+        return (h * (1.0 + w.float())).type_as(x) if offset else w * h.to(x.dtype)
+    return norm
+
+
+def _rope_type(rotary: nn.Module, config) -> str:
+    """The rotary type: the module's own, else the config's (``rope_scaling``
+    in transformers 4, ``rope_parameters`` in 5), else ``"default"``."""
+    found = getattr(rotary, "rope_type", None)
+    for name in ("rope_parameters", "rope_scaling"):
+        params = getattr(config, name, None)
+        if found is None and isinstance(params, dict):
+            found = params.get("rope_type", params.get("type"))
+    return found or "default"
+
+
+def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Rotary positions: x · cos + rotate_half(x) · sin, the halves split
+    as transformers' Llama splits them."""
+    x1, x2 = x.chunk(2, dim=-1)
+    return x * cos + torch.cat((-x2, x1), dim=-1) * sin
 
 
 class StaticKV:
-    """Per layer, key and value buffers (1, H, length, d) of a fixed
-    length; the valid-slot mask (1, length); the device counter of the slot
-    the next token is written to."""
+    """Per layer, key and value buffers (1, G, length, d) of a fixed length,
+    one row of G per key/value head; the valid-slot mask (1, length); the
+    device counter of the slot the next token is written to."""
 
     def __init__(self, layers: int, heads: int, length: int, head_dim: int, dtype, device):
         shape = (1, heads, length, head_dim)
@@ -151,11 +203,63 @@ class StaticKV:
         self.k[layer].index_copy_(2, at, k)
         self.v[layer].index_copy_(2, at, v)
 
-    def attend(self, layer: int, q: torch.Tensor) -> torch.Tensor:
-        return _attend(q, self.k[layer], self.v[layer], self.valid[:, None, None, :])
+    def attend(self, layer: int, q: torch.Tensor, scale=None) -> torch.Tensor:
+        return _attend(q, self.k[layer], self.v[layer], self.valid[:, None, None, :], scale)
 
 
-class GPT2Decoder:
+class _ChatDecoder:
+    """What the chat LM's decoders share: the static inputs of each prompt
+    bucket, the last token, the step's logits, the counters and the turn's
+    uniforms, all made at construction (``_buffers``), and the choice of
+    the next token (``_finish``).  A subclass sets ``kv``, ``ln_f`` and
+    ``head``."""
+
+    max_new_tokens: int
+    kv: StaticKV
+
+    def _buffers(self, vocab: int, device) -> None:
+        self.ids: Dict[int, torch.Tensor] = {}  # bucket → (1, bucket) token ids
+        self.mask: Dict[int, torch.Tensor] = {}  # bucket → (1, bucket) True at a real token
+        self.tok = torch.zeros((1, 1), dtype=torch.long, device=device)
+        self.logits = torch.zeros((1, vocab), dtype=torch.float32, device=device)
+        self.pos = torch.zeros((), dtype=torch.long, device=device)  # the next token's position
+        self.n = torch.zeros((), dtype=torch.long, device=device)  # new tokens chosen this turn
+        self.u = torch.zeros((self.max_new_tokens,), dtype=torch.float32, device=device)
+        self.temperature = torch.ones((), dtype=torch.float32, device=device)
+
+    def inputs(self, bucket: int) -> tuple:
+        """The bucket's static (ids, mask), made at its first use."""
+        if bucket + self.max_new_tokens > self.kv.length:
+            raise ValueError(f"{type(self).__name__}: bucket {bucket} passes the cache's {self.kv.length} slots")
+        if bucket not in self.ids:
+            self.ids[bucket] = torch.zeros((1, bucket), dtype=torch.long, device=self.tok.device)
+            self.mask[bucket] = torch.zeros((1, bucket), dtype=torch.bool, device=self.tok.device)
+        return self.ids[bucket], self.mask[bucket]
+
+    def _prefilled(self, bucket: int, mask: torch.Tensor) -> None:
+        """After a prefill: the real tokens' slots valid, the next slot and
+        position, no new token yet."""
+        kv = self.kv
+        kv.valid.zero_()
+        kv.valid[:, :bucket].copy_(mask)
+        kv.slot.fill_(bucket)
+        self.pos.copy_(mask.sum())
+        self.n.zero_()
+
+    def _finish(self, x: torch.Tensor, sample: bool) -> None:
+        """The last position's logits, then the token: the argmax, or drawn
+        with the uniform of this new token."""
+        self.logits.copy_(self.head(self.ln_f(x[:, -1])))
+        if sample:
+            u = self.u.index_select(0, self.n.clamp(max=self.max_new_tokens - 1).view(1))
+            tok = sample_top_k(self.logits, self.temperature, u)
+        else:
+            tok = self.logits.argmax(-1, keepdim=True)
+        self.tok.copy_(tok)
+        self.n.add_(1)
+
+
+class GPT2Decoder(_ChatDecoder):
     """A ``GPT2LMHeadModel``'s prefill and one-token decode step over a
     ``StaticKV`` (the module docstring)."""
 
@@ -184,23 +288,7 @@ class GPT2Decoder:
             raise ValueError(f"GPT2Decoder: {max(buckets)} + {max_new_tokens} slots pass the position table's "
                              f"{self.wpe.shape[0]}")
         self.kv = StaticKV(len(self.blocks), self.heads, length, d // self.heads, dtype, device)
-        self.ids: Dict[int, torch.Tensor] = {}  # bucket → (1, bucket) token ids
-        self.mask: Dict[int, torch.Tensor] = {}  # bucket → (1, bucket) True at a real token
-        self.tok = torch.zeros((1, 1), dtype=torch.long, device=device)
-        self.logits = torch.zeros((1, self.wte.shape[0]), dtype=torch.float32, device=device)
-        self.pos = torch.zeros((), dtype=torch.long, device=device)  # the next token's position
-        self.n = torch.zeros((), dtype=torch.long, device=device)  # new tokens chosen this turn
-        self.u = torch.zeros((self.max_new_tokens,), dtype=torch.float32, device=device)
-        self.temperature = torch.ones((), dtype=torch.float32, device=device)
-
-    def inputs(self, bucket: int) -> tuple:
-        """The bucket's static (ids, mask), made at its first use."""
-        if bucket + self.max_new_tokens > self.kv.length:
-            raise ValueError(f"GPT2Decoder: bucket {bucket} passes the cache's {self.kv.length} slots")
-        if bucket not in self.ids:
-            self.ids[bucket] = torch.zeros((1, bucket), dtype=torch.long, device=self.tok.device)
-            self.mask[bucket] = torch.zeros((1, bucket), dtype=torch.bool, device=self.tok.device)
-        return self.ids[bucket], self.mask[bucket]
+        self._buffers(self.wte.shape[0], device)
 
     def _mlp(self, blk: dict, x: torch.Tensor) -> torch.Tensor:
         return x + blk["m_proj"](F.gelu(blk["c_fc"](blk["ln_2"](x)), approximate="tanh"))
@@ -208,18 +296,6 @@ class GPT2Decoder:
     def _qkv(self, blk: dict, x: torch.Tensor) -> tuple:
         q, k, v = blk["c_attn"](blk["ln_1"](x)).split(x.shape[-1], dim=-1)
         return _heads(q, self.heads), _heads(k, self.heads), _heads(v, self.heads)
-
-    def _finish(self, x: torch.Tensor, sample: bool) -> None:
-        """The last position's logits, then the token: the argmax, or drawn
-        with the uniform of this new token."""
-        self.logits.copy_(self.head(self.ln_f(x[:, -1])))
-        if sample:
-            u = self.u.index_select(0, self.n.clamp(max=self.max_new_tokens - 1).view(1))
-            tok = sample_top_k(self.logits, self.temperature, u)
-        else:
-            tok = self.logits.argmax(-1, keepdim=True)
-        self.tok.copy_(tok)
-        self.n.add_(1)
 
     def prefill(self, bucket: int, sample: bool) -> None:
         ids, mask = self.inputs(bucket)
@@ -233,11 +309,7 @@ class GPT2Decoder:
             kv.v[i][:, :, :bucket].copy_(v)
             x = x + blk["c_proj"](_merge(_attend(q, k, v, allowed[:, None])))
             x = self._mlp(blk, x)
-        kv.valid.zero_()
-        kv.valid[:, :bucket].copy_(mask)
-        kv.slot.fill_(bucket)
-        self.pos.copy_(mask.sum())
-        self.n.zero_()
+        self._prefilled(bucket, mask)
         self._finish(x, sample)
 
     def step(self, sample: bool) -> None:
@@ -249,6 +321,123 @@ class GPT2Decoder:
             kv.write(i, at, k, v)
             x = x + blk["c_proj"](_merge(kv.attend(i, q)))
             x = self._mlp(blk, x)
+        kv.slot.add_(1)
+        self.pos.add_(1)
+        self._finish(x, sample)
+
+
+# the Llama family's model types; the MLP activations its steps implement
+LLAMA_FAMILY = ("llama", "mistral", "gemma")
+ACTIVATIONS = {"silu": F.silu, "gelu_pytorch_tanh": lambda x: F.gelu(x, approximate="tanh")}
+# rotary types whose frequencies change with the sequence's length: a table made once cannot hold them
+DYNAMIC_ROPE = ("dynamic", "longrope")
+
+
+class LlamaDecoder(_ChatDecoder):
+    """A ``LlamaForCausalLM``'s, ``MistralForCausalLM``'s or
+    ``GemmaForCausalLM``'s prefill and one-token decode step over a
+    ``StaticKV`` of its key/value heads, with ``GPT2Decoder``'s contract:
+    ``inputs(bucket)``, ``prefill(bucket, sample)``, ``step(sample)`` (the
+    module docstring).  ``pretraining_tp`` is not refused: transformers'
+    PyTorch forward of these models (4.57) does not read it."""
+
+    def __init__(self, model: nn.Module, buckets: Sequence[int], max_new_tokens: int):
+        cfg = model.config
+        body = model.model
+        rotary = body.rotary_emb
+        self.max_new_tokens = int(max_new_tokens)
+        length = max(buckets) + self.max_new_tokens
+        act = getattr(cfg, "hidden_act", None)
+        _refuse("LlamaDecoder", cfg, {
+            "model_type": lambda v: v in LLAMA_FAMILY,
+            "hidden_act": lambda v: v in ACTIVATIONS,
+            "hidden_activation": lambda v: v is None or v == act,  # Gemma's second name for it
+            "sliding_window": lambda v: v is None or v >= length,  # Mistral's: a shorter window masks more
+        })
+        self.rope_type = _rope_type(rotary, cfg)
+        _refuse("LlamaDecoder", self, {"rope_type": lambda v: v not in DYNAMIC_ROPE})
+        layers = body.layers
+        attn = layers[0].self_attn
+        head_dim = getattr(attn, "head_dim", None) or getattr(cfg, "head_dim", None) or \
+            cfg.hidden_size // cfg.num_attention_heads
+        if rotary.inv_freq.numel() * 2 != head_dim:
+            raise ValueError(f"LlamaDecoder: {rotary.inv_freq.numel()} rotary frequencies for head_dim {head_dim} "
+                             "(a partial rotary is not implemented by the port's decode steps)")
+        self.head_dim = head_dim
+        self.heads = attn.q_proj.out_features // head_dim
+        self.kv_heads = attn.k_proj.out_features // head_dim
+        self.scale = head_dim ** -0.5
+        gemma = cfg.model_type == "gemma"
+        self.act = ACTIVATIONS[act]
+        self.blocks = [dict(ln_1=_rms_norm(layer.input_layernorm, gemma), q=_dense(layer.self_attn.q_proj),
+                            k=_dense(layer.self_attn.k_proj), v=_dense(layer.self_attn.v_proj),
+                            o=_dense(layer.self_attn.o_proj), ln_2=_rms_norm(layer.post_attention_layernorm, gemma),
+                            gate=_dense(layer.mlp.gate_proj), up=_dense(layer.mlp.up_proj),
+                            down=_dense(layer.mlp.down_proj))
+                       for layer in layers]
+        self.ln_f = _rms_norm(body.norm, gemma)
+        self.head = _dense(model.lm_head)
+        self.embed = body.embed_tokens.weight
+        vocab, hidden = self.embed.shape
+        dtype, device = self.embed.dtype, self.embed.device
+        # Gemma scales its embedding by √hidden, rounded to the model's dtype
+        self.embed_scale = torch.tensor(hidden ** 0.5, dtype=dtype, device=device) if gemma else None
+        # the rotary tables of every slot: the model's own frequencies and scaling, in its dtype
+        self.inv_freq = rotary.inv_freq.detach().float().clone()
+        freqs = torch.arange(length, dtype=torch.float32, device=device)[:, None] * self.inv_freq.to(device)[None, :]
+        emb = torch.cat((freqs, freqs), dim=-1)
+        self.cos = (emb.cos() * rotary.attention_scaling).to(dtype)
+        self.sin = (emb.sin() * rotary.attention_scaling).to(dtype)
+        self.kv = StaticKV(len(self.blocks), self.kv_heads, length, head_dim, dtype, device)
+        self._buffers(vocab, device)
+
+    def _embed(self, ids: torch.Tensor) -> torch.Tensor:
+        x = F.embedding(ids, self.embed)
+        return x if self.embed_scale is None else x * self.embed_scale
+
+    def _rotary(self, pos: torch.Tensor) -> tuple:
+        """The (1, 1, T, head_dim) cos and sin rows of positions `pos` (1, T)."""
+        return F.embedding(pos, self.cos)[:, None], F.embedding(pos, self.sin)[:, None]
+
+    def _layer(self, blk: dict, x: torch.Tensor, cos, sin, i: int, allowed=None, at=None) -> torch.Tensor:
+        """One decoder layer on x (1, T, hidden) with its rotary rows: the
+        keys and values go to the cache's first T slots (prefill, with
+        `allowed` over them) or to the slot `at` (a step, over the valid
+        slots)."""
+        h = blk["ln_1"](x)
+        q = _rotate(_heads(blk["q"](h), self.heads), cos, sin)
+        k = _rotate(_heads(blk["k"](h), self.kv_heads), cos, sin)
+        v = _heads(blk["v"](h), self.kv_heads)
+        kv = self.kv
+        if at is None:
+            t = x.shape[1]
+            kv.k[i][:, :, :t].copy_(k)
+            kv.v[i][:, :, :t].copy_(v)
+            out = _attend(q, k, v, allowed, self.scale)
+        else:
+            kv.write(i, at, k, v)
+            out = kv.attend(i, q, self.scale)
+        x = x + blk["o"](_merge(out))
+        h = blk["ln_2"](x)
+        return x + blk["down"](self.act(blk["gate"](h)) * blk["up"](h))
+
+    def prefill(self, bucket: int, sample: bool) -> None:
+        ids, mask = self.inputs(bucket)
+        pos = (mask.long().cumsum(-1) - 1).clamp(min=0)  # the real tokens counted from 0
+        eye = torch.eye(bucket, dtype=torch.bool, device=ids.device)
+        allowed = ((eye | mask[:, None, :]) & torch.ones_like(eye).tril())[:, None]  # a pad query sees itself alone
+        x, (cos, sin) = self._embed(ids), self._rotary(pos)
+        for i, blk in enumerate(self.blocks):
+            x = self._layer(blk, x, cos, sin, i, allowed=allowed)
+        self._prefilled(bucket, mask)
+        self._finish(x, sample)
+
+    def step(self, sample: bool) -> None:
+        kv = self.kv
+        x, (cos, sin) = self._embed(self.tok), self._rotary(self.pos.view(1, 1))
+        at = kv.open_slot()
+        for i, blk in enumerate(self.blocks):
+            x = self._layer(blk, x, cos, sin, i, at=at)
         kv.slot.add_(1)
         self.pos.add_(1)
         self._finish(x, sample)

@@ -8,7 +8,7 @@ device as synthesis, on transformers' PyTorch model classes:
   TorchWhisperASR — Whisper's encoder once, then a greedy decode loop over
                     the decoder's key/value cache; the features are fixed at
                     (1, 80, 3000), as the JAX adapter has them.
-  TorchChatLM     — causal-LM chat (the GPT-2 family) with the JAX adapter's
+  TorchChatLM     — causal-LM chat (GPT-2, the Llama family) with the JAX adapter's
                     prompt handling (bucketed, left-padded prompts that never
                     lose the system message); sampling draws from a
                     ``torch.Generator`` on the model's device seeded from
@@ -35,6 +35,13 @@ CDF from the turn's uniforms, drawn at once before its first token
 Both take either a pretrained name or an injected (model, tokenizer); tests
 drive them with tiny random-init configs and stub tokenizers.  Each runs on
 the card unless ``device="cpu"`` is given.
+
+The chat LM's decode steps exist for the model types of ``CHAT_DECODERS``
+(GPT-2 and the Llama family: llama, mistral, gemma).  Another causal LM
+that transformers' ``AutoModelForCausalLM`` builds (gpt_neo, gptj, opt,
+bloom, xglm, ...) decodes through transformers' forward on the same device,
+as ``graphs=False`` does; the adapter says so on one line when it is made,
+and ``TorchChatLM.decode`` reads ``"graphs"`` or ``"eager"``.
 """
 
 from __future__ import annotations
@@ -46,10 +53,12 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from emojivoice_tpu_torch.apps.decode import DecodeGraphs, GPT2Decoder, WhisperDecoder, sample_top_k
+from emojivoice_tpu_torch.apps.decode import DecodeGraphs, GPT2Decoder, LlamaDecoder, WhisperDecoder, sample_top_k
 from emojivoice_tpu_torch.utils.prng import step_generator
 
 WHISPER_SAMPLE_RATE = 16_000
+# the chat LM's model types with decode steps of the port's own (apps/decode.py); another type decodes eagerly
+CHAT_DECODERS = {"gpt2": GPT2Decoder, "llama": LlamaDecoder, "mistral": LlamaDecoder, "gemma": LlamaDecoder}
 
 
 def import_transformers():
@@ -231,10 +240,12 @@ class TorchChatLM:
     Prompt tokens are left-padded to the smallest bucket that fits, as the
     JAX adapter does; each turn's sampling generator is seeded from the
     constructor's seed and the turn counter, so a conversation replays
-    draw for draw from the same seed.  GPT-2 models decode through
-    ``decode.GPT2Decoder``'s graphs by default: one prefill graph per prompt
-    bucket and one decode graph over a cache of the largest bucket plus
-    ``max_new_tokens`` slots; another causal LM needs ``graphs=False``.
+    draw for draw from the same seed.  A model type of ``CHAT_DECODERS``
+    decodes through its decoder's graphs by default (``decode="graphs"``):
+    one prefill graph per prompt bucket and one decode graph over a cache of
+    the largest bucket plus ``max_new_tokens`` slots.  Another type, and
+    every model under ``graphs=False``, decodes through transformers'
+    forward (``decode="eager"``).
     """
 
     def __init__(
@@ -281,11 +292,16 @@ class TorchChatLM:
         self._eos = set(_token_list(model.config.eos_token_id))
         # what follows eos in a sequence (the Flax generate fills with the generation config's pad)
         self._fill = _token_list(gen.pad_token_id if gen.pad_token_id is not None else gen.eos_token_id)[0]
-        self.graphs = DecodeGraphs(self.device) if graphs else None
-        self._dec = self._decoder() if graphs else None
+        model_type = model.config.model_type
+        self.decode = "graphs" if graphs and model_type in CHAT_DECODERS else "eager"
+        if graphs and self.decode == "eager":
+            print(f"[TorchChatLM] model_type {model_type!r} has no decode steps in the port: it decodes through "
+                  f"transformers' forward on {self.device}, one token at a time", flush=True)
+        self.graphs = DecodeGraphs(self.device) if self.decode == "graphs" else None
+        self._dec = self._decoder() if self.graphs is not None else None
 
-    def _decoder(self) -> GPT2Decoder:
-        return GPT2Decoder(self._model, self.prompt_buckets, self.max_new_tokens)
+    def _decoder(self):
+        return CHAT_DECODERS[self._model.config.model_type](self._model, self.prompt_buckets, self.max_new_tokens)
 
     # -- prompt construction (the JAX adapter's, unchanged) -------------------
 

@@ -309,7 +309,9 @@ def hf_flax_params_to_torch(flat: Dict[str, np.ndarray], model) -> Dict[str, "to
     same architecture's transformers PyTorch class.
 
     Names: ``a.b.c.weight`` is ``a/b/c/kernel`` (a Dense or a conv),
-    ``a/b/c/scale`` (a LayerNorm) or ``a/b/c/embedding``.  Layouts: every 2-D
+    ``a/b/c/scale`` (a LayerNorm), ``a/b/c/embedding`` or ``a/b/c/weight``
+    (the RMSNorm scale of the Flax Llama, Mistral and Gemma, taken as it
+    is).  Layouts: every 2-D
     kernel is transposed (a Flax Dense is (in, out) and ``nn.Linear`` (out,
     in); GPT-2's ``FlaxConv1D`` is (out, in) and its torch ``Conv1D`` (in,
     out)); a conv kernel (k, in, out) becomes (out, in, k).  A torch weight
@@ -329,7 +331,7 @@ def hf_flax_params_to_torch(flat: Dict[str, np.ndarray], model) -> Dict[str, "to
     for name, t in target.items():
         stem, leaf = name.rsplit(".", 1)
         stem = stem.replace(".", "/")
-        keys = [f"{stem}/{leaf}"] if leaf != "weight" else [f"{stem}/{w}" for w in ("kernel", "scale", "embedding")]
+        keys = [f"{stem}/{leaf}"] if leaf != "weight" else [f"{stem}/{w}" for w in ("kernel", "scale", "embedding", "weight")]
         found = [k for k in keys if k in flat]
         if not found:
             continue

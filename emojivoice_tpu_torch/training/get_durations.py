@@ -24,6 +24,12 @@ directory of ``emojivoice_tpu_torch.training.train``.  It runs on the card
 unless ``--device cpu`` is given, and fails if the card is missing.  The
 solver's noise is drawn from a generator seeded by (``--seed``, batch index);
 ``--temperature 0`` decodes without noise.
+
+Each batch's forward (the alignment with K2, and under ``--gen_mels`` the
+teacher-forced decode) runs through one captured CUDA graph per batch shape
+(``training/eval_graphs.py::EvalGraphs.align``), as the JAX tool jits it;
+the noise is drawn into the graph's static buffer.  On the CPU the same
+keys run uncaptured.  ``--eager`` runs the forward op by op instead.
 """
 
 from __future__ import annotations
@@ -87,6 +93,8 @@ def main(argv=None) -> int:
     p.add_argument("--n_timesteps", type=int, default=10, help="CFM Euler steps for --gen_mels")
     p.add_argument("--temperature", type=float, default=0.667, help="CFM noise temperature for --gen_mels")
     p.add_argument("--seed", type=int, default=0, help="noise stream for --gen_mels (one generator per batch)")
+    p.add_argument("--eager", action="store_true",
+                   help="run each batch's forward op by op instead of through its captured CUDA graph")
     args = p.parse_args(argv)
 
     import numpy as np
@@ -96,6 +104,7 @@ def main(argv=None) -> int:
     from emojivoice_tpu_torch.data.dataset import BucketBatcher, TextMelDataset
     from emojivoice_tpu_torch.models.matcha import MatchaTTS
     from emojivoice_tpu_torch.text import sequence_to_text
+    from emojivoice_tpu_torch.training.eval_graphs import EvalGraphs
     from emojivoice_tpu_torch.training.state import batch_to_device
     from emojivoice_tpu_torch.utils.prng import step_seed, synthesis_noise
 
@@ -126,22 +135,27 @@ def main(argv=None) -> int:
     if args.gen_mels:
         (out_dir / "gen_mels").mkdir(parents=True, exist_ok=True)
 
+    graphs = None if args.eager else EvalGraphs(model)
     idx = 0
     for bi, batch in enumerate(batcher):
         dev = batch_to_device(batch, device)
-        attn, mu_x, x_mask, spk_e = model.align(dev["x"], dev["x_lengths"], dev["y"], dev["y_lengths"],
-                                                dev.get("spks"))
-        durs = attn.sum(-1)  # (B, T_x)
-        gen_mel = None
+        z = None
         if args.gen_mels:
             # teacher forcing: the decode runs on mu expanded by the ground-truth durations, so it covers
             # exactly y_lengths frames, one to one with the real waveform
-            frames = dev["y"].shape[1]
-            z = synthesis_noise(step_seed(args.seed, bi, "gen_mels"), durs.shape[0], frames, model_cfg.n_feats,
-                                args.temperature, device)
-            gen_mel = model.decode_mel(mu_x, durs[..., None], dev["y_lengths"], x_mask, spk_e, frames,
-                                       args.n_timesteps, z)["mel"].cpu().numpy()
-        durs = durs.cpu().numpy()
+            z = synthesis_noise(step_seed(args.seed, bi, "gen_mels"), dev["x"].shape[0], dev["y"].shape[1],
+                                model_cfg.n_feats, args.temperature, device)
+        if graphs is not None:
+            out = graphs.align(dev, z, args.n_timesteps)
+        else:
+            attn, mu_x, x_mask, spk_e = model.align(dev["x"], dev["x_lengths"], dev["y"], dev["y_lengths"],
+                                                    dev.get("spks"))
+            out = {"durations": attn.sum(-1)}  # (B, T_x)
+            if z is not None:
+                out["mel"] = model.decode_mel(mu_x, out["durations"][..., None], dev["y_lengths"], x_mask, spk_e,
+                                              dev["y"].shape[1], args.n_timesteps, z)["mel"]
+        gen_mel = out["mel"].cpu().numpy() if "mel" in out else None
+        durs = out["durations"].cpu().numpy()
         for i in range(batch["x"].shape[0]):
             item_path, _, _ = ds.items[idx]
             stem = Path(item_path).stem
@@ -157,6 +171,10 @@ def main(argv=None) -> int:
                 np.save(out_dir / "gen_mels" / f"{stem}.npy", gen_mel[i, :ly].astype(np.float32))
             idx += 1
         print(f"[get-durations] {idx}/{len(ds)}", flush=True)
+    if graphs is not None:
+        stats = graphs.stats()
+        print(f"[get-durations] forward through {'captured CUDA graphs' if graphs.capture else 'staged keys'}: "
+              f"{stats['graphs']} keys, {stats['captures']} captures, {stats['replays']} replays", flush=True)
     return 0
 
 

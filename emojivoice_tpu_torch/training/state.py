@@ -233,10 +233,13 @@ class TrainState:
 
     def load_sharded_state_dict(self, sd: dict) -> None:
         """Take the state from a ``sharded_state_dict`` that a checkpoint
-        was loaded into (in place; the captured steps are dropped all the
-        same)."""
-        if self.graphs is not None:
-            self.graphs.drop()
+        was loaded into (in place; the captured steps and forwards are
+        dropped all the same)."""
+        from emojivoice_tpu_torch.training.eval_graphs import existing
+
+        for graphs in (self.graphs, existing(self.model)):
+            if graphs is not None:
+                graphs.drop()
 
         def local(t):
             return t.to_local() if hasattr(t, "to_local") else t
@@ -454,12 +457,28 @@ def train_step(state: TrainState, batch: dict, seed: int, clock=None, precision:
 
 
 @torch.no_grad()
-def eval_step(model: MatchaTTS, batch: dict, seed: int = 0, precision: Optional[str] = "f32") -> dict:
+def eval_step(model: MatchaTTS, batch: dict, seed: int = 0, precision: Optional[str] = "f32",
+              graphs: Optional[bool] = None) -> dict:
     """Validation losses: no dropout, no crop, and the same CFM draws on
     every call (seeded from `seed` alone), so the result depends only on the
     weights and the batch; `precision` casts as ``train_step`` does.  On a
     model laid out over a mesh (``distribute``), `batch` is this data rank's
-    rows and the losses are the global batch's."""
+    rows and the losses are the global batch's.
+
+    `graphs`: through one captured CUDA graph per key
+    (``training/eval_graphs.py``, the model's own ``EvalGraphs``; the
+    counterpart of the JAX package's jitted eval step), the default on the
+    card for a model not laid out over a mesh; ``graphs=False`` runs the
+    forward eagerly, the CPU's default.  ``graphs=True`` over a mesh raises."""
+    if graphs is None:
+        graphs = batch["y"].device.type == "cuda" and model.data_group is None
+    if graphs:
+        if model.data_group is not None:
+            raise ValueError("eval_step: graphs=True with a mesh: a model over a mesh runs its eval step eagerly "
+                             "(its collectives are not captured); pass graphs=False")
+        from emojivoice_tpu_torch.training.eval_graphs import graphs_for
+
+        return graphs_for(model).eval_step(batch, seed, precision)
     was_training = model.training
     model.eval()
     try:

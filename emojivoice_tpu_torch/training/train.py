@@ -20,10 +20,13 @@ the preset's ``trainer.precision``.
 
 On the card each step runs through one captured CUDA graph per bucket key
 (``training/graphs.py``), as the JAX trainer compiles its step once per
-shape; ``--eager`` runs it op by op instead.  The ``shapes`` record counts
-each key's capture and its milliseconds, and the graphs' pool bytes.  Over
-ranks (``--num_devices``, ``--tp``, ``--dcn_*``) the step runs eagerly, and
-the trainer says so once.
+shape; ``--eager`` runs it op by op instead.  The validation and test passes'
+eval step and the probe run through graphs of their own wherever the step
+does (``training/eval_graphs.py``: one per batch key, and one for the
+probe's fixed batch), as the JAX trainer jits both.  The ``shapes`` record
+counts each key's capture and its milliseconds, and the graphs' pool bytes.
+Over ranks (``--num_devices``, ``--tp``, ``--dcn_*``) all of them run
+eagerly, and the trainer says so once.
 
 ``--from_torch_ckpt`` fine-tunes from a reference-format ``.ckpt`` (a
 released voice, or what ``io/export_torch.py`` wrote): the model takes the
@@ -300,8 +303,14 @@ def _run(args, tb, mesh) -> int:
     def count(module):
         return sum(p.numel() for p in module.parameters())
 
-    # through captured CUDA graphs on the card without ranks (training/graphs.py); a mesh's step runs eagerly
+    # through captured CUDA graphs on the card without ranks (training/graphs.py, and eval_graphs.py for the
+    # eval step and the probe); a mesh's step runs eagerly
     graphs = device.type == "cuda" and mesh is None and not args.eager
+    eval_graphs = None
+    if graphs:
+        from emojivoice_tpu_torch.training.eval_graphs import graphs_for
+
+        eval_graphs = graphs_for(model).follow(state.optimizer)
     if is_main:
         print(f"[train] device={device} preset={args.preset} params total={count(model) / 1e6:.2f}M "
               f"encoder={count(model.encoder) / 1e6:.2f}M decoder={count(model.decoder) / 1e6:.2f}M  "
@@ -434,10 +443,13 @@ def _run(args, tb, mesh) -> int:
     def run_probe(step):
         if probe_batch is None:
             return
-        model.eval()
-        out = model.training_probe(probe_batch["x"], probe_batch["x_lengths"], probe_batch["y"],
-                                   probe_batch["y_lengths"], probe_batch.get("spks"), z=probe_z)
-        model.train()
+        if eval_graphs is not None:
+            out = eval_graphs.probe(probe_batch, probe_z)
+        else:
+            model.eval()
+            out = model.training_probe(probe_batch["x"], probe_batch["x_lengths"], probe_batch["y"],
+                                       probe_batch["y_lengths"], probe_batch.get("spks"), z=probe_z)
+            model.train()
         mas = out.pop("mas_durations").double().cpu().numpy()
         prev = probe_state.get("prev_mas")
         m = {k: float(v) for k, v in out.items()}
@@ -452,7 +464,7 @@ def _run(args, tb, mesh) -> int:
                   + "  ".join(f"{k}={v:.4f}" for k, v in m.items() if v is not None), flush=True)
 
     def run_eval(tag, eval_batcher, step):
-        ms = [eval_step(model, to_rows(vb), precision=precision) for vb in eval_batcher]
+        ms = [eval_step(model, to_rows(vb), precision=precision, graphs=graphs) for vb in eval_batcher]
         if not ms:
             return None
         avg = {k: float(np.mean([float(m[k]) for m in ms])) for k in ms[0]}  # one wait, after the sweep

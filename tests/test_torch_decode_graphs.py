@@ -11,7 +11,8 @@ CPU at tiny widths.
   turns that switch prompt buckets and come back.
 * Sampling: it replays from its seed, and ``sample_top_k`` draws the top-50
   distribution (a frequency test beside ``torch.multinomial``).
-* The builders refuse, by name, a configuration they do not implement.
+* The decoders refuse, by name, a configuration they do not implement; a
+  model type without decode steps decodes eagerly and says so.
 * A stub ``torch.cuda.CUDAGraph`` stands in for the card: the capture runs
   the step and then restores the decoder's buffers (a capture does not run
   what it records), a replay runs the captured step.  The keys, captures and
@@ -228,11 +229,25 @@ def test_whisper_decoder_refuses_what_it_does_not_implement(flag, value):
         TorchWhisperASR(model=whisper(**{flag: value}), tokenizer=StubTokenizer(), device="cpu")
 
 
-def test_another_causal_lm_is_refused_by_type():
-    model = copy.deepcopy(gpt2())
-    model.config.model_type = "llama"
-    with pytest.raises(ValueError, match="config.model_type='llama'"):
-        TorchChatLM(model=model, tokenizer=StubTokenizer(), prompt_buckets=BUCKETS, device="cpu")
+def test_another_causal_lm_is_refused_by_type(capsys):
+    """A causal LM whose type has no decode steps in the port (here a tiny
+    gpt_neo) is not refused: the default ``TorchChatLM`` decodes it through
+    transformers' forward on its device, says so on one line, and gives the
+    ids of ``graphs=False``, greedy and sampled."""
+    torch.manual_seed(0)
+    model = tf.GPTNeoForCausalLM(tf.GPTNeoConfig(vocab_size=96, hidden_size=32, num_layers=2, num_heads=2,
+                                                 attention_types=[[["global", "local"], 1]], window_size=8,
+                                                 max_position_embeddings=256, bos_token_id=1, eos_token_id=2)).eval()
+    capsys.readouterr()
+    for temperature in (0.0, 0.8):
+        lm, eager = chat_pair(model, temperature)
+        assert (lm.decode, lm.graphs, lm._dec) == ("eager", None, None) and eager.decode == "eager"
+        ids, mask = left_padded(12, 16, seed=3)
+        gens = [step_generator(7, 0, "chat", "cpu") if temperature else None for _ in range(2)]
+        np.testing.assert_array_equal(lm._generate(ids, mask, gens[0]), eager._generate(ids, mask, gens[1]))
+    said = [line for line in capsys.readouterr().out.splitlines() if line.startswith("[TorchChatLM]")]
+    assert said == ["[TorchChatLM] model_type 'gpt_neo' has no decode steps in the port: it decodes through "
+                    "transformers' forward on cpu, one token at a time"] * 2  # one line for each adapter made
 
 
 # ---------------------------------------------------------------- the staging under a stub graph
