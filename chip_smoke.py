@@ -94,8 +94,13 @@ Phases (each one failing fails the run, exit code ≠ 0):
      step of 4 rows on the card against the same step on the CPU from the
      same state (the generator that (b) trained, seeded discriminators) and
      batch, the five metrics within rtol 1e-3 (cuDNN against the CPU's convs,
-     f32 both); (d) the step by stage with CUDA events,
-     steps per second and peak memory at batch 16; (e) the generator that (b)
+     f32 both); (c') 4 GAN steps through the captured graph against 4 eager
+     steps from one seed, under deterministic kernels: metrics and every
+     parameter equal to the bit; (d) the eager step by stage with CUDA
+     events, steps per second and host enqueue ms through graphs, eagerly
+     and eagerly with plain Adams in turns, one replay under sync debug,
+     the enqueue ms of replays from an idle card, capture ms, pool bytes and
+     peak memory at batch 16; (e) the generator that (b)
      wrote, folded, served beside the run's acoustic checkpoint: finite
      pcm16, K1 on all four stages, and K1's waveform within 2e-4 of the
      weight-norm generator's differentiable forward on the same mel;
@@ -342,6 +347,7 @@ TRAIN_BATCH, TRAIN_STEPS, RESUME_STEPS, EVERY = 16, 20, 24, 10
 DURATION_BATCH = 8  # get_durations' batch: 32 utterances, 4 batches, 4 K2 launches
 VOC_BATCH, VOC_SEGMENT, VOC_STEPS, VOC_LOG_EVERY = 16, 32, 60, 5
 VOC_TOL = 1e-3  # one GAN step, card against CPU: relative bound on the five metrics
+VOC_GRAPH_STEPS = 4  # [vocoder] (c'): steps of the graphed GAN step against the eager one, equal to the bit
 SHORT_REPLY = "Sure, I can do that today."
 STORY = ("Once upon a time a little robot lived by the sea. Every morning it counted the waves and sang to the "
          "gulls. One day a storm took its voice away. So the gulls sang for the robot until spring came back.")
@@ -1767,21 +1773,24 @@ def phase_apps(pipe, mrf) -> dict:
                 k1_launches=turns["k1_launches"] + cases["k1_launches"] + adapters["k1_launches"])
 
 
+def wall_and_device_ms(fn) -> tuple:
+    """fn() from an idle card: host ms to its end on the device, and the
+    device span by CUDA events."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t = time.perf_counter()
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return (time.perf_counter() - t) * 1e3, start.elapsed_time(end)
+
+
 def export_timing(pipe, bundle, texts, spks, seeds, m_bucket) -> dict:
     """Bundle against live wall at one batch: alternated runs (live, bundle,
     bundle, live), the same fused work at the same mel bucket (no duration
     program, no mel copy), host wall and device span by CUDA events."""
     kw = dict(n_timesteps=STEPS, denoiser_strength=STRENGTH, keep_mel=False)
-
-    def run(fn):
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        t = time.perf_counter()
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        return (time.perf_counter() - t) * 1e3, start.elapsed_time(end)
 
     def live():
         pipe.synthesise(texts, spks=spks, seed=list(seeds), fused=True, fused_mel_bucket=m_bucket, **kw)
@@ -1794,7 +1803,7 @@ def export_timing(pipe, bundle, texts, spks, seeds, m_bucket) -> dict:
     device = {"live": [], "bundle": []}
     for _ in range(EXPORT_TIMED_RUNS):
         for name, fn in (("live", live), ("bundle", exported), ("bundle", exported), ("live", live)):
-            w, d = run(fn)
+            w, d = wall_and_device_ms(fn)
             wall[name].append(w)
             device[name].append(d)
     out = {"batch": len(texts), "mel_bucket": m_bucket, "runs_each": 2 * EXPORT_TIMED_RUNS}
@@ -1803,6 +1812,67 @@ def export_timing(pipe, bundle, texts, spks, seeds, m_bucket) -> dict:
         out[f"{name}_wall_ms_min"] = min(wall[name])
         out[f"{name}_device_ms_median"] = statistics.median(device[name])
         out[f"{name}_device_ms_min"] = min(device[name])
+    return out
+
+
+def export_graphs_against_eager(mrf, n_stages: int, graphs, eager, texts, spks, seeds, m_bucket) -> dict:
+    """[export] (g) at one batch: the bundle through its graphs against the
+    same bundle op by op, same texts, seeds and pinned mel bucket, equal to
+    the bit; K1's count of one replayed call (one per MRF stage); then wall
+    and device ms of each in turns (eager, graphs, graphs, eager)."""
+    import numpy as np
+
+    def call(bundle):
+        return lambda: bundle.synthesise(texts, spks=spks, seed=list(seeds), mel_bucket=m_bucket)
+
+    got, _ = call(graphs)()
+    want, _ = call(eager)()
+    for r, w in zip(got, want):
+        if r["mel_length"] != w["mel_length"] or not np.array_equal(r["wav"], w["wav"]):
+            raise RuntimeError(f"[export] (g) batch {len(texts)}: the graphed bundle differs from the eager one "
+                               f"(mel_length {r['mel_length']} / {w['mel_length']}, max-abs "
+                               f"{float(np.abs(r['wav'] - w['wav']).max()) if r['wav'].shape == w['wav'].shape else None})")
+    mrf.launches.clear()
+    call(graphs)()
+    k1 = sum(mrf.launches.values())
+    if k1 != n_stages:
+        raise RuntimeError(f"[export] (g) one replayed batch-{len(texts)} call made {k1} mrf_stage calls, expected "
+                           f"{n_stages}")
+
+    wall, device = {"eager": [], "graphs": []}, {"eager": [], "graphs": []}
+    for _ in range(EXPORT_TIMED_RUNS):
+        for mode in ("eager", "graphs", "graphs", "eager"):
+            w, d = wall_and_device_ms(call(graphs if mode == "graphs" else eager))
+            wall[mode].append(w)
+            device[mode].append(d)
+    out = dict(batch=len(texts), mel_bucket=m_bucket, rows=len(got), bit_equal=True, k1_per_replayed_call=k1,
+               runs_each=2 * EXPORT_TIMED_RUNS)
+    for mode in ("eager", "graphs"):
+        out[f"{mode}_wall_ms_median"] = statistics.median(wall[mode])
+        out[f"{mode}_wall_ms_min"] = min(wall[mode])
+        out[f"{mode}_device_ms_median"] = statistics.median(device[mode])
+    return out
+
+
+def export_profile(pipe, bundle, eager, m_bucket) -> dict:
+    """One profiled batch-1 call each, after every timed call of the smoke:
+    the bundle through its graph (captured anew first: [export] dropped it),
+    the bundle op by op, and the live pipeline's fused call through its
+    graphs, at the same mel bucket: device ms, activities, busy share."""
+    from emojivoice_tpu_torch.bench.util import profile_call
+
+    kw = dict(spks=[79], seed=[0], mel_bucket=m_bucket)
+    fns = {"bundle_graphs": lambda: bundle.synthesise([HEADLINE], **kw),
+           "bundle_eager": lambda: eager.synthesise([HEADLINE], **kw),
+           "live_graphs": lambda: pipe.synthesise([HEADLINE], spks=[79], seed=[0], n_timesteps=STEPS,
+                                                  denoiser_strength=STRENGTH, fused=True, fused_mel_bucket=m_bucket,
+                                                  keep_mel=False)}
+    out = {}
+    for name, fn in fns.items():
+        fn()  # warm (the bundle's capture)
+        got = profile_call(fn, torch.device(DEVICE))
+        out[name] = {k: got[k] for k in ("device_ms", "device_activities", "busy", "profiled_wall_ms", "k1_device_ms")}
+    print("[export] profiled batch-1 calls at mel bucket " + f"{m_bucket}: " + json.dumps(out))
     return out
 
 
@@ -1821,7 +1891,8 @@ def phase_export(pipe, mrf) -> dict:
 
     from emojivoice_tpu_torch.apps import webapp
     from emojivoice_tpu_torch.apps.emoji import EMOJI_MAPPING
-    from emojivoice_tpu_torch.inference.export import BundleSynthesisPipeline, LoadedBundle, export_bundle
+    from emojivoice_tpu_torch.inference.export import (BundleSynthesisPipeline, ExportedSynthesizer, LoadedBundle,
+                                                       export_bundle)
     from emojivoice_tpu_torch.inference.serving import BatchingEngine
     from emojivoice_tpu_torch.utils.masks import fix_len_compatibility
 
@@ -1929,6 +2000,8 @@ def phase_export(pipe, mrf) -> dict:
         from emojivoice_tpu_torch.inference.profile_engine import burst
 
         with BatchingEngine(bp, max_batch=max(bp.batch_buckets), max_wait_ms=10, batch_buckets=bp.batch_buckets) as eng:
+            eng.warmup()  # every program of each batch bucket captured off the request path
+            warmed = bundle.graphs.stats()
             burst(eng, requests)  # warm
             warm_batches = eng.stats()["batches"]
             mrf.launches.clear()
@@ -1940,14 +2013,21 @@ def phase_export(pipe, mrf) -> dict:
         check_wavs(served["results"], "(c) engine over the bundle")
         if not (stats["errors"] == 0 and stats["batched_rows"] == 32 and grew == n_stages * batches < n_stages * 16):
             raise RuntimeError(f"[export] (c) engine: stats {stats}, {grew} mrf_stage calls for {batches} batches")
+        n_programs = len(sizes)
+        if warmed["graphs"] != n_programs or bundle.graphs.captures != warmed["captures"]:
+            raise RuntimeError(f"[export] (c) after warmup the bundle holds {warmed['graphs']} graphs of {n_programs} "
+                               f"programs, and serving the warmed buckets captured "
+                               f"{bundle.graphs.captures - warmed['captures']} more")
         text, spk, seed = requests[5]
         direct = bp.synthesise([text], spks=[spk], seed=[seed])[0]
         merged_err = float(np.abs(served["results"][5].wav - direct.wav).max())
         out["engine"] = dict(utt_per_s=served["utt_per_s"], latency_ms_p50=served["latency_ms_p50"],
                              latency_ms_p95=served["latency_ms_p95"], batch_hist=stats["batch_hist"],
-                             batches=batches, merged_vs_direct_max_abs=merged_err, k1_launches=grew)
-        print(f"[export] (c) BatchingEngine over BundleSynthesisPipeline, 16 requests from 8 threads "
-              f"(after one warm burst): {json.dumps(out['engine'])}")
+                             batches=batches, merged_vs_direct_max_abs=merged_err, k1_launches=grew,
+                             graphs_after_warmup=warmed["graphs"], captures_after_warmup=warmed["captures"],
+                             captures_while_serving=bundle.graphs.captures - warmed["captures"])
+        print(f"[export] (c) BatchingEngine over BundleSynthesisPipeline through graphs, 16 requests from 8 threads "
+              f"(after its warmup and one warm burst): {json.dumps(out['engine'])}")
         if not merged_err <= EXPORT_TOL:
             raise RuntimeError(f"[export] (c) a seeded row inside a merged batch is {merged_err:.3e} off its direct call")
 
@@ -2012,8 +2092,42 @@ def phase_export(pipe, mrf) -> dict:
             lambda: bundle.dispatch([HEADLINE], spks=[79], seed=[0], mel_bucket=t1["mel_bucket"]))))
         if not np.array_equal(got[0]["wav"], res1[0]["wav"]):
             raise RuntimeError("[export] (f) the bundle's dispatch under sync debug differs from (a)")
-        print('[export] (f) one denoised fused dispatch of the live pipeline and one of the bundle under '
-              'torch.cuda.set_sync_debug_mode("error"): no host sync')
+        print('[export] (f) one denoised fused dispatch of the live pipeline and one of the bundle through its '
+              'captured graph, at a pinned mel bucket, under torch.cuda.set_sync_debug_mode("error"): no host sync')
+
+        # (g) the same bundle run op by op against its graphs (the programs loaded once, above, and shared)
+        t = time.perf_counter()
+        eager = LoadedBundle(tmp, device=DEVICE, graphs=False)
+        eager._cache = bundle._cache
+        out["graphs_vs_eager"] = [
+            export_graphs_against_eager(mrf, n_stages, bundle, eager, [HEADLINE], [79], [0], t1["mel_bucket"]),
+            export_graphs_against_eager(mrf, n_stages, bundle, eager, texts8, spks8, seeds8, t8["mel_bucket"])]
+        out["graph_store"] = {**bundle.graphs.stats(), "pool_bytes": bundle.graphs.pool_bytes()}
+        for row in out["graphs_vs_eager"]:
+            print("[export] (g) bundle through graphs against the bundle op by op " + json.dumps(row))
+        print(f"[export] (g) the bundle's graph store: {json.dumps(out['graph_store'])}")
+        # ExportedSynthesizer on the batch-1 program of (a), through its own graph by default: (a)'s row to the bit
+        name = f"synth_b1_t{EXPORT_TEXT_BUCKET}_m{t1['mel_bucket']}"
+        synth = ExportedSynthesizer(str(Path(tmp) / name), device=DEVICE)
+        xp = np.zeros((1, EXPORT_TEXT_BUCKET), np.int64)
+        xp[:, :x.shape[1]] = x
+        mrf.launches.clear()
+        wav_s, ml_s = synth(xp, xl, [79], seed=[0])
+        k1 = sum(mrf.launches.values())
+        ml = int(ml_s[0])
+        if synth.graphs is None or synth.graphs.captures != 1 or k1 != n_stages or ml != res1[0]["mel_length"] \
+                or not np.array_equal(wav_s[0, :ml * pipe.vocoder_cfg.total_upsample], res1[0]["wav"]):
+            raise RuntimeError(f"[export] (g) ExportedSynthesizer: store {synth.graphs and synth.graphs.stats()}, "
+                               f"{k1} mrf_stage calls, mel_length {ml} against (a)'s {res1[0]['mel_length']}")
+        launches += k1
+        out["synthesizer"] = dict(capture_ms=synth.graphs.stats()["capture_ms"], k1_launches=k1, bit_equal=True)
+        del synth
+        print(f"[export] (g) ExportedSynthesizer({name}) through its captured graph: (a)'s row to the bit, "
+              f"{json.dumps(out['synthesizer'])}; (g) {time.perf_counter() - t:.1f} s")
+        # kept for the profiled calls at the smoke's end: the batch-1 program, its graph dropped until then
+        bundle.graphs.drop()
+        bundle._cache = eager._cache = {name: bundle._cache[name]}
+        out["profile"] = lambda: export_profile(pipe, bundle, eager, t1["mel_bucket"])
     out["k1_launches"] = launches
     print(f"[export] K1 launches counted inside the bundle's program runs: {launches}; in the live dispatch of (f): "
           f"{out['k1_launches_live']}")
@@ -2259,6 +2373,141 @@ def step_by_stage(matcha, state, batch, seed: int) -> dict:
             "t_mel": batch["y"].shape[1], "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
+def vocoder_graphed_against_eager(cfg, gen_state: dict, batches: list) -> dict:
+    """[vocoder] (c'): two states from one seed and one generator dump, one
+    stepping through its captured graph (the first step eager, then the
+    capture, then replays) and one eagerly, on the same batches, both under
+    ``deterministic``: their five metrics at every step and every parameter
+    of gen, mpd and msd after the last, equal to the bit.  (Without
+    deterministic kernels the card's backward adds atomically and two eager
+    runs already differ in their last bits.)  Both Adams of a card state say
+    ``capturable``."""
+    from emojivoice_tpu_torch.training.vocoder_train import create_vocoder_state, vocoder_train_step
+
+    states = {mode: create_vocoder_state(cfg, seed=1, gen_state=gen_state) for mode in ("graphs", "eager")}
+    plain = [g for st in states.values() for opt in (st.gen_opt, st.disc_opt) for g in opt.param_groups
+             if not g["capturable"]]
+    if plain:
+        raise RuntimeError(f"(c') {len(plain)} Adam parameter groups of a card state are not capturable")
+    metrics = {mode: [] for mode in states}
+    with deterministic("vocoder"):
+        for b in batches:
+            batch = {k: torch.from_numpy(v).cuda() for k, v in b.items()}
+            for mode, st in states.items():
+                metrics[mode].append(vocoder_train_step(st, batch, graphs=mode == "graphs"))
+        torch.cuda.synchronize()
+    differ = [f"step {i} {k}" for i, (g, e) in enumerate(zip(metrics["graphs"], metrics["eager"])) for k in g
+              if not torch.equal(g[k], e[k])]
+    a, b = states["graphs"], states["eager"]
+    for name in ("gen", "mpd", "msd"):
+        differ += [f"{name}.{n}" for (n, p), q in zip(getattr(a, name).named_parameters(),
+                                                      getattr(b, name).parameters()) if not torch.equal(p, q)]
+    store = a.graphs.stats()
+    if differ or store["captures"] != 1 or store["replays"] != len(batches) - 1 or b.graphs is not None:
+        raise RuntimeError(f"(c') the graphed GAN step against the eager one: differing {differ[:12]} "
+                           f"({len(differ)} in all); store {store}")
+    moved = any(not torch.equal(v, gen_state[k].cuda()) for k, v in a.gen.state_dict().items())
+    if not moved:
+        raise RuntimeError("(c') the graphed steps left the generator where it started")
+    return dict(steps=len(batches), bit_equal=True, capture_ms=store["capture_ms"],
+                first_step_ms=store["first_step_ms"], pool_bytes=a.graphs.pool_bytes(),
+                metrics_last={k: float(v) for k, v in metrics["graphs"][-1].items()})
+
+
+def plain_adam_twin(state):
+    """`state` sharing its modules, with plain (not ``capturable``) Adams of
+    the same rate and betas: the eager step as it ran before the card's
+    Adams became capturable, the yardstick of (d)."""
+    from torch.optim import Adam
+
+    def plain(opt):
+        g = opt.param_groups[0]
+        return Adam([p for group in opt.param_groups for p in group["params"]], lr=float(g["lr"]), betas=g["betas"],
+                    eps=g["eps"])
+
+    return dataclasses.replace(state, gen_opt=plain(state.gen_opt), disc_opt=plain(state.disc_opt), graphs=None)
+
+
+def vocoder_steps_in_turns(state, batch: dict, n: int = 10) -> dict:
+    """[vocoder] (d): the GAN step captured at `batch`'s shape (one step,
+    eager, then the capture), then `n` steps each way in turns (eager,
+    eager with plain Adams, graphs, graphs, plain, eager): steps per second
+    to the end on the device and the host's enqueue ms a step (the step
+    itself waits for nothing); the capture's ms and the pool's bytes.  Then
+    what the graphed step's enqueue time is made of: one replay under
+    ``torch.cuda.set_sync_debug_mode("error")`` (a host sync anywhere on the
+    replay path raises), the enqueue ms of single replays from an idle card,
+    and the enqueue ms of each step of a run of `n` started from an idle
+    card."""
+    from emojivoice_tpu_torch.training.vocoder_train import vocoder_train_step
+
+    vocoder_train_step(state, batch)  # the capture
+    twin = plain_adam_twin(state)
+    vocoder_train_step(twin, batch, graphs=False)  # plain Adams' state
+    torch.cuda.synchronize()
+    if any(g["capturable"] for opt in (twin.gen_opt, twin.disc_opt) for g in opt.param_groups):
+        raise RuntimeError("(d) the plain-Adam twin's optimizers are capturable")
+    runs = {"eager": [], "eager_plain_adam": [], "graphs": []}
+    for mode in ("eager", "eager_plain_adam", "graphs", "graphs", "eager_plain_adam", "eager"):
+        st = twin if mode == "eager_plain_adam" else state
+        t = time.perf_counter()
+        for _ in range(n):
+            vocoder_train_step(st, batch, graphs=mode == "graphs")
+        enqueue_ms = (time.perf_counter() - t) * 1e3 / n
+        torch.cuda.synchronize()
+        runs[mode].append((n / (time.perf_counter() - t), enqueue_ms))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        vocoder_train_step(state, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    idle = []
+    for _ in range(5):
+        t = time.perf_counter()
+        vocoder_train_step(state, batch)
+        idle.append((time.perf_counter() - t) * 1e3)
+        torch.cuda.synchronize()
+    each = []
+    for _ in range(n):
+        t = time.perf_counter()
+        vocoder_train_step(state, batch)
+        each.append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
+    store = state.graphs.stats()
+    if store["captures"] != 1:
+        raise RuntimeError(f"(d) the GAN step at one batch shape was captured {store['captures']} times")
+    out = {f"{mode}_{k}": statistics.mean(r[i] for r in runs[mode]) for mode in runs
+           for i, k in enumerate(("steps_per_s", "host_enqueue_ms"))}
+    return dict(steps_per_s=out.pop("graphs_steps_per_s"), host_enqueue_ms=out.pop("graphs_host_enqueue_ms"), **out,
+                turns=runs, steps_through="graphs", replay_sync_free=True, idle_replay_enqueue_ms=idle,
+                run_enqueue_ms_each=each, capture_ms=store["capture_ms"], first_step_ms=store["first_step_ms"],
+                captures=store["captures"], pool_bytes=state.graphs.pool_bytes())
+
+
+def vocoder_profile(cfg, gen_state: dict, batch_np: dict) -> dict:
+    """One profiled GAN step through the captured graph and one eager, at
+    (d)'s batch, after every timed call of the smoke (a fresh state from the
+    (b) generator; each mode warmed first, the capture among it): device ms,
+    activities, busy share, and the eager step's device ms over the
+    replayed one's (PERF.md §7: the acoustic step's kernels took 1.6-2.3x
+    longer eagerly than replayed)."""
+    from emojivoice_tpu_torch.bench.util import profile_call
+    from emojivoice_tpu_torch.training.vocoder_train import create_vocoder_state, vocoder_train_step
+
+    state = create_vocoder_state(cfg, seed=1, gen_state=gen_state)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch_np.items()}
+    out = {}
+    for mode in ("graphs", "eager"):
+        for _ in range(2):
+            vocoder_train_step(state, batch, graphs=mode == "graphs")
+        got = profile_call(lambda: vocoder_train_step(state, batch, graphs=mode == "graphs"), torch.device(DEVICE))
+        out[mode] = {k: got[k] for k in ("device_ms", "device_activities", "busy", "profiled_wall_ms")}
+    out["eager_over_graphs_device_ms"] = out["eager"]["device_ms"] / out["graphs"]["device_ms"]
+    print(f"[vocoder] profiled GAN step, batch {VOC_BATCH} x {VOC_SEGMENT * 256} samples: " + json.dumps(out))
+    return out
+
+
 def phase_vocoder_training(mas, mrf, matcha, tmp: Path, filelist: Path, ckpt_dir: Path) -> dict:
     """Phase 6: durations and teacher-forced mels through K2, the GAN
     fine-tune on them, one step against the CPU, the step by stage, and the
@@ -2372,7 +2621,8 @@ def phase_vocoder_training(mas, mrf, matcha, tmp: Path, filelist: Path, ckpt_dir
     t = time.perf_counter()
     m_cpu = {k: float(v) for k, v in vocoder_train_step(cpu, four).items()}
     cpu_s = time.perf_counter() - t
-    m_card = {k: float(v) for k, v in vocoder_train_step(card, {k: v.cuda() for k, v in four.items()}).items()}
+    m_card = {k: float(v) for k, v in vocoder_train_step(card, {k: v.cuda() for k, v in four.items()},
+                                                         graphs=False).items()}
     rel = {k: abs(m_card[k] - m_cpu[k]) / abs(m_cpu[k]) for k in m_cpu}
     moved = max(float((a.detach().cpu() - b.detach()).abs().max()) for a, b in zip(card.gen.parameters(),
                                                                                    cpu.gen.parameters()))
@@ -2382,28 +2632,28 @@ def phase_vocoder_training(mas, mrf, matcha, tmp: Path, filelist: Path, ckpt_dir
         raise RuntimeError(f"(c) card and CPU GAN steps disagree beyond {VOC_TOL}: {rel}")
     del cpu
 
-    # (d) the step by stage at batch 16, then steps per second
+    # (c') the step through its captured graph against the eager step, from the same state, to the bit
+    gen_state = load_hifigan(str(gen_file), fold=False)
+    t = time.perf_counter()
+    graphed = vocoder_graphed_against_eager(cfg, gen_state, [sample() for _ in range(VOC_GRAPH_STEPS)])
+    print(f"[vocoder] (c') {VOC_GRAPH_STEPS} GAN steps through the captured graph against {VOC_GRAPH_STEPS} eager "
+          f"steps: {json.dumps(graphed)}; {time.perf_counter() - t:.1f} s")
+
+    # (d) the step by stage at batch 16 (eager: a graph has no stages to mark), then steps per second and the
+    # host's enqueue time through the graph against eager, in turns
     batch = {k: torch.from_numpy(v).cuda() for k, v in batch_np.items()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     stage_ms = []
     for _ in range(2 + 5):  # two to warm
         clock = StageClock(torch.device(DEVICE))
-        vocoder_train_step(card, batch, clock=clock)
+        vocoder_train_step(card, batch, clock=clock, graphs=False)
         torch.cuda.synchronize()
         stage_ms.append(clock.elapsed_ms())
     med = {k: statistics.median(m[k] for m in stage_ms[2:]) for k in stage_ms[0]}
-    n = 10
-    t = time.perf_counter()
-    for _ in range(n):
-        vocoder_train_step(card, batch)
-    enqueue_ms = (time.perf_counter() - t) * 1e3 / n  # the host's share: the step itself waits for nothing
-    torch.cuda.synchronize()
-    steps_per_s = n / (time.perf_counter() - t)
-    step = dict(steps_per_s=steps_per_s, host_enqueue_ms=enqueue_ms, **{f"{k}_ms": v for k, v in med.items()},
-                sum_ms=sum(med.values()),
-                batch=VOC_BATCH, segment_samples=VOC_SEGMENT * 256, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
-                harness_steps_per_s=summary["steps_per_sec_after_first"])
+    step = dict(**vocoder_steps_in_turns(card, batch), stages_from="eager", **{f"{k}_ms": v for k, v in med.items()},
+                sum_ms=sum(med.values()), batch=VOC_BATCH, segment_samples=VOC_SEGMENT * 256,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9, harness_steps_per_s=summary["steps_per_sec_after_first"])
     print("[vocoder] (d) step " + json.dumps(step))
     del card
 
@@ -2435,7 +2685,8 @@ def phase_vocoder_training(mas, mrf, matcha, tmp: Path, filelist: Path, ckpt_dir
     if not err <= TOL:
         raise RuntimeError(f"(e) the folded generator through K1 is {err:.3e} off the weight-norm generator")
     return dict(k2_launches=k2_launches, k1_launches=render_launches + served_launches, step=step, summary=summary,
-                durations_utt_per_s=len(rows) / durations_s, card_vs_cpu_rel=rel, folded_vs_plain=err)
+                durations_utt_per_s=len(rows) / durations_s, card_vs_cpu_rel=rel, folded_vs_plain=err,
+                graphed_vs_eager=graphed, profile=lambda: vocoder_profile(cfg, gen_state, batch_np))
 
 
 def card_vs_cpu(matcha, state, batch, mas, tag: str = "train") -> None:
@@ -4029,6 +4280,8 @@ def main() -> int:
     train_graphs = timed("train graphs", phase_train_graphs, mas)
     bench = timed("bench", phase_bench, mas, mrf)
     timed("apps profiled reply", apps_profile)
+    timed("export profiled calls", exported.pop("profile"))
+    timed("vocoder profiled steps", training["vocoder"].pop("profile"))
     # K1 on the main paths: the synthesis requests, the engine's and the webapp's batches, the apps' turns, demos
     # and agent turn, the trained checkpoint,
     # the vocoder proof's two renders, the fine-tuned generator served, the exported bundle's program runs, the

@@ -1,6 +1,6 @@
 """RTF of the exported bundle beside the live pipeline on the card (twin of ``tools/bench_exported.py``).
 
-    python -m emojivoice_tpu_torch.bench.exported [--repeats 10] [--bundle DIR]
+    python -m emojivoice_tpu_torch.bench.exported [--repeats 10] [--bundle DIR] [--eager]
 
 Exports one (batch 1, text bucket 256, mel bucket 512) program of
 emoji_multi + HiFi-GAN v1 (random weights, seed 0) through
@@ -11,13 +11,17 @@ it with ``LoadedBundle``, and times warmed calls of the bench's headline text
 at mel bucket 512, pcm16, in turns (live, bundle, bundle, live).  The text
 bucket is the twin's code's 256 (the headline's 231 interspersed ids do not
 fit its docstring's 128).  The bundle goes to a temporary folder unless
-``--bundle`` names one; nothing is written under ``docs/artifacts/``.
+``--bundle`` names one; nothing is written under ``docs/artifacts/``.  Both
+sides run through captured CUDA graphs (the bundle's programs one graph each,
+``inference/export.py``; the live stages, ``inference/graphs.py``), the
+card's default; ``--eager`` runs both op by op.
 
 Prints one JSON line with the twin's keys (``exported`` / ``live``:
 ``audio_s``, ``wall_s_mean``, ``wall_s_std``, ``rtf``; ``export_wall_s``),
 each side's median and min wall, K1's ``mrf_stage`` calls per call on each
 side, the largest difference between the two waveforms, the card's name,
-count and power limit.
+count and power limit, and how each side ran (``graphs_exported``,
+``graphs_live``: ``bench/util.py::graphs_info``).
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ def main(argv=None) -> int:
     ap.add_argument("--bundle", default=None, help="folder for the bundle (default: a temporary one)")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--repeats", type=int, default=10)
+    util.add_eager_arg(ap)
     args = ap.parse_args(argv)
     device = util.resolve_device(args.cpu, "bench.exported")
     m, info = util.Measure(device), util.device_info(device)
@@ -50,8 +55,9 @@ def main(argv=None) -> int:
     from emojivoice_tpu_torch.inference.export import LoadedBundle, export_bundle
     from emojivoice_tpu_torch.inference.pipeline import SAMPLE_RATE, SynthesisPipeline
 
+    graphs = False if args.eager else None
     pipe = SynthesisPipeline.from_random(config.get_preset(args.preset), seed=0, device=device,
-                                         cleaners=("basic_cleaners",))
+                                         cleaners=("basic_cleaners",), graphs=graphs)
     spk = min(3, pipe.model_cfg.n_spks - 1)
     with tempfile.TemporaryDirectory(prefix="emojivoice_exported_") as tmp:
         bundle_dir = args.bundle or tmp
@@ -59,7 +65,7 @@ def main(argv=None) -> int:
         export_bundle(pipe, bundle_dir, text_buckets=[TEXT_BUCKET], mel_buckets=[MEL_BUCKET],
                       batches=(1,), n_timesteps=args.steps, pcm16=True)
         export_s = (dt.datetime.now() - t0).total_seconds()
-        runner = LoadedBundle(bundle_dir, device=device)
+        runner = LoadedBundle(bundle_dir, device=device, graphs=graphs)
 
         def run_exported():
             results, _ = runner.synthesise([TEXT], spks=[spk], seed=0)
@@ -97,6 +103,7 @@ def main(argv=None) -> int:
         "exported": side("exported"), "live": side("live"),
         "same_length": len(wavs["live"]) == len(wavs["exported"]),
         "wav_max_abs_diff": float(np.abs(wavs["live"][:n] - wavs["exported"][:n]).max()) if n else None,
+        "graphs_exported": util.graphs_info(runner), "graphs_live": util.graphs_info(pipe),
         "generated": dt.datetime.now().isoformat(timespec="seconds"), **info,
     }
     util.emit(report)

@@ -17,7 +17,10 @@ stages to mark: ``stages_from``), peak memory, and ``--iters`` steps with
 one synchronise at the end (the train loop's steady state: steps/s).  K2
 must launch once per step.  Then the GAN step of HiFi-GAN v1 with MPD and
 MSD at ``--gan_batch`` × ``--gan_segment`` frames (16 × 32 frames, 8,192
-samples), through ``training/profile_vocoder_step.py::gan_step``.  Last,
+samples), through ``training/profile_vocoder_step.py::gan_step``: through
+one captured CUDA graph per batch shape (``training/vocoder_graphs.py``) or,
+with ``--eager``, op by op; ``gan_step_ms`` says which, and the vocoder
+store's captures, capture ms and pool bytes beside the acoustic one's.  Last,
 after every timed call (a process's calls run slower after its first
 ``torch.profiler`` session), one step of each precision under the profiler
 through graphs and eagerly: its device ms and busy share (``profile_graphs``,
@@ -148,8 +151,8 @@ def main(argv=None) -> int:
     p.add_argument("--gan_segment", type=int, default=32, help="GAN segment in mel frames (× 256 samples for v1)")
     p.add_argument("--gan_iters", type=int, default=7)
     p.add_argument("--eager", action="store_true",
-                   help="time the acoustic step op by op (train_step(graphs=False)) instead of through its captured "
-                        "CUDA graphs")
+                   help="time the acoustic step and the GAN step op by op (train_step(graphs=False), "
+                        "vocoder_train_step(graphs=False)) instead of through their captured CUDA graphs")
     args = p.parse_args(argv)
     device = util.resolve_device(args.cpu, "bench.train")
     m, info = util.Measure(device), util.device_info(device)
@@ -169,13 +172,15 @@ def main(argv=None) -> int:
         lines.append({"metric": "bf16_speedup", "value": m.ratio(results[ks[0]], results[ks[1]]), "unit": "x"})
     from emojivoice_tpu_torch.training.profile_vocoder_step import gan_step
 
-    step = gan_step(root.vocoder, device, args.gan_batch, args.gan_segment)
+    step, gan_state = gan_step(root.vocoder, device, args.gan_batch, args.gan_segment, graphs=not args.eager)
     for _ in range(2):
         step()
     ms = [step() for _ in range(args.gan_iters)]
+    store = gan_state.graphs
     lines.append({"metric": "gan_step_ms", "value": m(statistics.median(ms)), "unit": "ms",
                   "steps_per_s": m(1e3 / statistics.median(ms)), "batch": args.gan_batch,
-                  "segment_samples": args.gan_segment * root.vocoder.total_upsample})
+                  "segment_samples": args.gan_segment * root.vocoder.total_upsample, "graphs": not args.eager,
+                  "graph_store": None if store is None else {**store.stats(), "pool_bytes": store.pool_bytes()}})
     for line in lines:  # the profiled steps last
         precision = line["metric"][len("train_step_"):-len("_ms")]
         if precision in results:

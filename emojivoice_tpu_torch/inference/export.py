@@ -31,6 +31,21 @@ each MRF stage is one node of the registered op
 ``emojivoice_tpu_torch::mrf_stage`` (``ops/mrf.py``), whose operands, packed
 for the kernel before export, the program carries as buffers in place of the
 res-block convs.  Programs are called under ``torch.inference_mode()``.
+
+**Through captured CUDA graphs** (``graphs=``; the default for a bundle on
+the card, as the JAX runner calls every program compiled): each program runs
+through one ``inference/graphs.py::GraphStore`` graph per program name and
+input signature, captured at the program's first call (``warmup`` captures a
+batch bucket's programs off the request path) and replayed from static
+buffers after that, with K1 inside every synthesis graph, counted once per
+``mrf_stage`` a replay.  The inputs (ids, lengths, speakers, the noise) are
+copied in and the runtime scalars (``length_scale``, ``temperature``) filled
+in, never baked into a graph; the noise is drawn outside it and the duration
+program's output is read on the host to pick the mel bucket, as in the JAX
+runner.  A program's weights are constants of the loaded program, which
+nothing writes, so the store watches none.  ``graphs=False`` runs each
+program op by op (the CPU's default); on the CPU ``graphs=True`` runs the
+store's staging without capturing.
 """
 
 from __future__ import annotations
@@ -47,6 +62,7 @@ import torch
 import torch.nn as nn
 
 from emojivoice_tpu_torch import text as textlib
+from emojivoice_tpu_torch.inference.graphs import GraphStore
 from emojivoice_tpu_torch.inference.pipeline import (HOP_LENGTH, SAMPLE_RATE, SynthesisResult, to_host_async,
                                                      upload)
 from emojivoice_tpu_torch.ops import mrf  # noqa: F401  registers emojivoice_tpu_torch::mrf_stage, which programs call
@@ -222,31 +238,59 @@ def _load_program(path: Path):
     return torch.export.load(path).module()
 
 
-class ExportedSynthesizer:
-    """Run one exported synthesis program on padded inputs."""
+def _graph_store(device: torch.device, graphs: Optional[bool]) -> Optional[GraphStore]:
+    """The store a runner's programs go through: by default on the card, not
+    on the CPU; ``graphs=True`` on the CPU stages without capturing."""
+    if graphs is None:
+        graphs = device.type == "cuda"
+    return GraphStore(device) if graphs else None
 
-    def __init__(self, path: str, device="cuda"):
+
+def _call(store: Optional[GraphStore], name: str, program, inputs: tuple, device: torch.device) -> tuple:
+    """`program` on `inputs` (tensors on `device`, Python floats for the
+    runtime scalars): through `store`'s graph of `name` (the program's
+    weights are constants of the loaded program, which nothing writes:
+    ``weights=()``), or op by op with each float uploaded as a 0-d f32
+    tensor.  Called under ``torch.inference_mode()``."""
+    if store is not None:
+        return store.run(name, program, inputs)
+    args = [upload(torch.tensor(a, dtype=torch.float32), device) if isinstance(a, float) else a for a in inputs]
+    out = program(*args)
+    return tuple(out) if isinstance(out, (tuple, list)) else (out,)
+
+
+class ExportedSynthesizer:
+    """Run one exported synthesis program on padded inputs; through a
+    captured CUDA graph on the card unless ``graphs=False`` (the module
+    docstring)."""
+
+    def __init__(self, path: str, device="cuda", graphs: Optional[bool] = None):
         p = Path(path)
+        self.name = p.stem
         self.meta = json.loads(p.with_suffix(".json").read_text())
         self.device = _serving_device(self.meta["device"], device, str(p))
         self.program = _load_program(p.with_suffix(".pt2"))
+        self.graphs = _graph_store(self.device, graphs)
 
     @torch.inference_mode()
     def __call__(self, x, x_lengths, spks, length_scale=1.0, temperature=0.667, seed=0):
         b = self.meta["batch"]
         z = synthesis_noise(_row_seeds(seed, b), b, self.meta["mel_bucket"], self.meta["n_feats"], 1.0, self.device)
-        out, mel_lengths = self.program(
-            *(upload(torch.as_tensor(np.asarray(a), dtype=torch.int64), self.device) for a in (x, x_lengths, spks)),
-            *(upload(torch.tensor(v, dtype=torch.float32), self.device) for v in (length_scale, temperature)), z)
+        ids = [upload(torch.as_tensor(np.asarray(a), dtype=torch.int64), self.device) for a in (x, x_lengths, spks)]
+        out, mel_lengths = _call(self.graphs, self.name, self.program,
+                                 (*ids, float(length_scale), float(temperature), z), self.device)
         return out.cpu().numpy(), mel_lengths.cpu().numpy()
 
 
 class LoadedBundle:
     """Run an exported bundle end to end: load programs lazily, pad inputs to
     the bucket grid, pick the (batch, text, mel) program through the duration
-    program, and return trimmed per-utterance results."""
+    program, and return trimmed per-utterance results.  `graphs`: every
+    program through one captured CUDA graph (the module docstring); None
+    means on for a bundle on the card and off on the CPU, where True runs the
+    store's staging without capturing."""
 
-    def __init__(self, bundle_dir: str, device="cuda"):
+    def __init__(self, bundle_dir: str, device="cuda", graphs: Optional[bool] = None):
         self.dir = Path(bundle_dir)
         self.meta = json.loads((self.dir / "manifest.json").read_text())
         if self.meta.get("format") != FORMAT:
@@ -254,13 +298,20 @@ class LoadedBundle:
                              f"export bundle ({FORMAT!r}); export one with emojivoice-export-bundle-torch")
         self.device = _serving_device(self.meta["device"], device, str(bundle_dir))
         self._cache: dict = {}
-        self._lock = threading.Lock()  # serving threads load programs lazily
+        self._lock = threading.Lock()  # serving threads load programs lazily; the store's lock guards its graphs
+        self.graphs = _graph_store(self.device, graphs)
 
     def _load(self, name: str):
         with self._lock:
             if name not in self._cache:
                 self._cache[name] = _load_program(self.dir / f"{name}.pt2")
             return self._cache[name]
+
+    def run(self, name: str, inputs: tuple) -> tuple:
+        """Program `name` on `inputs` (device tensors; the runtime scalars as
+        Python floats) → its outputs, which the caller owns: through its
+        captured graph, or op by op.  Called under ``torch.inference_mode()``."""
+        return _call(self.graphs, name, self._load(name), inputs, self.device)
 
     @staticmethod
     def _pick(value: int, buckets, what: str) -> int:
@@ -334,8 +385,7 @@ class LoadedBundle:
         spk = np.clip(spk, 0, meta["n_spks"] - 1)  # out-of-range ids clamped, as the live pipeline does
         row_seeds = _row_seeds(seed, n)
         row_seeds += [row_seeds[-1]] * (batch - n)  # pad rows, trimmed anyway
-        args = [upload(torch.from_numpy(a), self.device) for a in (x, xl, spk)]
-        args.append(upload(torch.tensor(length_scale, dtype=torch.float32), self.device))
+        args = (*(upload(torch.from_numpy(a), self.device) for a in (x, xl, spk)), float(length_scale))
 
         if mel_bucket is not None:
             if mel_bucket not in meta["mel_buckets"]:
@@ -344,14 +394,12 @@ class LoadedBundle:
         elif len(meta["mel_buckets"]) == 1:
             m_bucket = int(meta["mel_buckets"][0])
         else:
-            y_lengths = self._load(f"dur_b{batch}_t{t_bucket}")(*args)
+            y_lengths, = self.run(f"dur_b{batch}_t{t_bucket}", args)
             # the host read: the predicted mel length picks the mel bucket
             m_bucket = self._pick(fix_len_compatibility(int(y_lengths.max())), meta["mel_buckets"], "mel length")
 
-        prog = self._load(f"synth_b{batch}_t{t_bucket}_m{m_bucket}")
         z = synthesis_noise(row_seeds, batch, m_bucket, meta["n_feats"], 1.0, self.device)
-        temp = upload(torch.tensor(temperature, dtype=torch.float32), self.device)
-        out, mel_lengths = prog(*args, temp, z)
+        out, mel_lengths = self.run(f"synth_b{batch}_t{t_bucket}_m{m_bucket}", (*args, float(temperature), z))
         host, done = to_host_async({"out": out, "mel_lengths": mel_lengths})
         return {"out": host, "done": done, "n": n, "batch": batch, "t_bucket": t_bucket, "m_bucket": m_bucket,
                 "t0": t0, "cleaned": cleaned, "pinned": mel_bucket is not None,
@@ -398,7 +446,9 @@ class BundleSynthesisPipeline:
     Fixed per bundle: the step count and the denoiser strength (a request
     asking for others is refused: export a bundle per operating point), the
     pcm16 wire format (a request's ``pcm16`` is advisory; results always hold
-    float32 wav), and no mel (``keep_mel`` requests get an empty one)."""
+    float32 wav), and no mel (``keep_mel`` requests get an empty one).
+    A folder is loaded with the ``LoadedBundle`` defaults (through captured
+    CUDA graphs on the card); pass a ``LoadedBundle`` for another mode."""
 
     def __init__(self, bundle, language: Optional[str] = None, device="cuda"):
         self.bundle = bundle if isinstance(bundle, LoadedBundle) else LoadedBundle(bundle, device=device)
@@ -456,7 +506,9 @@ class BundleSynthesisPipeline:
     @torch.inference_mode()
     def warmup(self, n_timesteps: Optional[int] = None, batch: int = 1, **_ignored) -> None:
         """Load and run every program of this batch bucket once, off the
-        request path.  ``n_timesteps=None`` means the bundle's own."""
+        request path: through graphs, this captures each of them, as the
+        JAX runner's warmup compiles them.  ``n_timesteps=None`` means the
+        bundle's own."""
         self._check(self.n_timesteps if n_timesteps is None else n_timesteps, self.denoiser_strength)
         meta, dev = self.bundle.meta, self.bundle.device
         if batch not in meta["batches"]:
@@ -465,12 +517,12 @@ class BundleSynthesisPipeline:
             x = torch.zeros((batch, t), dtype=torch.int64, device=dev)
             x[:, 0] = 50
             args = (x, torch.ones((batch,), dtype=torch.int64, device=dev),
-                    torch.zeros((batch,), dtype=torch.int64, device=dev), torch.ones((), device=dev))
+                    torch.zeros((batch,), dtype=torch.int64, device=dev), 1.0)
             if len(meta["mel_buckets"]) > 1:
-                self.bundle._load(f"dur_b{batch}_t{t}")(*args).cpu()
+                self.bundle.run(f"dur_b{batch}_t{t}", args)[0].cpu()
             for m in meta["mel_buckets"]:
                 z = synthesis_noise(list(range(batch)), batch, m, meta["n_feats"], 1.0, dev)
-                self.bundle._load(f"synth_b{batch}_t{t}_m{m}")(*args, torch.full((), 0.667, device=dev), z)[1].cpu()
+                self.bundle.run(f"synth_b{batch}_t{t}_m{m}", (*args, 0.667, z))[1].cpu()
 
 
 # ---------------------------------------------------------------------------

@@ -70,6 +70,13 @@ def mel_filterbank(sr: int, n_fft: int, n_mels: int, fmin: float, fmax: float) -
     return np.ascontiguousarray(weights.T.astype(np.float32))  # (F, n_mels)
 
 
+@functools.lru_cache(maxsize=8)
+def _filterbank(sr: int, n_fft: int, n_mels: int, fmin: float, fmax: float, device: torch.device) -> torch.Tensor:
+    """The filterbank on `device`, made once: a captured step
+    (``training/vocoder_graphs.py``) can copy nothing up from the host."""
+    return torch.from_numpy(mel_filterbank(sr, n_fft, n_mels, fmin, fmax)).to(device)
+
+
 def mel_spectrogram(y: torch.Tensor, n_fft: int = 1024, num_mels: int = 80, sampling_rate: int = 22050,
                     hop_size: int = 256, win_size: int = 1024, fmin: float = 0.0,
                     fmax: float = 8000.0) -> torch.Tensor:
@@ -80,5 +87,5 @@ def mel_spectrogram(y: torch.Tensor, n_fft: int = 1024, num_mels: int = 80, samp
     pad = int((n_fft - hop_size) / 2)
     y = F.pad(y[:, None, :], (pad, pad), mode="reflect")[:, 0, :]
     mag = stft_magnitude(y, n_fft, hop_size, win_size, eps=1e-9)
-    fb = torch.from_numpy(mel_filterbank(sampling_rate, n_fft, num_mels, fmin, fmax)).to(y.device)
+    fb = _filterbank(sampling_rate, n_fft, num_mels, fmin, fmax, y.device)
     return torch.log(torch.clamp(torch.matmul(mag, fb), min=1e-5))

@@ -63,14 +63,13 @@ whether it ran eagerly or from a graph.
 from __future__ import annotations
 
 import dataclasses
-import weakref
 from typing import Any, Optional
 
 import torch
 
 from emojivoice_tpu_torch.ops import mas
 from emojivoice_tpu_torch.training.state import TrainState, dropout_seed, set_lr_, step_body, step_draws
-from emojivoice_tpu_torch.utils.cuda_graphs import GraphCache, copy_in, registrations, signature, static_buffer
+from emojivoice_tpu_torch.utils.cuda_graphs import StepGraphs, copy_in, signature, static_buffer
 
 # the batch entries the step reads; the last three are optional and part of the key
 INPUTS = ("x", "x_lengths", "y", "y_lengths", "spks", "durations", "row_mask")
@@ -89,30 +88,20 @@ class _Step:
     replays: int = 0
 
 
-class TrainGraphs(GraphCache):
+class TrainGraphs(StepGraphs):
     """Bucket key → captured train step with its static buffers (the module
-    docstring; the pool, the keys and the capture are
-    ``utils/cuda_graphs.py::GraphCache``'s), for one ``TrainState`` on one
-    device without a mesh.  It holds the state by a weak reference: the state
-    holds it, and a cycle would keep a dropped state's graphs and their pool
-    until the cycle collector ran."""
+    docstring; the pool, the keys, the capture, the weak reference to the
+    state and the drops are ``utils/cuda_graphs.py::StepGraphs``'), for one
+    ``TrainState`` on one device without a mesh."""
 
     def __init__(self, state: TrainState):
         if state.mesh is not None:
             raise ValueError("TrainGraphs: a state over a mesh trains eagerly (its collectives are not captured)")
-        super().__init__(state.device)
-        if self.capture and not all(g.get("capturable") for g in state.optimizer.param_groups):
+        if state.device.type == "cuda" and not all(g.get("capturable") for g in state.optimizer.param_groups):
             raise ValueError("TrainGraphs: the optimizer is not capturable (create_train_state makes it so on the "
                              "card without a mesh)")
-        self._state = weakref.ref(state)
+        super().__init__(state, (state.optimizer,))
         self._rng_devices = [self.device] if self.capture else []  # the generators a step forks
-        self._seen_registrations = registrations()
-        self._written = self._weights()
-        state.optimizer.register_load_state_dict_post_hook(lambda optimizer: self.drop())
-
-    @property
-    def state(self) -> TrainState:
-        return self._state()
 
     def _weights(self) -> list:
         return list(self.state.model.parameters()) + list(self.state.model.buffers())
@@ -125,23 +114,11 @@ class TrainGraphs(GraphCache):
         return (b, t_text, t_mel, precision, out_size is not None and out_size < t_mel,
                 tuple(k for k in OPTIONAL if k in batch))
 
-    def drop(self) -> None:
-        super().drop()
-        self._written = self._weights()
-
-    def stats(self) -> dict:
-        """``GraphCache.stats`` and per key the first step's host ms."""
-        return dict(super().stats(), first_step_ms={repr(k): g.first_ms for (k, _), g in self._graphs.items()})
-
     def step(self, batch: dict, seed: int, precision: Optional[str] = "f32") -> dict:
         """One optimizer step of the state on `batch` → metrics as 0-d
         tensors the caller owns (``train_step``'s)."""
         state = self.state
-        if registrations() != self._seen_registrations:
-            self._seen_registrations = registrations()
-            weights = self._weights()  # a parameter or buffer may have been replaced by another object
-            if len(weights) != len(self._written) or any(a is not b for a, b in zip(weights, self._written)):
-                self.drop()
+        self.drop_replaced()
         names = [k for k in INPUTS if k in batch]
         full = (self.key(batch, precision), tuple((k, signature(batch[k])) for k in names))
         lr = state.schedule(state.step)
@@ -163,7 +140,7 @@ class TrainGraphs(GraphCache):
                     out = {k: v.clone() for k, v in g.out.items()}
             if g.graph is not None:
                 mas.add_launches(g.k2)
-                torch.autograd.graph.increment_version(self._written)
+                self.replayed()
             g.replays += 1
         state.step += 1
         return {**out, "lr": torch.tensor(lr)}

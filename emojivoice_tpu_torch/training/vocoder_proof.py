@@ -25,7 +25,9 @@ mode: condition on the acoustic model's teacher-forced mels
 (``training/get_durations.py --gen_mels``) instead of ground-truth mels.
 
 It runs on the card unless ``--device cpu`` is given, and fails if the card is
-missing.  Not ported: the JAX tool's compilation-cache switch.
+missing.  On the card each step runs through its captured CUDA graph
+(``training/vocoder_graphs.py``); ``--eager`` (``graphs=False``) runs it op
+by op.  Not ported: the JAX tool's compilation-cache switch.
 """
 
 from __future__ import annotations
@@ -106,7 +108,7 @@ def run_vocoder_proof(out_dir: str, steps: int = 150, batch_size: int = 16, segm
                       utts: int = 24, seed: int = 0, window: int = 10, lr: float = 2e-4, cfg=None,
                       n_fft: int = 1024, win_size: int = 1024, gen_ckpt: Optional[str] = None,
                       disc_ckpt: Optional[str] = None, log_every: int = 1, filelist: Optional[str] = None,
-                      gen_mels_dir: Optional[str] = None, device="cuda") -> dict:
+                      gen_mels_dir: Optional[str] = None, device="cuda", graphs: Optional[bool] = None) -> dict:
     import torch
 
     from emojivoice_tpu_torch.config import HiFiGANConfig
@@ -178,7 +180,7 @@ def run_vocoder_proof(out_dir: str, steps: int = 150, batch_size: int = 16, segm
     with metrics_path.open("w") as fh:
         for i in range(steps):
             batch = {k: torch.from_numpy(v).to(device, non_blocking=True) for k, v in sample().items()}
-            m = vocoder_train_step(state, batch)
+            m = vocoder_train_step(state, batch, graphs=graphs)
             # the metrics are read only at the log cadence: a read makes the host wait for the device
             if (i + 1) % log_every == 0 or i == steps - 1:
                 m = {k: float(v) for k, v in m.items()}
@@ -266,10 +268,14 @@ def main(argv=None) -> int:
     p.add_argument("--gen_mels_dir", default=None,
                    help="HiFi-GAN fine-tuning: condition on the acoustic model's teacher-forced mels "
                         "(<stem>.npy from get_durations --gen_mels) instead of ground-truth mels")
+    p.add_argument("--eager", action="store_true",
+                   help="run each GAN step op by op (vocoder_train_step(graphs=False)) instead of through its "
+                        "captured CUDA graph, the card's default")
     a = p.parse_args(argv)
     run_vocoder_proof(a.out_dir, steps=a.steps, batch_size=a.batch_size, segment_frames=a.segment_frames,
                       utts=a.utts, seed=a.seed, lr=a.lr, gen_ckpt=a.gen_ckpt, disc_ckpt=a.disc_ckpt,
-                      log_every=a.log_every, filelist=a.filelist, gen_mels_dir=a.gen_mels_dir, device=a.device)
+                      log_every=a.log_every, filelist=a.filelist, gen_mels_dir=a.gen_mels_dir, device=a.device,
+                      graphs=False if a.eager else None)
     return 0
 
 

@@ -26,18 +26,26 @@ the discriminators themselves, outside their wrappers, with their
 parameters frozen (their gradients there are discarded, as on one device).
 Every loss is a mean over equal rows, so the mean of the ranks' gradients is
 the global batch's, and the metrics are the data group's means.
+
+Through captured CUDA graphs (``vocoder_train_step(graphs=)``, the default
+on the card without a mesh; the counterpart of the JAX package's jitted
+step): the whole step, both updates included, is one graph per batch shape
+(``training/vocoder_graphs.py``).  On the card without a mesh both Adams are
+``capturable`` for that reason, in the eager step too, so that the two
+compute the same update; the rate stays a constant.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import TYPE_CHECKING, Optional
 
 import torch
 
 from emojivoice_tpu_torch.config import HiFiGANConfig
 from emojivoice_tpu_torch.ops.mel import mel_spectrogram
 from emojivoice_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, mean_over
+from emojivoice_tpu_torch.training.state import _as_made
 from emojivoice_tpu_torch.vocoder.discriminators import (
     MultiPeriodDiscriminator,
     MultiScaleDiscriminator,
@@ -46,6 +54,9 @@ from emojivoice_tpu_torch.vocoder.discriminators import (
     generator_loss,
 )
 from emojivoice_tpu_torch.vocoder.hifigan import HiFiGANGenerator
+
+if TYPE_CHECKING:
+    from emojivoice_tpu_torch.training.vocoder_graphs import VocoderGraphs
 
 MEL_LOSS_WEIGHT = 45.0  # upstream HiFi-GAN recipe
 FM_LOSS_WEIGHT = 2.0
@@ -62,6 +73,7 @@ class VocoderTrainState:
     step: int = 0
     mesh: Optional[Mesh] = None
     ddp: Optional[dict] = None  # "gen" (its forward_train), "mpd", "msd" under DDP over the data axis
+    graphs: Optional["VocoderGraphs"] = None  # the captured steps, made at the first step through graphs
 
     @property
     def device(self) -> torch.device:
@@ -87,7 +99,10 @@ def create_vocoder_state(cfg: HiFiGANConfig, lr: float = 2e-4, b1: float = 0.8, 
     dict}``, e.g. from ``load_hifigan_discriminators``) warm-starts the
     discriminators, which go on training as plain weights.  What is not given
     is initialised under a forked RNG seeded with `seed`.  `mesh` trains data
-    parallel (the module docstring)."""
+    parallel (the module docstring).  On the card without a mesh both Adams
+    are ``capturable`` (the rate a 0-d device tensor that stays constant), so
+    that the step can run through a captured graph; on the CPU, or over a
+    mesh, they are plain.  A ``load_state_dict`` keeps each as it was made."""
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError('create_vocoder_state: no CUDA device is available (pass device="cpu" to train on the '
                            'CPU)')
@@ -101,7 +116,7 @@ def create_vocoder_state(cfg: HiFiGANConfig, lr: float = 2e-4, b1: float = 0.8, 
         mpd.load_state_dict(disc_state["mpd"], strict=True)
         msd.load_state_dict(disc_state["msd"], strict=True)
     gen, mpd, msd = gen.to(device).train(), mpd.to(device).train(), msd.to(device).train()
-    adam = dict(lr=lr, betas=(b1, b2), eps=1e-8)
+    capturable = torch.device(device).type == "cuda" and mesh is None
     ddp = None
     if mesh is not None:
         from torch.nn.parallel import DistributedDataParallel
@@ -110,9 +125,16 @@ def create_vocoder_state(cfg: HiFiGANConfig, lr: float = 2e-4, b1: float = 0.8, 
         kw = dict(process_group=mesh.group(DATA_AXIS), device_ids=[dev] if dev.type == "cuda" else None)
         ddp = {"gen": DistributedDataParallel(_TrainForward(gen), **kw), "mpd": DistributedDataParallel(mpd, **kw),
                "msd": DistributedDataParallel(msd, **kw)}
-    return VocoderTrainState(cfg=cfg, gen=gen, mpd=mpd, msd=msd, gen_opt=torch.optim.Adam(gen.parameters(), **adam),
-                             disc_opt=torch.optim.Adam(list(mpd.parameters()) + list(msd.parameters()), **adam),
-                             mesh=mesh, ddp=ddp)
+
+    def adam(params):
+        params = list(params)
+        rate = torch.tensor(float(lr), device=params[0].device) if capturable else lr
+        opt = torch.optim.Adam(params, lr=rate, betas=(b1, b2), eps=1e-8, capturable=capturable)
+        opt.register_load_state_dict_post_hook(lambda optimizer: _as_made(optimizer, capturable))
+        return opt
+
+    return VocoderTrainState(cfg=cfg, gen=gen, mpd=mpd, msd=msd, gen_opt=adam(gen.parameters()),
+                             disc_opt=adam(list(mpd.parameters()) + list(msd.parameters())), mesh=mesh, ddp=ddp)
 
 
 class _TrainForward(torch.nn.Module):
@@ -155,18 +177,10 @@ def discriminator_losses(state: VocoderTrainState, wav: torch.Tensor, y_hat: tor
     return discriminator_loss(r_p, g_p)[0] + discriminator_loss(r_s, g_s)[0]
 
 
-def vocoder_train_step(state: VocoderTrainState, batch: dict, clock=None) -> dict:
-    """One alternating step on ``batch{"mel" (B, T, num_mels), "wav" (B, T·hop)}``
-    (tensors on the state's device) → metrics as 0-d tensors, which the caller
-    reads when it chooses, so the step itself does not wait for the device.
-
-    The generated waveform is computed once, from the generator as it stands
-    before the step; the discriminators update on it with the gradient cut;
-    the generator loss is then taken against the updated discriminators,
-    whose parameters are frozen for that pass so that no gradient reaches
-    them.  `clock`, where given, has ``mark(name)`` called after each stage.
-    Data parallel, `batch` is this rank's rows and the metrics are the global
-    batch's."""
+def step_body(state: VocoderTrainState, batch: dict, clock=None) -> dict:
+    """One alternating step on `batch` without the step count or the mean
+    over ranks → this device's metrics: the eager step's body, and what a
+    captured step records (``training/vocoder_graphs.py``)."""
     mel, wav = batch["mel"], batch["wav"]
 
     def mark(name):
@@ -196,7 +210,43 @@ def vocoder_train_step(state: VocoderTrainState, batch: dict, clock=None) -> dic
             p.requires_grad_(True)
     state.gen_opt.step()
     mark("gen_update")
+    return {"d_loss": d_loss.detach(), "g_loss": g_loss.detach(), "mel_l1": loss_mel.detach() / MEL_LOSS_WEIGHT,
+            "fm_loss": loss_fm.detach(), "adv_loss": loss_adv.detach()}
+
+
+def vocoder_train_step(state: VocoderTrainState, batch: dict, clock=None, graphs: Optional[bool] = None) -> dict:
+    """One alternating step on ``batch{"mel" (B, T, num_mels), "wav" (B, T·hop)}``
+    (tensors on the state's device) → metrics as 0-d tensors, which the caller
+    reads when it chooses, so the step itself does not wait for the device.
+
+    The generated waveform is computed once, from the generator as it stands
+    before the step; the discriminators update on it with the gradient cut;
+    the generator loss is then taken against the updated discriminators,
+    whose parameters are frozen for that pass so that no gradient reaches
+    them.  `clock`, where given, has ``mark(name)`` called after each stage.
+    Data parallel, `batch` is this rank's rows and the metrics are the global
+    batch's.
+
+    `graphs`: through one captured CUDA graph per batch shape
+    (``training/vocoder_graphs.py``, the counterpart of the JAX package's
+    jitted step), the default on the card without a mesh; ``graphs=False``
+    runs the step eagerly, the CPU's default.  A mesh or a `clock` with
+    ``graphs=True`` raises: collectives are not captured, and a graph has no
+    stages to mark."""
+    if graphs is None:
+        graphs = state.device.type == "cuda" and state.mesh is None
+    if graphs:
+        if state.mesh is not None:
+            raise ValueError("vocoder_train_step: graphs=True with a mesh: training over a mesh runs eagerly (its "
+                             "collectives are not captured); pass graphs=False or no mesh")
+        if clock is not None:
+            raise ValueError("vocoder_train_step: clock= with graphs=True: a captured step has no stages to mark; "
+                             "pass graphs=False to time the step by stage")
+        if state.graphs is None:
+            from emojivoice_tpu_torch.training.vocoder_graphs import VocoderGraphs
+
+            state.graphs = VocoderGraphs(state)
+        return state.graphs.step(batch)
+    metrics = step_body(state, batch, clock)
     state.step += 1
-    metrics = {"d_loss": d_loss.detach(), "g_loss": g_loss.detach(), "mel_l1": loss_mel.detach() / MEL_LOSS_WEIGHT,
-               "fm_loss": loss_fm.detach(), "adv_loss": loss_adv.detach()}
     return mean_over(metrics, state.mesh.group(DATA_AXIS) if state.mesh is not None else None)

@@ -21,6 +21,12 @@ A graph reads its weights' memory as it was at its capture.  A write moves a
 tensor's stamp (``weights_stamp``); a parameter or buffer replaced by
 another object shows as a module registration anywhere in the process
 (``registrations``), after which the owner lists its weight tensors anew.
+
+``StepGraphs`` is the part the training steps' caches share
+(``training/graphs.py::TrainGraphs``, ``training/vocoder_graphs.py::
+VocoderGraphs``): the state held by a weak reference, a drop on every load
+of its optimizers and on a weight replaced by another object, and the
+autograd versions of the weights a replay wrote moved after it.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from __future__ import annotations
 import gc
 import threading
 import time
+import weakref
 from typing import Any, Callable, Hashable, Iterable, Optional, Sequence
 
 import torch
@@ -219,3 +226,51 @@ class GraphCache:
             capture_ms = (time.perf_counter() - t) * 1e3
         self.captures += 1
         return graph, warmed, static_out, warm_ms, capture_ms
+
+
+class StepGraphs(GraphCache):
+    """A ``GraphCache`` of captured optimizer steps for one training state,
+    which it holds by a weak reference (the state holds the cache, and a
+    cycle would keep a dropped state's graphs and their pool until the
+    cycle collector ran).  A replay writes the weights (``_weights()``, the
+    owner's list) and its optimizers' state in place: every load of
+    `optimizers` drops the graphs, so does a weight replaced by another
+    object (``drop_replaced``, called before each step), and ``replayed``
+    bumps the weights' autograd versions after a replay, which the replay
+    itself does not, so that a cache stamped on (data pointer, version)
+    sees the new weights."""
+
+    def __init__(self, state, optimizers: Sequence):
+        super().__init__(state.device)
+        self._state = weakref.ref(state)
+        self._seen_registrations = registrations()
+        self._written = self._weights()
+        for opt in optimizers:
+            opt.register_load_state_dict_post_hook(lambda optimizer: self.drop())
+
+    @property
+    def state(self):
+        return self._state()
+
+    def _weights(self) -> list:
+        raise NotImplementedError
+
+    def drop(self) -> None:
+        super().drop()
+        self._written = self._weights()
+
+    def drop_replaced(self) -> None:
+        """Drop the graphs if a weight was replaced by another object since
+        they were listed (looked for after any registration in the process)."""
+        if registrations() != self._seen_registrations:
+            self._seen_registrations = registrations()
+            weights = self._weights()
+            if len(weights) != len(self._written) or any(a is not b for a, b in zip(weights, self._written)):
+                self.drop()
+
+    def replayed(self) -> None:
+        torch.autograd.graph.increment_version(self._written)
+
+    def stats(self) -> dict:
+        """``GraphCache.stats`` and per key the first step's host ms."""
+        return dict(super().stats(), first_step_ms={repr(k): g.first_ms for (k, _), g in self._graphs.items()})

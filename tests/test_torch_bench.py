@@ -69,7 +69,8 @@ TOOLS = {
              {"preset", "steps", "backend", "device_kind", "segment_chars", "reps", "lengths"},
              ["lengths.short_reply_1s.full.ttfa_ms", "lengths.story_turn_10s.pipelined.total_ms"]),
     "exported": (TINY + ["--repeats", "2", "--steps", "1"],
-                 {"backend", "text_chars", "steps", "repeats", "export_wall_s", "exported", "live", "generated"},
+                 {"backend", "text_chars", "steps", "repeats", "export_wall_s", "exported", "live", "generated",
+                  "graphs_exported", "graphs_live"},
                  ["export_wall_s", "exported.wall_s_mean", "exported.rtf", "live.wall_s_std"]),
     "vocoder": (TINY + ["--frames", "16", "--iters", "1"],
                 {"backend", "mel_frames", "plain_b1_ms", "k1_b1_ms", "k1_bf16_b1_ms", "plain_b8_ms", "k1_b8_ms",
@@ -112,7 +113,9 @@ NESTED = {
     "train": {"lines[0]": {"metric", "value", "unit", "loss0", "compile_s", "shape", "graphs", "graph_store",
                            "stages_from", "profile_graphs", "profile_eager"},
               "lines[0].profile_graphs": {"device_ms", "busy", "profiled_wall_ms", "device_activities"},
-              "lines[1]": {"metric", "value", "unit", "steps_per_s"}, "lines[4]": {"metric", "value", "unit"}},
+              "lines[1]": {"metric", "value", "unit", "steps_per_s"},
+              "lines[4]": {"metric", "value", "unit"},
+              "lines[5]": {"metric", "value", "unit", "steps_per_s", "graphs", "graph_store"}},
     "mfu": {"programs[0]": {"program", "flops_per_call", "gflops_per_call", "device_ms_per_call", "achieved_tflops",
                             "bytes_per_call", "mbytes_per_call", "achieved_gbps", "arith_intensity_flop_per_byte",
                             "pct_of_peak", "roofline_bound", "ridge_intensity", "roofline_ceiling_tflops",
@@ -170,7 +173,14 @@ def test_tool_runs_on_the_cpu_with_its_twins_keys(name, tiny_preset, tmp_path, m
 def check_train_modes(report: dict, eager: bool) -> None:
     """``bench.train`` times the step through its graphs (on the CPU: their
     staging, nothing captured) or, with ``--eager``, op by op, says which,
-    and reads a profiled step of each mode whatever the flag."""
+    and reads a profiled step of each mode whatever the flag; the GAN step
+    follows the flag too, with its own store (2 warm steps and one timed at
+    one batch shape: one key, two replays)."""
+    gan = next(line for line in report["lines"] if line["metric"] == "gan_step_ms")
+    assert gan["graphs"] is not eager
+    assert (gan["graph_store"] is None) if eager else (gan["graph_store"]["captures"] == 0
+                                                       and gan["graph_store"]["graphs"] == 1
+                                                       and gan["graph_store"]["replays"] == 2)
     for line in report["lines"]:
         if line["metric"].startswith("train_step_") and "graphs" in line:
             assert line["graphs"] is not eager

@@ -14,7 +14,9 @@ mel and duration lengths equal.  A bundle row against the port's live fused
 call with that row's seed at the same mel bucket: equal to the bit (one
 device, the same ops on the same inputs).  A row inside a batch-2 program
 against the batch-1 program: atol 1e-5, the JAX contract (batch shapes sum
-in other orders).
+in other orders).  The runner through its graph store (``graphs=True``, the
+staging on the CPU) against the op-by-op runner: equal to the bit; these
+cases share the module's loaded programs and add ~21 s to the file.
 """
 
 import json
@@ -338,3 +340,65 @@ def test_programs_carry_the_kept_rope_tables(bundle_dir):
         assert len(tables) == 2, (name, [tuple(c.shape) for c in consts if isinstance(c, torch.Tensor)])
         kept = next(v for k, v in rope._TABLES.items() if k[0] == 64)
         assert {torch.equal(t, kept[0]) or torch.equal(t, kept[1]) for t in tables} == {True}
+
+
+# ---------------------------------------------------------------------------
+# the bundle through its graph store (``graphs=True`` on the CPU: the store's staging, nothing captured)
+# ---------------------------------------------------------------------------
+
+def _staged(bundle):
+    """A staged runner over the same folder, sharing `bundle`'s loaded programs (each loaded once)."""
+    staged = LoadedBundle(bundle.dir, device="cpu", graphs=True)
+    staged._cache = bundle._cache
+    return staged
+
+
+def test_staged_bundle_equals_eager_to_the_bit(bundle):
+    """``LoadedBundle(graphs=True)`` against the CPU's default op-by-op
+    runner: batch 1 at both mel buckets (the duration program's picks) and
+    batch 2, every row equal to the bit; one store entry per program name,
+    and a second call at a key builds nothing new."""
+    staged = _staged(bundle)
+    assert bundle.graphs is None and staged.graphs is not None and not staged.graphs.capture
+    calls = [([LONG], [1], 5), ([SHORT], [1], 5), (["first one", "second longer text"], [0, 2], [7, 9])]
+    for texts, spks, seed in calls:
+        got, t_got = staged.synthesise(texts, spks=spks, seed=seed)
+        want, t_want = bundle.synthesise(texts, spks=spks, seed=seed)
+        assert (t_got["batch"], t_got["mel_bucket"]) == (t_want["batch"], t_want["mel_bucket"])
+        for r, w in zip(got, want):
+            assert r["mel_length"] == w["mel_length"]
+            np.testing.assert_array_equal(r["wav"], w["wav"])
+    names = sorted(staged.graphs.keys())
+    assert names == ["dur_b1_t64", "dur_b2_t64", "synth_b1_t64_m128", "synth_b1_t64_m64", "synth_b2_t64_m128"], names
+    entries = staged.graphs.entries()
+    again, _ = staged.synthesise([LONG], spks=[1], seed=6)
+    assert staged.graphs.entries().keys() == entries.keys() and staged.graphs.captures == 0
+    stats = staged.graphs.stats()
+    assert stats["graphs"] == 5 and stats["replays"] == 2 * (len(calls) + 1)  # the duration program and one synthesis
+    np.testing.assert_array_equal(again[0]["wav"], bundle.synthesise([LONG], spks=[1], seed=6)[0][0]["wav"])
+
+
+def test_staged_synthesizer_and_serving_pipeline(pipe, bundle_dir, bundle):
+    """``ExportedSynthesizer`` and ``BundleSynthesisPipeline`` with
+    ``graphs=True`` give what their op-by-op selves give, to the bit;
+    ``warmup(batch=2)`` makes an entry for every program of that batch
+    bucket (the JAX runner's warmup compiles them)."""
+    x, xl, _, _ = pipe.encode_texts([LONG])
+    staged = ExportedSynthesizer(str(bundle_dir / "synth_b1_t64_m128"), device="cpu", graphs=True)
+    eager = ExportedSynthesizer(str(bundle_dir / "synth_b1_t64_m128"), device="cpu")
+    assert eager.graphs is None and staged.graphs.keys() == []
+    wav, ml = staged(x, xl, [1], length_scale=0.9, seed=3)
+    want, want_ml = eager(x, xl, [1], length_scale=0.9, seed=3)
+    np.testing.assert_array_equal(wav, want)
+    np.testing.assert_array_equal(ml, want_ml)
+    assert staged.graphs.keys() == ["synth_b1_t64_m128"]
+
+    bp = BundleSynthesisPipeline(_staged(bundle))
+    bp.warmup(batch=2)
+    assert sorted(bp.bundle.graphs.keys()) == ["dur_b2_t64", "synth_b2_t64_m128", "synth_b2_t64_m64"]
+    texts = ["first one", "second longer text"]
+    got = bp.synthesise(texts, spks=[0, 2], seed=[7, 9])
+    want = BundleSynthesisPipeline(bundle).synthesise(texts, spks=[0, 2], seed=[7, 9])
+    for r, w in zip(got, want):
+        np.testing.assert_array_equal(r.wav, w.wav)
+    assert bp.bundle.graphs.stats()["graphs"] == 3  # served at the warmed keys

@@ -11,7 +11,7 @@ a story rendered and relayed, the recording tools), a ``--fast_dev_run`` of the 
 a run with its loggers and a validation render, a sweep of it in process, a
 short scratch proof, and the vocoder's training side with its tools (data
 statistics, export, ``--from_torch_ckpt``, durations and teacher-forced mels,
-two GAN steps), and then ``sys.modules`` must hold no
+two GAN steps through the captured step's staging), and then ``sys.modules`` must hold no
 ``emojivoice_tpu`` (or ``emojivoice_tpu.*``) and none of jax, jaxlib, flax,
 optax, orbax.  A second test holds the port's own copies of the presets and
 the emoji mapping equal to the JAX package's, a third the apps' host-side
@@ -49,7 +49,7 @@ names = [m.name for m in pkgutil.walk_packages(emojivoice_tpu_torch.__path__, "e
 for want in ("ops.mas", "ops.mel", "data.dataset", "data.audio_np", "training.train", "training.state",
              "training.synthetic", "io.checkpoint", "io.from_jax", "kernels.build", "config", "apps.emoji",
              "inference.serving", "inference.streaming", "inference.longform", "inference.cli", "apps.webapp",
-             "inference.graphs",
+             "inference.graphs", "training.vocoder_graphs",
              "io.torch_ckpt", "utils.assets", "vocoder.discriminators", "training.vocoder_train",
              "training.vocoder_proof", "training.proof", "training.get_durations", "data.stats", "io.export_torch",
              "inference.export", "io.torch_pickle", "models.conformer", "utils.observability",
@@ -236,7 +236,8 @@ with tempfile.TemporaryDirectory() as tmp:
     # two steps: the harness's own mel-L1 assert may or may not hold at this size, its path is what runs here
     try:
         vocoder_proof.run_vocoder_proof(tmp + "/voc", steps=2, batch_size=1, segment_frames=8, cfg=narrow,
-                                        filelist=str(train), gen_mels_dir=tmp + "/durs/gen_mels", device="cpu")
+                                        filelist=str(train), gen_mels_dir=tmp + "/durs/gen_mels", device="cpu",
+                                        graphs=True)  # the captured step's staging (training/vocoder_graphs.py)
     except AssertionError as e:
         assert "mel L1 did not decrease" in str(e), e
     assert (Path(tmp) / "voc" / "after.wav").exists() and (Path(tmp) / "voc" / "g_00000002").exists()

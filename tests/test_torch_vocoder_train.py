@@ -14,7 +14,9 @@ Tolerances, each with its reason:
 * gradients: per tensor, max-abs difference ≤ 1e-4 · that tensor's max-abs
   gradient + 1e-6, as ``tests/test_torch_training.py`` holds the acoustic
   model's;
-* parameters after two steps: atol 4e-4.  Adam's first steps move every
+* parameters after two steps: atol 4e-4 (for the eager step and for the
+  step through ``training/vocoder_graphs.py``'s staging, a case of the same
+  test that adds ~40 s to the file).  Adam's first steps move every
   element by about lr = 2e-4 whatever its gradient's size, so an element whose
   tiny gradient rounds differently can differ by up to lr per step; the mean
   difference over all elements is held to 2e-6 beside it.
@@ -240,14 +242,18 @@ def _jax_gradients(jcfg, modules, before, after, batch):
     return d_grads, g_grads
 
 
-def test_gan_step_matches_jax(jax_run):
+@pytest.mark.parametrize("graphs", [False, True], ids=["eager", "graphs"])
+def test_gan_step_matches_jax(jax_run, graphs):
+    """The eager step, and the step through ``training/vocoder_graphs.py``
+    (its staging on the CPU: the same key twice, the body run on the static
+    buffers), against the JAX step."""
     jcfg, cfg, modules, states, metrics = jax_run
     state = _port_state(cfg, states[0])
     assert state.step == 1 and state.gen.weight_norm and state.gen.training
     frozen_before = [p.detach().clone() for p in state.disc_parameters()]
 
     # one step from the same state and batch: metrics and both gradients
-    ours = tvt.vocoder_train_step(state, _tbatch(_batch(21)))
+    ours = tvt.vocoder_train_step(state, _tbatch(_batch(21)), graphs=graphs)
     assert sorted(ours) == ["adv_loss", "d_loss", "fm_loss", "g_loss", "mel_l1"]
     for k, v in ours.items():
         np.testing.assert_allclose(float(v), metrics[1][k], rtol=1e-4, err_msg=k)
@@ -269,10 +275,11 @@ def test_gan_step_matches_jax(jax_run):
     assert all(float(np.abs(v).max()) > 0 for v in theirs.values())  # no dead tensor
 
     # a second step, then the parameters
-    ours = tvt.vocoder_train_step(state, _tbatch(_batch(22)))
+    ours = tvt.vocoder_train_step(state, _tbatch(_batch(22)), graphs=graphs)
     for k, v in ours.items():
         np.testing.assert_allclose(float(v), metrics[2][k], rtol=1e-4, err_msg=k)
     assert state.step == 3 == int(states[2].step)
+    assert (state.graphs is not None and state.graphs.stats()["replays"] == 1) if graphs else state.graphs is None
     final = {**{f"gen.{k}": v for k, v in hifigan_state_dict_from_flax(states[2].gen_params, cfg).items()},
              **{f"mpd.{k}": v for k, v in mpd_state_dict_from_flax(states[2].disc_params["mpd"]).items()},
              **{f"msd.{k}": v for k, v in msd_state_dict_from_flax(states[2].disc_params["msd"]).items()}}
