@@ -175,7 +175,8 @@ Phases (each one failing fails the run, exit code ≠ 0):
      card against CPU (BatchNorm in train mode, its statistics held too); the
      step by stage beside the transformer model's; (c) the run's ``ckpts/``
      served through ``from_checkpoint`` (K1 on four stages) and exported to one
-     bundle key, the bundle within 1e-5 of the live fused call;
+     bundle key at ``CONFORMER_EXPORT_STEPS`` Euler steps, the bundle within
+     1e-5 of the live fused call at the same count;
  11. scratch — ``run_scratch_proof("emoji_multi")`` from random init, 800
      steps at batch 8 (cosine 5e-4 → 5e-5), its emergence asserts on and its
      free-synthesis budget off; diagonality and MAS drift must improve from
@@ -213,9 +214,19 @@ Phases (each one failing fails the run, exit code ≠ 0):
      ``graphs=False``: its rotary tables against the model's own, 64-token
      replies at bucket 256 greedy and sampled in turns, graphed against eager
      and the card against the CPU (the prefill and three steps) as in (c)
-     with ``LLAMA_TOL``, capture ms and pool bytes; a tiny gpt_neo through
-     ``TorchChatLM()`` on the card decodes eagerly and says so.  After
-     [bench], one greedy 64-token reply of GPT-2 and of Llama-3.2-1B
+     with ``LLAMA_TOL``, capture ms and pool bytes; a tiny BART decoder
+     through ``TorchChatLM()`` on the card decodes eagerly, says so and ends
+     in eos; (e) the five other families with decode steps at their
+     published widths (``FAMILY_CONFIGS``: gpt-neo-125M, opt-350m,
+     xglm-564M, bloom-560m, gpt-j-6B), random f32 weights from seed 0 made
+     on the card, each through ``TorchChatLM``'s default (its decoder's
+     graphs) against ``graphs=False``: 64-token replies at the prompt's
+     bucket greedy and sampled in turns, graphed against eager and the card
+     against the CPU (the prefill and three steps; GPT-J's at 2 of its 28
+     layers) with ``LLAMA_TOL``, device ms per token against the weight-read
+     bound, capture ms per key and pool bytes; then one agent turn with
+     OPT-350m through graphs, spoken through the pipeline (K1 counted).
+     After [bench], one greedy 64-token reply of GPT-2 and of Llama-3.2-1B
      profiled each way.
 
  14. parallel (last) — (a) ``train.main`` with ``--num_devices 1`` (NCCL at
@@ -393,7 +404,7 @@ PAR_WAV_TP, PAR_MEL_MAE = 1e-3, 1e-3  # TP-2 headline, 10 Euler steps: the card-
 PAR_WAV_DP = 1e-4  # DP-2 rows (tests/test_tp.py:148); bf16 rows at VOCODER_TOL
 ADAPTER_TOL = 1e-4  # Whisper and GPT-2, card against CPU, f32 with TF32 off: first-step logits, top-2 margins
 # (the same bound holds the adapters' graphed decode against their eager one, graphs=False, on the card)
-APP_ROUNDS = 3  # [apps] (c): rounds of (eager, graphs, graphs, eager) for each timed reading
+APP_ROUNDS = 2  # [apps] (c), (d): rounds of (eager, graphs, graphs, eager) for each timed reading
 # [apps] (d): Llama-3.2-1B's published config (meta-llama/Llama-3.2-1B config.json), the agent's default chat model
 # (Ollama's llama3.2:1b), random weights; its rotary form is given in whichever form the installed transformers takes
 LLAMA32 = dict(vocab_size=128256, hidden_size=2048, intermediate_size=8192, num_hidden_layers=16,
@@ -406,6 +417,35 @@ LLAMA32_THETA = 500000.0
 LLAMA_TOL = 1e-4  # Llama-3.2-1B f32, TF32 off: graphed against eager and card against CPU, first-step logits and
 # the top-2 margin below which ids may part (the adapters' bound)
 LLAMA_CPU_TOKENS = 4  # card against CPU: the prefill and three steps (the CPU reads 4.9 GB of weights a token)
+# [apps] (e): the chat LM's families with decode steps of the port's own at their published configs (the hub's
+# config.json of each), random f32 weights; (config class, PyTorch class, config, the decoder the default must take)
+FAMILY_CONFIGS = {
+    "gpt_neo": ("GPTNeoConfig", "GPTNeoForCausalLM", dict(  # EleutherAI/gpt-neo-125M
+        vocab_size=50257, hidden_size=768, num_layers=12, num_heads=12, attention_types=[[["global", "local"], 6]],
+        window_size=256, max_position_embeddings=2048, activation_function="gelu_new", bos_token_id=50256,
+        eos_token_id=50256), "GPTNeoDecoder"),
+    "opt": ("OPTConfig", "OPTForCausalLM", dict(  # facebook/opt-350m
+        vocab_size=50272, hidden_size=1024, num_hidden_layers=24, num_attention_heads=16, ffn_dim=4096,
+        word_embed_proj_dim=512, do_layer_norm_before=False, max_position_embeddings=2048, activation_function="relu",
+        pad_token_id=1, bos_token_id=2, eos_token_id=2), "OPTDecoder"),
+    "xglm": ("XGLMConfig", "XGLMForCausalLM", dict(  # facebook/xglm-564M
+        vocab_size=256008, d_model=1024, num_layers=24, attention_heads=16, ffn_dim=4096, max_position_embeddings=2048,
+        scale_embedding=True, activation_function="gelu", pad_token_id=1, bos_token_id=0, eos_token_id=2),
+        "XGLMDecoder"),
+    "bloom": ("BloomConfig", "BloomForCausalLM", dict(  # bigscience/bloom-560m
+        vocab_size=250880, hidden_size=1024, n_layer=24, n_head=16, layer_norm_epsilon=1e-5,
+        apply_residual_connection_post_layernorm=False, pad_token_id=3, bos_token_id=1, eos_token_id=2),
+        "BloomDecoder"),
+    "gptj": ("GPTJConfig", "GPTJForCausalLM", dict(  # EleutherAI/gpt-j-6B (24.2 GB in f32)
+        vocab_size=50400, n_embd=4096, n_layer=28, n_head=16, rotary_dim=64, n_positions=2048,
+        activation_function="gelu_new", tie_word_embeddings=False, bos_token_id=50256, eos_token_id=50256),
+        "GPTJDecoder"),
+}
+# [conformer] (c): Euler steps of the conformer's bundle, held against the live pipeline at the same count (the export
+# unrolls the steps, so its time grows with them; the [export] phase holds the 10-step programs)
+CONFORMER_EXPORT_STEPS = 2
+FAMILY_ROUNDS = 1  # [apps] (e): rounds of (eager, graphs, graphs, eager) for each family's timed readings
+GPTJ_CPU_LAYERS = 2  # [apps] (e): GPT-J card against CPU at full width on 2 of its 28 layers (24 GB a token on the CPU)
 # [graphs]: each replay against the eager call on the same inputs, equal to the bit; where a library picks another
 # algorithm under capture, the f32 wav within GRAPH_WAV_TOL (bf16: the [precision] bounds, VOCODER_TOL and MEL_MAE_TOL)
 GRAPH_BATCHES, GRAPH_WAV_TOL, GRAPH_THREADS = (1, 8, 32), 1e-5, 32
@@ -1376,11 +1416,12 @@ def apps_case_studies(pipe, mrf, tmp: str) -> dict:
     return out
 
 
-def in_turns(fns: dict, rounds: int = APP_ROUNDS) -> dict:
-    """``fns["graphs"]`` and ``fns["eager"]`` each run once to warm, then
-    timed in turns (eager, graphs, graphs, eager) `rounds` times, host ms to
-    the end on the device → {mode: median ms, mode + "_all": every time}."""
-    for fn in fns.values():
+def in_turns(fns: dict, rounds: int = APP_ROUNDS, warm: bool = True) -> dict:
+    """``fns["graphs"]`` and ``fns["eager"]`` each run once to warm (unless
+    the caller has run both), then timed in turns (eager, graphs, graphs,
+    eager) `rounds` times, host ms to the end on the device → {mode: median
+    ms, mode + "_all": every time}."""
+    for fn in fns.values() if warm else ():
         fn()
     times = {mode: [] for mode in fns}
     for _ in range(rounds):
@@ -1592,6 +1633,7 @@ def apps_adapters(pipe, mrf, tmp: str, wav: str) -> dict:
             raise RuntimeError(f"[apps] (c) {name} did not decode through captured graphs: {stats}")
         out["graphs"][name] = {**stats, "pool_bytes": adapter.graphs.pool_bytes()}
     print("[apps] (c) adapters on the card " + json.dumps(out))
+    out["asr"] = asr  # (e)'s agent turn hears through the same Whisper graphs
     return out
 
 
@@ -1618,9 +1660,9 @@ def apps_llama(tmp: str) -> dict:
     at the prompt's bucket (256), greedy and sampled, in turns; the decoder's rotary tables against the model's
     own rotary module; graphed against eager (first-step logits within LLAMA_TOL, ids equal up to the first
     close margin, the sampled reply draw for draw) and the card against the CPU (the same steps, uncaptured) on
-    the prefill and three steps; capture ms per key and pool bytes.  Then a tiny gpt_neo, which has no decode
-    steps in the port, through ``TorchChatLM()`` on the card: it must say ``eager`` and decode as
-    ``graphs=False`` does."""
+    the prefill and three steps; capture ms per key and pool bytes.  Then a tiny BART decoder, which has no
+    decode steps in the port, through ``TorchChatLM()`` on the card: it must say ``eager``, decode as
+    ``graphs=False`` does and end its reply in eos (the generation config forces it at the last token)."""
     from emojivoice_tpu_torch.apps import adapters as ad
     from emojivoice_tpu_torch.apps.feel_me import PROMPT
     from emojivoice_tpu_torch.apps.torch_adapters import TorchChatLM, import_transformers
@@ -1694,28 +1736,173 @@ def apps_llama(tmp: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # a causal LM without decode steps in the port: the eager loop on the card, said on one line
+    out["bart"] = apps_bart(tf, ids, mask, bucket)
+    return out
+
+
+def apps_bart(tf, ids, mask, bucket: int) -> dict:
+    """(d) A causal LM without decode steps in the port, a tiny BART decoder (its forward takes no position_ids),
+    through ``TorchChatLM()`` on the card: it says ``eager`` on one line, decodes as ``graphs=False`` does and
+    ends its 64-token reply at the prompt (`ids`, `mask`) in eos (the generation config forces it last)."""
+    from emojivoice_tpu_torch.apps.feel_me import PROMPT
+    from emojivoice_tpu_torch.apps.torch_adapters import TorchChatLM
+
     with torch.random.fork_rng(devices=[torch.device(DEVICE)]):
         torch.manual_seed(0)
-        neo = tf.GPTNeoForCausalLM(tf.GPTNeoConfig(vocab_size=96, hidden_size=64, num_layers=2, num_heads=4,
-                                                   attention_types=[[["global", "local"], 1]], window_size=16,
-                                                   max_position_embeddings=1024, bos_token_id=1,
-                                                   eos_token_id=2)).eval()
-    lm = TorchChatLM(model=neo, device=DEVICE, temperature=0.0, **chat)
-    lm_eager = TorchChatLM(model=neo, device=DEVICE, temperature=0.0, graphs=False, **chat)
-    reply = lm.chat(PROMPT, [], user)
-    same = bool(np.array_equal(lm._generate(ids, mask), lm_eager._generate(ids, mask)))
-    out["gpt_neo"] = dict(decode=lm.decode, has_graphs=lm.graphs is not None, reply_words=len(reply.split()),
-                          ids_equal_graphs_false=same, device=str(next(neo.parameters()).device))
-    print("[apps] (d) tiny gpt_neo through TorchChatLM() " + json.dumps(out["gpt_neo"]))
-    if lm.decode != "eager" or lm.graphs is not None or not reply or not same or lm.device.type != "cuda":
-        raise RuntimeError(f"[apps] (d) gpt_neo: {out['gpt_neo']}")
+        bart = tf.BartForCausalLM(tf.BartConfig(vocab_size=96, d_model=64, decoder_layers=2, encoder_layers=2,
+                                                decoder_attention_heads=4, encoder_attention_heads=4,
+                                                decoder_ffn_dim=128, encoder_ffn_dim=128,
+                                                max_position_embeddings=1024)).eval()
+    chat = dict(tokenizer=StubTokenizer(), max_new_tokens=64, temperature=0.0, device=DEVICE)
+    lm, lm_eager = TorchChatLM(model=bart, **chat), TorchChatLM(model=bart, graphs=False, **chat)
+    reply = lm.chat(PROMPT, [], "hello robot, tell me a story about the sea")
+    got = lm._generate(ids, mask)
+    row = dict(decode=lm.decode, has_graphs=lm.graphs is not None, reply_words=len(reply.split()),
+               ids_equal_graphs_false=bool(np.array_equal(got, lm_eager._generate(ids, mask))),
+               reply_ends_in_eos=bool(2 in got[0, bucket:]), device=str(next(bart.parameters()).device))
+    print("[apps] (d) tiny BART decoder through TorchChatLM() " + json.dumps(row))
+    if lm.decode != "eager" or lm.graphs is not None or not reply or not row["ids_equal_graphs_false"] \
+            or lm.device.type != "cuda" or not row["reply_ends_in_eos"]:  # an early eos, or the forced one last
+        raise RuntimeError(f"[apps] (d) BART: {row}")
+    return row
+
+
+def family_model(tf, family: str, device, **kw):
+    """A family of ``FAMILY_CONFIGS`` at its published config (fields `kw` overridden) with random weights from
+    seed 0, f32, made on `device`."""
+    cfg_cls, model_cls, cfg, _ = FAMILY_CONFIGS[family]
+    with torch.random.fork_rng(devices=[torch.device(device)] if torch.device(device).type == "cuda" else []):
+        torch.manual_seed(0)
+        with torch.device(device):
+            return getattr(tf, model_cls)(getattr(tf, cfg_cls)(**{**cfg, **kw})).float().eval()
+
+
+def apps_family(tf, family: str) -> dict:
+    """(e) One family at its published width (``family_model``), the stub tokenizer, through ``TorchChatLM``'s
+    default (its decoder's captured graphs) against ``graphs=False``: graphed against eager (first-step logits
+    within LLAMA_TOL, ids equal up to the first close margin, the sampled reply draw for draw), then 64-token
+    replies at the prompt's bucket (256), greedy and sampled, in turns; the CUDA-event span of a greedy reply
+    through graphs per token against the weight-read bound; capture ms per key and pool bytes; the card against
+    the CPU (the same steps, uncaptured) on the prefill and three steps (GPT-J's on GPTJ_CPU_LAYERS layers at
+    full width)."""
+    from emojivoice_tpu_torch.apps import adapters as ad
+    from emojivoice_tpu_torch.apps.feel_me import PROMPT
+    from emojivoice_tpu_torch.apps.torch_adapters import TorchChatLM
+    from emojivoice_tpu_torch.utils.prng import step_generator
+
+    t = time.perf_counter()
+    model = family_model(tf, family, DEVICE)
+    torch.cuda.synchronize()
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    out = dict(build_s=time.perf_counter() - t, params=sum(p.numel() for p in model.parameters()),
+               weight_bytes=weight_bytes)
+    chat = dict(tokenizer=StubTokenizer(), max_new_tokens=64)
+    greedy = TorchChatLM(model=model, temperature=0.0, device=DEVICE, **chat)
+    greedy_eager = TorchChatLM(model=model, temperature=0.0, device=DEVICE, graphs=False, **chat)
+    want = FAMILY_CONFIGS[family][3]
+    if greedy.decode != "graphs" or type(greedy._dec).__name__ != want or greedy_eager.decode != "eager":
+        raise RuntimeError(f"[apps] (e) {family} decodes {greedy.decode} through {type(greedy._dec).__name__}")
+    user = "hello robot, tell me a story about the sea"
+    ids, mask, bucket = greedy._encode(ad.build_messages(PROMPT, [], user))
+    out["bucket"], out["prompt_tokens"] = bucket, int(mask.sum())
+
+    def run_greedy(adapter, logits):
+        return adapter._generate(ids, mask, None, logits)[0, bucket:].tolist()
+
+    def run_sampled(adapter, logits):
+        return adapter._generate(ids, mask, step_generator(0, 0, "chat", DEVICE), logits)[0, bucket:].tolist()
+
+    # the first calls of each side (its captures, cuBLAS) are the checks' own; the timed replies follow them
+    name = f"(e) {family}"
+    out["graphs_vs_eager"] = decode_against(name, greedy, greedy_eager, run_greedy, "graphed against eager")
+    sampled = TorchChatLM(model=model, temperature=0.6, seed=0, device=DEVICE, **chat)
+    sampled_eager = TorchChatLM(model=model, temperature=0.6, seed=0, device=DEVICE, graphs=False, **chat)
+    uniforms = torch.rand(64, generator=step_generator(0, 0, "chat", DEVICE), device=DEVICE).cpu()
+    out["sampled_graphs_vs_eager"] = sampled_against(sampled, sampled_eager, run_sampled, uniforms, 0.6,
+                                                     f"{name} sampled")
+    out["greedy_ms"] = in_turns({"graphs": lambda: greedy.chat(PROMPT, [], user),
+                                 "eager": lambda: greedy_eager.chat(PROMPT, [], user)}, FAMILY_ROUNDS, warm=False)
+    out["sampled_ms"] = in_turns({"graphs": lambda: sampled.chat(PROMPT, [], user),
+                                  "eager": lambda: sampled_eager.chat(PROMPT, [], user)}, FAMILY_ROUNDS, warm=False)
+    tokens = decoded(run_greedy(greedy, None), greedy._eos)
+    out["greedy_tokens"], out["sampled_tokens"] = tokens, decoded(run_sampled(sampled, None), greedy._eos)
+    # the CUDA-event span of one greedy reply through graphs (its prefill, 64 replays and 64 token reads)
+    wall, span = wall_and_device_ms(lambda: greedy._generate(ids, mask))
+    out["per_token"] = dict(wall_ms=wall, device_span_ms=span, device_span_ms_per_token=span / tokens,
+                            bound_ms_per_token=weight_bytes / HBM_BYTES_PER_S * 1e3,
+                            bound_by="bytes: the weights read once a token")
+    out["graphs"] = {}
+    for mode, adapter in (("greedy", greedy), ("sampled", sampled)):
+        stats = adapter.graphs.stats()
+        if not adapter.graphs.capture or stats["captures"] != 2 or stats["graphs"] != 2:
+            raise RuntimeError(f"[apps] (e) {family} {mode} did not decode through captured graphs: {stats}")
+        out["graphs"][mode] = {**stats, "pool_bytes": adapter.graphs.pool_bytes()}
+    del greedy_eager, sampled, sampled_eager
+
+    # the card against the CPU: the prefill and three steps, the same steps uncaptured on a copy of the weights
+    t = time.perf_counter()
+    short = dict(tokenizer=StubTokenizer(), temperature=0.0, max_new_tokens=LLAMA_CPU_TOKENS)
+    if family == "gptj":
+        del greedy, model
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = family_model(tf, family, DEVICE, n_layer=GPTJ_CPU_LAYERS)
+        out["vs_cpu_layers"] = GPTJ_CPU_LAYERS
+    card = TorchChatLM(model=model, device=DEVICE, **short)
+    cpu = TorchChatLM(model=copy.deepcopy(model).to("cpu"), device="cpu", **short)
+    out["vs_cpu"] = decode_against(name, card, cpu, run_greedy, "card against CPU")
+    out["vs_cpu"]["seconds"] = time.perf_counter() - t
+    return out
+
+
+def apps_families(pipe, mrf, asr, wav: str, tmp: str) -> dict:
+    """(e) The chat LM's families with decode steps of the port's own at their published widths, one after
+    another (``apps_family``; a family whose class this transformers lacks is named on one line), then one
+    agent turn (``agent_turn``: Whisper of (c) → OPT-350m through graphs → synthesis) as the main path's run of
+    (e), its K1 launches read from ``mrf.launches`` at 0."""
+    from emojivoice_tpu_torch.apps.torch_adapters import TorchChatLM, import_transformers
+    from emojivoice_tpu_torch.bench.util import device_info
+
+    tf = import_transformers()
+    smi = device_info(torch.device(DEVICE)).get("nvidia_smi")
+    out = dict(card=smi, families={}, missing=[])
+    for family in FAMILY_CONFIGS:
+        t = time.perf_counter()
+        if getattr(tf, FAMILY_CONFIGS[family][1], None) is None:
+            out["missing"].append(family)
+            print(f"[apps] (e) {family}: this transformers ({tf.__version__}) has no {FAMILY_CONFIGS[family][1]}; "
+                  "the CPU tests hold it")
+            continue
+        row = apps_family(tf, family)
+        out["families"][family] = row
+        print(f"[apps] (e) {family} on the card ({smi}) " + json.dumps(row))
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[time] apps (e) {family}: {time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
+    opt = family_model(tf, "opt", DEVICE)
+    agent = TorchChatLM(model=opt, temperature=0.0, device=DEVICE, tokenizer=StubTokenizer(), max_new_tokens=4)
+    agent_turn(pipe, mrf, asr, agent, wav, f"{tmp}/agent_opt_warm", counted=False)  # the keys of both sides
+    replays = agent.graphs.stats()["replays"]
+    turn = agent_turn(pipe, mrf, asr, agent, wav, f"{tmp}/agent_opt", counted=True)
+    if agent.graphs.stats()["replays"] <= replays or type(agent._dec).__name__ != "OPTDecoder":
+        raise RuntimeError(f"[apps] (e) the OPT-350m agent turn did not decode through its graphs: "
+                           f"{agent.graphs.stats()}")
+    out["agent_turn"] = dict(turn, graphs=agent.graphs.stats())
+    out["k1_launches"] = turn["k1_launches"]
+    print("[apps] (e) agent turn with OPT-350m through graphs " + json.dumps(out["agent_turn"]))
+    del agent, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[time] apps (e) agent turn: {time.perf_counter() - t:.1f} s")
     return out
 
 
 def apps_profile() -> dict:
     """(c) One greedy 64-token reply of the chat LM under ``torch.profiler``,
-    through graphs and eagerly (the weights and prompt of (c)): device ms,
+    through graphs and eagerly (the weights and prompt of (c)), then one of
+    Llama-3.2-1B through graphs: device ms,
     device activities and the busy share against the call's own wall.  Run
     after the smoke's timed phases: a process's calls run slower after its
     first profiler session."""
@@ -1741,7 +1928,7 @@ def apps_profile() -> dict:
     del gpt2, lm
     llama = llama32(tf, DEVICE)
     out["llama"] = {}
-    for mode in ("graphs", "eager"):
+    for mode in ("graphs",):  # the eager Llama reply is timed in (d), not profiled again here
         lm = TorchChatLM(model=llama, tokenizer=StubTokenizer(), temperature=0.0, max_new_tokens=64, device=DEVICE,
                          graphs=mode == "graphs")
         ids, mask, _ = lm._encode(messages)
@@ -1758,8 +1945,8 @@ def apps_profile() -> dict:
 
 def phase_apps(pipe, mrf) -> dict:
     """Phase 13: the apps on the pipeline of phase 3.  The main path's runs
-    are (a)'s measured turns, (b), and (c)'s agent turn, each read from
-    ``mrf.launches`` at 0."""
+    are (a)'s measured turns, (b), (c)'s agent turn and (e)'s, each read
+    from ``mrf.launches`` at 0."""
     with tempfile.TemporaryDirectory(prefix="emojivoice_apps_") as tmp:
         turns = apps_turns(pipe, mrf, tmp)
         mrf.launches.clear()
@@ -1769,8 +1956,12 @@ def phase_apps(pipe, mrf) -> dict:
         t = time.perf_counter()
         llama = apps_llama(tmp)
         print(f"[time] apps (d) Llama: {time.perf_counter() - t:.1f} s")
-    return dict(turns=turns, cases=cases, adapters=adapters, llama=llama,
-                k1_launches=turns["k1_launches"] + cases["k1_launches"] + adapters["k1_launches"])
+        t = time.perf_counter()
+        families = apps_families(pipe, mrf, adapters.pop("asr"), turns["wav"], tmp)
+        print(f"[time] apps (e) families: {time.perf_counter() - t:.1f} s")
+    return dict(turns=turns, cases=cases, adapters=adapters, llama=llama, families=families,
+                k1_launches=turns["k1_launches"] + cases["k1_launches"] + adapters["k1_launches"]
+                + families["k1_launches"])
 
 
 def wall_and_device_ms(fn) -> tuple:
@@ -3355,14 +3546,14 @@ def conformer_training(mas, mrf, matcha, pipe, transformer_step: dict) -> dict:
         bundle_dir = tmp / "bundle"
         t = time.perf_counter()
         export_bundle(served, str(bundle_dir), text_buckets=[EXPORT_TEXT_BUCKET], mel_buckets=[m_bucket],
-                      batches=(1,), n_timesteps=STEPS, denoiser_strength=STRENGTH)
+                      batches=(1,), n_timesteps=CONFORMER_EXPORT_STEPS, denoiser_strength=STRENGTH)
         export_s = time.perf_counter() - t
         bundle = LoadedBundle(str(bundle_dir), device=DEVICE)
         mrf.launches.clear()
         got, _ = bundle.synthesise([HEADLINE], spks=[79], seed=[0])
         out["k1_launches"] += sum(mrf.launches.values())
-        want = served.synthesise([HEADLINE], spks=[79], seed=[0], n_timesteps=STEPS, denoiser_strength=STRENGTH,
-                                 fused=True, fused_mel_bucket=m_bucket, keep_mel=False)[0]
+        want = served.synthesise([HEADLINE], spks=[79], seed=[0], n_timesteps=CONFORMER_EXPORT_STEPS,
+                                 denoiser_strength=STRENGTH, fused=True, fused_mel_bucket=m_bucket, keep_mel=False)[0]
         same = got[0]["mel_length"] == want.mel_length and got[0]["wav"].shape == want.wav.shape
         err = float(np.abs(got[0]["wav"].astype(np.float32) - want.wav).max()) if same else float("inf")
         print(f"[conformer] (c) from_checkpoint(ckpts/, step {TRAIN_STEPS}): mel_length {res[0].mel_length}, K1 "
@@ -4112,7 +4303,7 @@ BENCH_ARGS = {
     "breakdown": ["--repeats", "3", "--profiled", "1"],
     "serving": ["--clients", "8", "--window_s", "4", "--rates", "8"],
     "ttfa": ["--reps", "2"],
-    "exported": ["--repeats", "2"],
+    "exported": ["--repeats", "2", "--steps", "2"],  # a 2-step bundle: the [export] phase holds the 10-step one
     "vocoder": ["--iters", "2"],
     "vocoder_stages": ["--reps", "3"],
     "mas": ["--iters", "2", "--reps", "2"],

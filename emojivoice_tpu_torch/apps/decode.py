@@ -33,6 +33,21 @@ device.  No step takes a decision on the host, so each can be captured:
   module implements: default, linear, llama3, yarn), the gated MLP (SiLU;
   Gemma's tanh GELU), Gemma's embedding scaled by √hidden.  Positions and
   pad queries as GPT-2's.
+* GPT-Neo, OPT, XGLM, BLOOM and GPT-J (``GPTNeoDecoder``, ``OPTDecoder``,
+  ``XGLMDecoder``, ``BloomDecoder``, ``GPTJDecoder``): the same contract
+  and cache, through ``_StepDecoder``'s prefill and step.  GPT-Neo: learned
+  positions, no 1/√d scaling, a local layer's keys within ``window_size``
+  slots of the query (inside a turn the slot distance is the position
+  distance).  OPT: learned positions offset by 2, pre- or post-LayerNorm
+  layers, ``project_in`` / ``project_out`` around the layers, q scaled
+  before the product.  XGLM: sinusoidal positions offset by 2 from a table
+  made once for the cache's slots (the model's own ``embed_positions``
+  adds to its input in place and may grow its table, so a step never calls
+  it), the embedding scaled by √d.  BLOOM: ALiBi, the bias of a key its
+  head's slope times the key's real-token position, which the cache keeps
+  per slot.  GPT-J: rotary positions on the first ``rotary_dim`` of each
+  head in interleaved pairs, from the model's own sin/cos table, attention
+  and MLP in parallel off one LayerNorm.
 * Whisper.  ``encode()`` runs the encoder on the (1, n_mels, 3000)
   features, makes each decoder layer's cross-attention keys and values once
   and resets the cache; ``step()`` feeds the last token and applies the
@@ -45,8 +60,11 @@ likely tokens kept (ties at the 50th too, as transformers' top-k warper
 keeps them), then the token drawn by inverse CDF from one uniform, the
 turn's uniforms all drawn before the turn from its own generator.
 
-Each builder refuses, by name, a configuration whose forward it does not
-implement.
+The chat decoders apply the generation config's rules that the Flax
+``generate`` applies to the chat LM (``ChatRules``: ``forced_bos_token_id``,
+``forced_eos_token_id``) from tables made at construction, and refuse by
+name the ones the port does not implement.  Each decoder refuses, by name, a
+configuration whose forward it does not implement.
 
 ``DecodeGraphs`` holds one captured graph per key (``utils/cuda_graphs.py``'s
 pool, capture lock, side stream and ``"thread_local"`` capture with the
@@ -125,20 +143,23 @@ def _merge(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(x.shape[0], x.shape[2], -1)
 
 
-def _attend(q, k, v, allowed=None, scale=None) -> torch.Tensor:
+def _attend(q, k, v, allowed=None, scale=None, bias=None) -> torch.Tensor:
     """Softmax attention of q (1, H, T, d) over k, v (1, G, L, d), H = G · r:
     query head h reads key/value head h // r (grouped attention; r = 1 for
     GPT-2 and Whisper) without copying the keys and values out per query
-    head.  Scores are scaled by `scale` (1/√d where None) and the softmax is
-    taken in f32; `allowed` (bool, (1, 1, T | 1, L)) selects the keys a query
-    sees.  A row with none would be NaN, and so would every output that
+    head.  Scores are scaled by `scale` (1/√d where None), `bias` (1, H, T |
+    1, L; H = G) is added (ALiBi) and the softmax is taken in f32;
+    `allowed` (bool, (1, 1, T | 1, L)) selects the keys a query sees.  A row with none would be NaN, and so would every output that
     weighs its value by 0, so every row keeps at least one."""
     b, h, t, d = q.shape
     g = k.shape[1]
     if g != h:
         q = q.reshape(b, g, (h // g) * t, d)
     scores = q @ k.transpose(-1, -2)
-    scores = (scores / math.sqrt(d) if scale is None else scores * scale).view(b, g, h // g, t, -1)
+    scores = scores / math.sqrt(d) if scale is None else scores * scale
+    if bias is not None:
+        scores = scores + bias
+    scores = scores.view(b, g, h // g, t, -1)
     if allowed is not None:
         scores = scores.masked_fill(~allowed.unsqueeze(2), NEG_INF)
     weights = torch.softmax(scores.float(), dim=-1).to(v.dtype)
@@ -207,17 +228,84 @@ class StaticKV:
         return _attend(q, self.k[layer], self.v[layer], self.valid[:, None, None, :], scale)
 
 
+# generation-config fields the Flax generate honours for FlaxChatLM's call and the port does not implement:
+# name → (the values that change nothing, what an implementation would need); ``min_length`` is checked by bucket
+UNSUPPORTED_RULES = {
+    "num_beams": (lambda v: v in (None, 1), "a beam search"),
+    "no_repeat_ngram_size": (lambda v: not v, "the turn's n-grams banned at each step"),
+    "suppress_tokens": (lambda v: not v, "the tokens' logits set to -inf at every step"),
+    "begin_suppress_tokens": (lambda v: not v, "the tokens' logits set to -inf at the first new token"),
+    "forced_decoder_ids": (lambda v: not v, "a forced token per step"),
+}
+# sampling: the port draws from the 50 most likely tokens (``sample_top_k``) and implements no top-p
+UNSUPPORTED_SAMPLING = {
+    "top_k": (lambda v: v in (None, TOP_K), f"another k than {TOP_K} in sample_top_k"),
+    "top_p": (lambda v: v is None or v >= 1.0, "a top-p warper after the top-k one"),
+}
+
+
+def _refuse_rules(who: str, gen, checks: dict) -> None:
+    """Raise for the first generation-config field whose value the port's
+    chat decoding, graphed or eager, does not implement."""
+    for name, (ok, need) in checks.items():
+        value = getattr(gen, name, None)
+        if not ok(value):
+            raise ValueError(f"{who}: generation_config.{name}={value!r} is not implemented by the port's chat "
+                             f"decoding, graphed or eager (graphs=False would need {need} too)")
+
+
+class ChatRules:
+    """The generation config's logits rules that the Flax ``generate``
+    applies to ``FlaxChatLM``'s greedy and sampled decoding, in its order:
+    ``forced_bos_token_id`` where ``cur_len`` is 1 (the first new token of a
+    one-token bucket, the only place it can fall after a prompt), then
+    ``forced_eos_token_id`` at the last of ``max_new_tokens``.  Each forces
+    its token: every other logit -inf, its own 0.  The rows are made at
+    construction.  ``min_length`` at or past the smallest bucket (the Flax
+    rule masks eos while ``cur_len <= min_length``), and every field of
+    ``UNSUPPORTED_RULES`` (and, where the adapter samples,
+    ``UNSUPPORTED_SAMPLING``) set to a value that changes something, are
+    refused by name."""
+
+    def __init__(self, gen, vocab: int, max_new_tokens: int, buckets: Sequence[int], device, sample: bool = False):
+        checks = dict(UNSUPPORTED_RULES, min_length=(lambda v: not v or v < min(buckets),
+                                                     "eos masked until the sequence reaches min_length"))
+        _refuse_rules("ChatRules", gen, {**checks, **(UNSUPPORTED_SAMPLING if sample else {})})
+        self.last = int(max_new_tokens) - 1
+        self.bos, self.eos = (self._row(getattr(gen, name, None), vocab, device)
+                              for name in ("forced_bos_token_id", "forced_eos_token_id"))
+
+    @staticmethod
+    def _row(token, vocab: int, device):
+        if token is None:
+            return None
+        row = torch.full((1, vocab), NEG_INF, dtype=torch.float32, device=device)
+        row[0, int(token)] = 0.0
+        return row
+
+    def __call__(self, logits: torch.Tensor, n, at_one: bool = False) -> torch.Tensor:
+        """(1, V) f32 logits of the turn's new token `n` (an int, or a 0-d
+        tensor on the logits' device) → after the rules; `at_one`: the
+        sequence so far is one token long."""
+        if self.bos is not None and at_one:
+            logits = torch.where(torch.as_tensor(n == 0, device=logits.device), self.bos, logits)
+        if self.eos is not None:
+            logits = torch.where(torch.as_tensor(n == self.last, device=logits.device), self.eos, logits)
+        return logits
+
+
 class _ChatDecoder:
     """What the chat LM's decoders share: the static inputs of each prompt
     bucket, the last token, the step's logits, the counters and the turn's
     uniforms, all made at construction (``_buffers``), and the choice of
-    the next token (``_finish``).  A subclass sets ``kv``, ``ln_f`` and
-    ``head``."""
+    the next token after the generation config's rules (``_finish``).  A
+    subclass sets ``kv``, ``ln_f`` and ``head``."""
 
     max_new_tokens: int
     kv: StaticKV
 
-    def _buffers(self, vocab: int, device) -> None:
+    def _buffers(self, model: nn.Module, buckets: Sequence[int], vocab: int, device) -> None:
+        self.rules = ChatRules(model.generation_config, vocab, self.max_new_tokens, buckets, device)
         self.ids: Dict[int, torch.Tensor] = {}  # bucket → (1, bucket) token ids
         self.mask: Dict[int, torch.Tensor] = {}  # bucket → (1, bucket) True at a real token
         self.tok = torch.zeros((1, 1), dtype=torch.long, device=device)
@@ -246,10 +334,11 @@ class _ChatDecoder:
         self.pos.copy_(mask.sum())
         self.n.zero_()
 
-    def _finish(self, x: torch.Tensor, sample: bool) -> None:
-        """The last position's logits, then the token: the argmax, or drawn
-        with the uniform of this new token."""
-        self.logits.copy_(self.head(self.ln_f(x[:, -1])))
+    def _finish(self, x: torch.Tensor, sample: bool, at_one: bool = False) -> None:
+        """The last position's logits after the rules (`at_one`: a prefill of
+        a one-token bucket), then the token: the argmax, or drawn with the
+        uniform of this new token."""
+        self.logits.copy_(self.rules(self.head(self.ln_f(x[:, -1])).float(), self.n, at_one))
         if sample:
             u = self.u.index_select(0, self.n.clamp(max=self.max_new_tokens - 1).view(1))
             tok = sample_top_k(self.logits, self.temperature, u)
@@ -288,7 +377,7 @@ class GPT2Decoder(_ChatDecoder):
             raise ValueError(f"GPT2Decoder: {max(buckets)} + {max_new_tokens} slots pass the position table's "
                              f"{self.wpe.shape[0]}")
         self.kv = StaticKV(len(self.blocks), self.heads, length, d // self.heads, dtype, device)
-        self._buffers(self.wte.shape[0], device)
+        self._buffers(model, buckets, self.wte.shape[0], device)
 
     def _mlp(self, blk: dict, x: torch.Tensor) -> torch.Tensor:
         return x + blk["m_proj"](F.gelu(blk["c_fc"](blk["ln_2"](x)), approximate="tanh"))
@@ -310,7 +399,7 @@ class GPT2Decoder(_ChatDecoder):
             x = x + blk["c_proj"](_merge(_attend(q, k, v, allowed[:, None])))
             x = self._mlp(blk, x)
         self._prefilled(bucket, mask)
-        self._finish(x, sample)
+        self._finish(x, sample, bucket == 1)
 
     def step(self, sample: bool) -> None:
         kv = self.kv
@@ -389,7 +478,7 @@ class LlamaDecoder(_ChatDecoder):
         self.cos = (emb.cos() * rotary.attention_scaling).to(dtype)
         self.sin = (emb.sin() * rotary.attention_scaling).to(dtype)
         self.kv = StaticKV(len(self.blocks), self.kv_heads, length, head_dim, dtype, device)
-        self._buffers(vocab, device)
+        self._buffers(model, buckets, vocab, device)
 
     def _embed(self, ids: torch.Tensor) -> torch.Tensor:
         x = F.embedding(ids, self.embed)
@@ -430,7 +519,7 @@ class LlamaDecoder(_ChatDecoder):
         for i, blk in enumerate(self.blocks):
             x = self._layer(blk, x, cos, sin, i, allowed=allowed)
         self._prefilled(bucket, mask)
-        self._finish(x, sample)
+        self._finish(x, sample, bucket == 1)
 
     def step(self, sample: bool) -> None:
         kv = self.kv
@@ -441,6 +530,360 @@ class LlamaDecoder(_ChatDecoder):
         kv.slot.add_(1)
         self.pos.add_(1)
         self._finish(x, sample)
+
+
+def _bloom_gelu(x: torch.Tensor) -> torch.Tensor:
+    """BLOOM's tanh GELU with its own constant (``bloom_gelu_forward``)."""
+    return x * 0.5 * (1.0 + torch.tanh(0.79788456 * x * (1 + 0.044715 * x * x)))
+
+
+# the MLP activations of ``config.activation_function`` the steps implement (transformers' ACT2FN names)
+STEP_ACTIVATIONS = {"gelu_new": lambda x: F.gelu(x, approximate="tanh"), "gelu": F.gelu, "relu": F.relu}
+
+
+def _rotate_pairs(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """GPT-J's rotary positions on x's first ``cos.shape[-1]`` features, in
+    interleaved pairs (``rotate_every_two``: (x0, x1) → (-x1, x0)); the rest
+    pass through."""
+    r = cos.shape[-1]
+    rot, rest = x[..., :r], x[..., r:]
+    turned = torch.stack((-rot[..., 1::2], rot[..., ::2]), dim=-1).flatten(-2)
+    return torch.cat((rot * cos + turned * sin, rest), dim=-1)
+
+
+class _StepDecoder(_ChatDecoder):
+    """The prefill and step of the GPT-Neo, OPT, XGLM, BLOOM and GPT-J
+    decoders, with ``GPT2Decoder``'s contract (the module docstring).  A
+    subclass sets ``blocks`` (one dict of callables per layer), ``scale``
+    (None: 1/√d), ``window`` and ``local`` (GPT-Neo's local layers; else
+    None), and gives ``_embed(ids, pos)``, ``_layer(blk, x, attend, ctx)``,
+    where ``attend(q, k, v)`` caches k and v and attends over the cache, and
+    the hooks ``_context(pos)`` (per-call data of the positions, such as
+    rotary rows) and ``_bias(pos, at)`` (ALiBi)."""
+
+    scale = None
+    window = None
+    local = None
+
+    def _setup(self, model: nn.Module, buckets: Sequence[int], max_new_tokens: int, layers: int, heads: int,
+               head_dim: int, vocab: int, ref: torch.Tensor) -> int:
+        """The cache of ``max(buckets) + max_new_tokens`` slots and the
+        buffers on `ref`'s dtype and device → the slot count."""
+        self.max_new_tokens = int(max_new_tokens)
+        length = max(buckets) + self.max_new_tokens
+        self.heads = heads
+        self.kv = StaticKV(layers, heads, length, head_dim, ref.dtype, ref.device)
+        self.slots = torch.arange(length, device=ref.device)
+        self._buffers(model, buckets, vocab, ref.device)
+        return length
+
+    def _context(self, pos: torch.Tensor):
+        return None
+
+    def _bias(self, pos: torch.Tensor, at=None):
+        return None
+
+    def _band(self, i: int, allowed: torch.Tensor, band: torch.Tensor) -> torch.Tensor:
+        return allowed & band if self.local is not None and self.local[i] else allowed
+
+    def prefill(self, bucket: int, sample: bool) -> None:
+        ids, mask = self.inputs(bucket)
+        kv = self.kv
+        pos = (mask.long().cumsum(-1) - 1).clamp(min=0)  # the real tokens counted from 0
+        eye = torch.eye(bucket, dtype=torch.bool, device=ids.device)
+        allowed = ((eye | mask[:, None, :]) & torch.ones_like(eye).tril())[:, None]  # a pad query sees itself alone
+        # a local layer's query sees the keys fewer than `window` slots back (itself always)
+        band = None if self.window is None else ~torch.ones_like(eye).tril(-self.window)
+        bias, ctx, x = self._bias(pos), self._context(pos), self._embed(ids, pos)
+        for i, blk in enumerate(self.blocks):
+            def attend(q, k, v, i=i):
+                kv.k[i][:, :, :bucket].copy_(k)
+                kv.v[i][:, :, :bucket].copy_(v)
+                return _attend(q, k, v, self._band(i, allowed, band), self.scale, bias)
+            x = self._layer(blk, x, attend, ctx)
+        self._prefilled(bucket, mask)
+        self._finish(x, sample, bucket == 1)
+
+    def step(self, sample: bool) -> None:
+        kv = self.kv
+        pos = self.pos.view(1, 1)
+        band = None if self.window is None else self.slots > kv.slot - self.window
+        at = kv.open_slot()
+        valid = kv.valid[:, None, None, :]
+        bias, ctx, x = self._bias(pos, at), self._context(pos), self._embed(self.tok, pos)
+        for i, blk in enumerate(self.blocks):
+            def attend(q, k, v, i=i):
+                kv.write(i, at, k, v)
+                return _attend(q, kv.k[i], kv.v[i], self._band(i, valid, band), self.scale, bias)
+            x = self._layer(blk, x, attend, ctx)
+        kv.slot.add_(1)
+        self.pos.add_(1)
+        self._finish(x, sample)
+
+
+class GPTNeoDecoder(_StepDecoder):
+    """A ``GPTNeoForCausalLM``'s prefill and step (the module docstring):
+    the global and local layers of ``config.attention_layers``, scores
+    unscaled, learned positions, a tied head."""
+
+    scale = 1.0
+
+    def __init__(self, model: nn.Module, buckets: Sequence[int], max_new_tokens: int):
+        cfg = model.config
+        _refuse("GPTNeoDecoder", cfg, {
+            "model_type": lambda v: v == "gpt_neo",
+            "attention_layers": lambda v: bool(v) and set(v) <= {"global", "local"},
+            "activation_function": lambda v: v in STEP_ACTIVATIONS,
+        })
+        body = model.transformer
+        self.wte, self.wpe = body.wte.weight, body.wpe.weight
+        self.blocks = [dict(ln_1=_norm(b.ln_1), q=_dense(b.attn.attention.q_proj), k=_dense(b.attn.attention.k_proj),
+                            v=_dense(b.attn.attention.v_proj), o=_dense(b.attn.attention.out_proj),
+                            ln_2=_norm(b.ln_2), fc_in=_dense(b.mlp.c_fc), fc_out=_dense(b.mlp.c_proj))
+                       for b in body.h]
+        self.ln_f = _norm(body.ln_f)
+        self.head = _dense(model.lm_head)
+        self.act = STEP_ACTIVATIONS[cfg.activation_function]
+        self.local = [t == "local" for t in cfg.attention_layers]
+        self.window = int(cfg.window_size)
+        vocab, d = self.wte.shape
+        length = self._setup(model, buckets, max_new_tokens, len(self.blocks), cfg.num_heads, d // cfg.num_heads,
+                             vocab, self.wte)
+        if length > self.wpe.shape[0]:
+            raise ValueError(f"GPTNeoDecoder: {length} slots pass the position table's {self.wpe.shape[0]}")
+
+    def _embed(self, ids, pos):
+        return F.embedding(ids, self.wte) + F.embedding(pos, self.wpe)
+
+    def _layer(self, blk, x, attend, ctx):
+        h = blk["ln_1"](x)
+        x = x + blk["o"](_merge(attend(*(_heads(blk[n](h), self.heads) for n in ("q", "k", "v")))))
+        return x + blk["fc_out"](self.act(blk["fc_in"](blk["ln_2"](x))))
+
+
+class OPTDecoder(_StepDecoder):
+    """An ``OPTForCausalLM``'s prefill and step (the module docstring):
+    learned positions offset by 2, ``project_in`` after the embedding and
+    ``project_out`` before the tied head where ``word_embed_proj_dim`` is
+    not the hidden width, pre-LN layers with a final LayerNorm or post-LN
+    layers without (``do_layer_norm_before``), q scaled before the
+    product."""
+
+    scale = 1.0
+    OFFSET = 2
+
+    def __init__(self, model: nn.Module, buckets: Sequence[int], max_new_tokens: int):
+        cfg = model.config
+        _refuse("OPTDecoder", cfg, {
+            "model_type": lambda v: v == "opt",
+            "activation_function": lambda v: v in STEP_ACTIVATIONS,
+            "enable_bias": lambda v: v is None or v is True,
+            "layer_norm_elementwise_affine": lambda v: v is None or v is True,
+        })
+        dec = model.model.decoder
+        self.embed, self.wpe = dec.embed_tokens.weight, dec.embed_positions.weight
+        self.project_in = None if dec.project_in is None else _dense(dec.project_in)
+        project_out = None if dec.project_out is None else _dense(dec.project_out)
+        final = None if dec.final_layer_norm is None else _norm(dec.final_layer_norm)
+        self.pre = bool(cfg.do_layer_norm_before)
+        self.blocks = self._blocks(dec.layers)
+        self.q_scale = (cfg.hidden_size // cfg.num_attention_heads) ** -0.5
+        self.act = STEP_ACTIVATIONS[cfg.activation_function]
+
+        def ln_f(x):
+            x = x if final is None else final(x)
+            return x if project_out is None else project_out(x)
+        self.ln_f = ln_f
+        self.head = _dense(model.lm_head)
+        length = self._setup(model, buckets, max_new_tokens, len(self.blocks), cfg.num_attention_heads,
+                             cfg.hidden_size // cfg.num_attention_heads, self.embed.shape[0], self.embed)
+        if length + self.OFFSET > self.wpe.shape[0]:
+            raise ValueError(f"OPTDecoder: {length} slots pass the position table's {self.wpe.shape[0] - self.OFFSET}")
+
+    def _embed(self, ids, pos):
+        x = F.embedding(ids, self.embed)
+        x = x if self.project_in is None else self.project_in(x)
+        return x + F.embedding(pos + self.OFFSET, self.wpe)
+
+    @staticmethod
+    def _blocks(layers) -> list:
+        """The layers' tensors (OPT's and XGLM's layers name them alike)."""
+        return [dict(ln_1=_norm(layer.self_attn_layer_norm), q=_dense(layer.self_attn.q_proj),
+                     k=_dense(layer.self_attn.k_proj), v=_dense(layer.self_attn.v_proj),
+                     o=_dense(layer.self_attn.out_proj), ln_2=_norm(layer.final_layer_norm), fc1=_dense(layer.fc1),
+                     fc2=_dense(layer.fc2))
+                for layer in layers]
+
+    def _layer(self, blk, x, attend, ctx):
+        h = blk["ln_1"](x) if self.pre else x
+        q = _heads(blk["q"](h) * self.q_scale, self.heads)
+        x = x + blk["o"](_merge(attend(q, _heads(blk["k"](h), self.heads), _heads(blk["v"](h), self.heads))))
+        x = x if self.pre else blk["ln_1"](x)
+        h = blk["ln_2"](x) if self.pre else x
+        x = x + blk["fc2"](self.act(blk["fc1"](h)))
+        return x if self.pre else blk["ln_2"](x)
+
+
+def xglm_positions(rows: int, dim: int, padding_idx) -> torch.Tensor:
+    """XGLM's sinusoidal table (``XGLMSinusoidalPositionalEmbedding.get_embedding``):
+    the sines then the cosines of each row, the `padding_idx` row zeroed."""
+    half = dim // 2
+    freq = torch.exp(torch.arange(half, dtype=torch.int64).float() * -(math.log(10000) / (half - 1)))
+    emb = torch.arange(rows, dtype=torch.int64).float().unsqueeze(1) * freq.unsqueeze(0)
+    emb = torch.cat([torch.sin(emb), torch.cos(emb)], dim=1).view(rows, -1)
+    if dim % 2 == 1:
+        emb = torch.cat([emb, torch.zeros(rows, 1)], dim=1)
+    if padding_idx is not None:
+        emb[padding_idx, :] = 0
+    return emb
+
+
+class XGLMDecoder(OPTDecoder):
+    """An ``XGLMForCausalLM``'s prefill and step (the module docstring): the
+    embedding scaled by √d where ``scale_embedding``, sinusoidal positions
+    offset by 2 from a table made here for the cache's slots, OPT's pre-LN
+    layer (q scaled before the product), a final LayerNorm and the tied
+    head."""
+
+    pre = True
+
+    def __init__(self, model: nn.Module, buckets: Sequence[int], max_new_tokens: int):
+        cfg = model.config
+        _refuse("XGLMDecoder", cfg, {
+            "model_type": lambda v: v == "xglm",
+            "activation_function": lambda v: v in STEP_ACTIVATIONS,
+        })
+        body = model.model
+        self.embed = body.embed_tokens.weight
+        self.embed_scale = math.sqrt(cfg.d_model) if cfg.scale_embedding else 1.0
+        self.blocks = self._blocks(body.layers)
+        self.ln_f = _norm(body.layer_norm)
+        self.head = _dense(model.lm_head)
+        self.act = STEP_ACTIVATIONS[cfg.activation_function]
+        self.q_scale = (cfg.d_model // cfg.attention_heads) ** -0.5
+        length = self._setup(model, buckets, max_new_tokens, len(self.blocks), cfg.attention_heads,
+                             cfg.d_model // cfg.attention_heads, self.embed.shape[0], self.embed)
+        if length > cfg.max_position_embeddings:
+            raise ValueError(f"XGLMDecoder: {length} slots pass the {cfg.max_position_embeddings} positions")
+        self.positions = xglm_positions(length + self.OFFSET, cfg.d_model, cfg.pad_token_id).to(
+            dtype=self.embed.dtype, device=self.embed.device)
+
+    def _embed(self, ids, pos):
+        return F.embedding(ids, self.embed) * self.embed_scale + F.embedding(pos + self.OFFSET, self.positions)
+
+
+def alibi_slopes(heads: int) -> torch.Tensor:
+    """BLOOM's ALiBi slopes (``build_alibi_tensor``): a geometric series over
+    the largest power of two of heads, then every other slope of the next
+    power's series for the heads past it."""
+    closest = 2 ** math.floor(math.log2(heads))
+    base = torch.tensor(2 ** (-(2 ** -(math.log2(closest) - 3))), dtype=torch.float32)
+    slopes = torch.pow(base, torch.arange(1, 1 + closest, dtype=torch.int32))
+    if closest != heads:
+        extra = torch.tensor(2 ** (-(2 ** -(math.log2(2 * closest) - 3))), dtype=torch.float32)
+        n = min(closest, heads - closest)
+        slopes = torch.cat([slopes, torch.pow(extra, torch.arange(1, 1 + 2 * n, 2, dtype=torch.int32))], dim=0)
+    return slopes
+
+
+class BloomDecoder(_StepDecoder):
+    """A ``BloomForCausalLM``'s prefill and step (the module docstring): the
+    embedding's LayerNorm, the fused ``query_key_value`` laid out (heads, 3,
+    head_dim), ALiBi over each slot's real-token position (kept beside the
+    cache), the residual taken after the LayerNorm where
+    ``apply_residual_connection_post_layernorm``, BLOOM's tanh GELU and the
+    tied head.  Without a position table, no bucket is too long."""
+
+    def __init__(self, model: nn.Module, buckets: Sequence[int], max_new_tokens: int):
+        cfg = model.config
+        _refuse("BloomDecoder", cfg, {"model_type": lambda v: v == "bloom"})
+        body = model.transformer
+        self.embed = body.word_embeddings.weight
+        self.embed_ln = _norm(body.word_embeddings_layernorm)
+        self.blocks = [dict(ln_1=_norm(b.input_layernorm), qkv=_dense(b.self_attention.query_key_value),
+                            o=_dense(b.self_attention.dense), ln_2=_norm(b.post_attention_layernorm),
+                            fc_in=_dense(b.mlp.dense_h_to_4h), fc_out=_dense(b.mlp.dense_4h_to_h))
+                       for b in body.h]
+        self.ln_f = _norm(body.ln_f)
+        self.head = _dense(model.lm_head)
+        self.post = bool(cfg.apply_residual_connection_post_layernorm)
+        heads = cfg.n_head
+        head_dim = cfg.hidden_size // heads
+        self.scale = 1.0 / math.sqrt(head_dim)
+        length = self._setup(model, buckets, max_new_tokens, len(self.blocks), heads, head_dim,
+                             self.embed.shape[0], self.embed)
+        self.slopes = alibi_slopes(heads).to(self.embed.device)[None, :, None, None]  # (1, H, 1, 1)
+        self.key_pos = torch.zeros((1, length), dtype=torch.float32, device=self.embed.device)
+
+    def _bias(self, pos, at=None):
+        """Each slot's position into ``key_pos`` (the prefill's bucket, or the
+        step's slot `at`) → the (1, H, 1, T | L) bias of the keys."""
+        if at is None:
+            t = pos.shape[1]
+            self.key_pos[:, :t].copy_(pos)
+            return (self.slopes * self.key_pos[:, None, None, :t]).to(self.embed.dtype)
+        self.key_pos.index_copy_(1, at, pos.float())
+        return (self.slopes * self.key_pos[:, None, None, :]).to(self.embed.dtype)
+
+    def _embed(self, ids, pos):
+        return self.embed_ln(F.embedding(ids, self.embed))
+
+    def _layer(self, blk, x, attend, ctx):
+        h = blk["ln_1"](x)
+        qkv = blk["qkv"](h).view(x.shape[0], x.shape[1], self.heads, 3, -1)
+        q, k, v = (qkv[..., j, :].transpose(1, 2) for j in range(3))
+        x = blk["o"](_merge(attend(q, k, v))) + (h if self.post else x)
+        h = blk["ln_2"](x)
+        return blk["fc_out"](_bloom_gelu(blk["fc_in"](h))) + (h if self.post else x)
+
+
+class GPTJDecoder(_StepDecoder):
+    """A ``GPTJForCausalLM``'s prefill and step (the module docstring):
+    rotary positions on the first ``rotary_dim`` of each head in interleaved
+    pairs, from the attention's own sin/cos table; one LayerNorm feeding the
+    attention and the MLP in parallel; an untied head with a bias."""
+
+    def __init__(self, model: nn.Module, buckets: Sequence[int], max_new_tokens: int):
+        cfg = model.config
+        _refuse("GPTJDecoder", cfg, {
+            "model_type": lambda v: v == "gptj",
+            "rotary_dim": lambda v: v is not None,
+            "activation_function": lambda v: v in STEP_ACTIVATIONS,
+        })
+        body = model.transformer
+        self.embed = body.wte.weight
+        self.blocks = [dict(ln_1=_norm(b.ln_1), q=_dense(b.attn.q_proj), k=_dense(b.attn.k_proj),
+                            v=_dense(b.attn.v_proj), o=_dense(b.attn.out_proj), fc_in=_dense(b.mlp.fc_in),
+                            fc_out=_dense(b.mlp.fc_out))
+                       for b in body.h]
+        self.ln_f = _norm(body.ln_f)
+        self.head = _dense(model.lm_head)
+        self.act = STEP_ACTIVATIONS[cfg.activation_function]
+        heads = cfg.n_head
+        head_dim = cfg.n_embd // heads
+        length = self._setup(model, buckets, max_new_tokens, len(self.blocks), heads, head_dim,
+                             self.embed.shape[0], self.embed)
+        table = body.h[0].attn.embed_positions  # (positions, rotary_dim): the sines, then the cosines
+        if length > table.shape[0]:
+            raise ValueError(f"GPTJDecoder: {length} slots pass the rotary table's {table.shape[0]}")
+        sin, cos = table[:length].to(self.embed.device).split(table.shape[-1] // 2, dim=-1)
+        self.sin = sin.repeat_interleave(2, -1).to(self.embed.dtype)
+        self.cos = cos.repeat_interleave(2, -1).to(self.embed.dtype)
+
+    def _context(self, pos):
+        """The (1, 1, T, rotary_dim) cos and sin rows of positions `pos`."""
+        return F.embedding(pos, self.cos)[:, None], F.embedding(pos, self.sin)[:, None]
+
+    def _embed(self, ids, pos):
+        return F.embedding(ids, self.embed)
+
+    def _layer(self, blk, x, attend, ctx):
+        cos, sin = ctx
+        h = blk["ln_1"](x)
+        q = _rotate_pairs(_heads(blk["q"](h), self.heads), cos, sin)
+        k = _rotate_pairs(_heads(blk["k"](h), self.heads), cos, sin)
+        out = blk["o"](_merge(attend(q, k, _heads(blk["v"](h), self.heads))))
+        return out + blk["fc_out"](self.act(blk["fc_in"](h))) + x  # the model's order of the three
 
 
 class WhisperDecoder:

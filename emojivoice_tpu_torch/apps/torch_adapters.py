@@ -8,7 +8,7 @@ device as synthesis, on transformers' PyTorch model classes:
   TorchWhisperASR — Whisper's encoder once, then a greedy decode loop over
                     the decoder's key/value cache; the features are fixed at
                     (1, 80, 3000), as the JAX adapter has them.
-  TorchChatLM     — causal-LM chat (GPT-2, the Llama family) with the JAX adapter's
+  TorchChatLM     — causal-LM chat (``CHAT_DECODERS`` and any other causal LM) with the JAX adapter's
                     prompt handling (bucketed, left-padded prompts that never
                     lose the system message); sampling draws from a
                     ``torch.Generator`` on the model's device seeded from
@@ -37,15 +37,19 @@ drive them with tiny random-init configs and stub tokenizers.  Each runs on
 the card unless ``device="cpu"`` is given.
 
 The chat LM's decode steps exist for the model types of ``CHAT_DECODERS``
-(GPT-2 and the Llama family: llama, mistral, gemma).  Another causal LM
-that transformers' ``AutoModelForCausalLM`` builds (gpt_neo, gptj, opt,
-bloom, xglm, ...) decodes through transformers' forward on the same device,
-as ``graphs=False`` does; the adapter says so on one line when it is made,
-and ``TorchChatLM.decode`` reads ``"graphs"`` or ``"eager"``.
+(GPT-2, the Llama family: llama, mistral, gemma, and gpt_neo, opt, xglm,
+bloom, gptj).  Another causal LM that transformers' ``AutoModelForCausalLM``
+builds (bart's decoder, ...) decodes through transformers' forward on the
+same device, as ``graphs=False`` does; the adapter says so on one line when
+it is made, and ``TorchChatLM.decode`` reads ``"graphs"`` or ``"eager"``.
+Either way the generation config's rules that the Flax ``generate`` applies
+(``decode.ChatRules``) are applied, and the ones the port does not implement
+are refused by name.
 """
 
 from __future__ import annotations
 
+import inspect
 import os
 import sys
 from typing import List, Optional, Sequence
@@ -53,12 +57,16 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from emojivoice_tpu_torch.apps.decode import DecodeGraphs, GPT2Decoder, LlamaDecoder, WhisperDecoder, sample_top_k
+from emojivoice_tpu_torch.apps.decode import (BloomDecoder, ChatRules, DecodeGraphs, GPT2Decoder, GPTJDecoder,
+                                              GPTNeoDecoder, LlamaDecoder, OPTDecoder, WhisperDecoder, XGLMDecoder,
+                                              sample_top_k)
 from emojivoice_tpu_torch.utils.prng import step_generator
 
 WHISPER_SAMPLE_RATE = 16_000
 # the chat LM's model types with decode steps of the port's own (apps/decode.py); another type decodes eagerly
-CHAT_DECODERS = {"gpt2": GPT2Decoder, "llama": LlamaDecoder, "mistral": LlamaDecoder, "gemma": LlamaDecoder}
+CHAT_DECODERS = {"gpt2": GPT2Decoder, "llama": LlamaDecoder, "mistral": LlamaDecoder, "gemma": LlamaDecoder,
+                 "gpt_neo": GPTNeoDecoder, "opt": OPTDecoder, "xglm": XGLMDecoder, "bloom": BloomDecoder,
+                 "gptj": GPTJDecoder}
 
 
 def import_transformers():
@@ -292,6 +300,11 @@ class TorchChatLM:
         self._eos = set(_token_list(model.config.eos_token_id))
         # what follows eos in a sequence (the Flax generate fills with the generation config's pad)
         self._fill = _token_list(gen.pad_token_id if gen.pad_token_id is not None else gen.eos_token_id)[0]
+        # the rules of the generation config; what the port does not implement is refused here, in either mode
+        self._rules = ChatRules(gen, model.get_output_embeddings().weight.shape[0], self.max_new_tokens,
+                                self.prompt_buckets, self.device, sample=self.temperature > 0)
+        # a forward without position_ids (bart's decoder) counts the slots it is fed: it is fed no pads
+        self._takes_positions = "position_ids" in inspect.signature(model.forward).parameters
         model_type = model.config.model_type
         self.decode = "graphs" if graphs and model_type in CHAT_DECODERS else "eager"
         if graphs and self.decode == "eager":
@@ -395,17 +408,30 @@ class TorchChatLM:
 
     def _generate_eager(self, inp: torch.Tensor, attn: torch.Tensor, generator: Optional[torch.Generator],
                         seq: np.ndarray, logits_out: Optional[list]) -> np.ndarray:
+        """Transformers' forward over its growing cache, a token at a time.
+        A forward that takes ``position_ids`` gets, at every call, a tensor
+        of its own: the mask's count of real tokens from 0, for the tokens
+        it is fed (XGLM's positional embedding adds its offset to that
+        tensor in place).  A forward without them (BART's decoder) counts
+        its positions from the first slot it is fed, pads included; under
+        left pads that would shift every real token's position, so it is
+        fed the prompt's real tokens alone, whose positions then count from
+        0 as the Flax ``generate``'s do."""
         bucket = inp.shape[1]
         u = temperature = None
         if generator is not None:
             u = torch.rand(self.max_new_tokens, generator=generator, device=self.device)
             temperature = torch.full((), self.temperature, dtype=torch.float32, device=self.device)
-        pos = (attn.cumsum(-1) - 1).clamp(min=0)
+        if not self._takes_positions:
+            real = attn[0].bool()
+            inp, attn = inp[:, real], attn[:, real]
         past = None
         for cur in range(bucket, seq.shape[1]):
-            out = self._model(input_ids=inp, attention_mask=attn, position_ids=pos, past_key_values=past,
-                              use_cache=True)
-            logits = out.logits[:, -1].float()
+            kw = {}
+            if self._takes_positions:
+                kw["position_ids"] = (attn.cumsum(-1) - 1).clamp(min=0)[:, -inp.shape[1]:]
+            out = self._model(input_ids=inp, attention_mask=attn, past_key_values=past, use_cache=True, **kw)
+            logits = self._rules(out.logits[:, -1].float(), cur - bucket, cur == 1)
             if logits_out is not None:
                 logits_out.append(logits.clone())
             tok = self._next_token(logits, None if u is None else u[cur - bucket: cur - bucket + 1], temperature)
@@ -414,7 +440,6 @@ class TorchChatLM:
                 break
             inp, past = tok, out.past_key_values
             attn = torch.cat([attn, torch.ones_like(tok)], dim=1)
-            pos = pos[:, -1:] + 1
         return seq
 
     def chat(self, system_prompt: str, history: List[dict], user_msg: str) -> str:

@@ -16,7 +16,9 @@ port's modules load with strict names:
 * ``mpd_state_dict_from_flax`` / ``msd_state_dict_from_flax`` carry the
   HiFi-GAN discriminators;
 * ``hf_flax_params_to_torch`` carries a transformers Flax model's params
-  (Whisper, GPT-2) to the state dict of its transformers PyTorch class.
+  (Whisper and the chat LM's causal LMs: GPT-2, the Llama family, GPT-Neo,
+  OPT, XGLM, BLOOM, GPT-J, a BART decoder) to the state dict of its
+  transformers PyTorch class.
 
 Layouts: flax conv kernels are (k, in, out) → torch Conv1d (out, in, k);
 flax ConvTranspose1d kernels are (k, in, out) → torch (in, out, k); flax

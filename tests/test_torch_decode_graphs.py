@@ -231,13 +231,14 @@ def test_whisper_decoder_refuses_what_it_does_not_implement(flag, value):
 
 def test_another_causal_lm_is_refused_by_type(capsys):
     """A causal LM whose type has no decode steps in the port (here a tiny
-    gpt_neo) is not refused: the default ``TorchChatLM`` decodes it through
-    transformers' forward on its device, says so on one line, and gives the
-    ids of ``graphs=False``, greedy and sampled."""
+    BART decoder) is not refused: the default ``TorchChatLM`` decodes it
+    through transformers' forward on its device, says so on one line, and
+    gives the ids of ``graphs=False``, greedy and sampled."""
     torch.manual_seed(0)
-    model = tf.GPTNeoForCausalLM(tf.GPTNeoConfig(vocab_size=96, hidden_size=32, num_layers=2, num_heads=2,
-                                                 attention_types=[[["global", "local"], 1]], window_size=8,
-                                                 max_position_embeddings=256, bos_token_id=1, eos_token_id=2)).eval()
+    model = tf.BartForCausalLM(tf.BartConfig(vocab_size=96, d_model=32, decoder_layers=2, encoder_layers=2,
+                                             decoder_attention_heads=2, encoder_attention_heads=2,
+                                             decoder_ffn_dim=64, encoder_ffn_dim=64,
+                                             max_position_embeddings=256)).eval()
     capsys.readouterr()
     for temperature in (0.0, 0.8):
         lm, eager = chat_pair(model, temperature)
@@ -246,7 +247,7 @@ def test_another_causal_lm_is_refused_by_type(capsys):
         gens = [step_generator(7, 0, "chat", "cpu") if temperature else None for _ in range(2)]
         np.testing.assert_array_equal(lm._generate(ids, mask, gens[0]), eager._generate(ids, mask, gens[1]))
     said = [line for line in capsys.readouterr().out.splitlines() if line.startswith("[TorchChatLM]")]
-    assert said == ["[TorchChatLM] model_type 'gpt_neo' has no decode steps in the port: it decodes through "
+    assert said == ["[TorchChatLM] model_type 'bart' has no decode steps in the port: it decodes through "
                     "transformers' forward on cpu, one token at a time"] * 2  # one line for each adapter made
 
 

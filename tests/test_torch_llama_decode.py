@@ -20,7 +20,8 @@ takes the Flax RMSNorms' ``weight`` leaves as they are):
   config says; at ``rope_theta`` 500000 the Flax logits part from the
   PyTorch model's, and the port's steps follow the PyTorch model;
 * the refusals, each naming its flag; ``feel_me --llm device`` on a saved
-  tiny llama (graphs) and gpt_neo (the eager loop, said on one line).
+  tiny llama and gpt_neo (graphs) and BART decoder (the eager loop, said on
+  one line).
 
 About 50 s on this CPU (the Flax inits and the Flax ``generate`` compiles
 take most of it).
@@ -304,18 +305,27 @@ def gpt_neo():
     return transformers.GPTNeoForCausalLM(cfg).eval()
 
 
-@pytest.mark.parametrize("family, decode", [("llama", "graphs"), ("gpt_neo", "eager")])
+def bart():
+    """A BART decoder, a causal LM type without decode steps in the port."""
+    torch.manual_seed(0)
+    cfg = transformers.BartConfig(vocab_size=96, d_model=32, decoder_layers=2, encoder_layers=2,
+                                  decoder_attention_heads=2, encoder_attention_heads=2, decoder_ffn_dim=64,
+                                  encoder_ffn_dim=64, max_position_embeddings=256)
+    return transformers.BartForCausalLM(cfg).eval()
+
+
+@pytest.mark.parametrize("family, decode", [("llama", "graphs"), ("gpt_neo", "graphs"), ("bart", "eager")])
 def test_feel_me_llm_device_constructs_for_the_family(family, decode, tmp_path, monkeypatch, capsys):
     """``feel_me --llm device --llm_model <dir>`` on a model saved with
     ``save_pretrained`` (the stub tokenizer in place of the tokenizer files):
-    a tiny llama decodes through its graphs, a tiny gpt_neo through the
-    eager loop and says so on one line; either way its ids equal
-    ``graphs=False``'s."""
+    a tiny llama and a tiny gpt_neo decode through their graphs, a tiny
+    BART decoder through the eager loop and says so on one line; either way
+    its ids equal ``graphs=False``'s."""
     from emojivoice_tpu_torch.apps import feel_me
     from emojivoice_tpu_torch.apps.feel_me import FeelMe
     from emojivoice_tpu_torch.inference.pipeline import SynthesisPipeline
 
-    model = torch_model("llama") if family == "llama" else gpt_neo()
+    model = {"llama": lambda: torch_model("llama"), "gpt_neo": gpt_neo, "bart": bart}[family]()
     model.save_pretrained(tmp_path / family)
     monkeypatch.setattr(transformers.AutoTokenizer, "from_pretrained", lambda name, **kw: StubTokenizer())
     monkeypatch.setattr(SynthesisPipeline, "from_random", classmethod(lambda cls, **kw: object()))
