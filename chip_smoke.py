@@ -215,18 +215,30 @@ Phases (each one failing fails the run, exit code ≠ 0):
      replies at bucket 256 greedy and sampled in turns, graphed against eager
      and the card against the CPU (the prefill and three steps) as in (c)
      with ``LLAMA_TOL``, capture ms and pool bytes; a tiny BART decoder
-     through ``TorchChatLM()`` on the card decodes eagerly, says so and ends
-     in eos; (e) the five other families with decode steps at their
+     through ``TorchChatLM()`` on the card takes ``BartDecoder``'s graphs,
+     decodes as ``graphs=False`` does and ends in eos; (e) the five other families with decode steps at their
      published widths (``FAMILY_CONFIGS``: gpt-neo-125M, opt-350m,
      xglm-564M, bloom-560m, gpt-j-6B), random f32 weights from seed 0 made
      on the card, each through ``TorchChatLM``'s default (its decoder's
      graphs) against ``graphs=False``: 64-token replies at the prompt's
-     bucket greedy and sampled in turns, graphed against eager and the card
+     bucket graphed against eager (greedy and sampled) and the card
      against the CPU (the prefill and three steps; GPT-J's at 2 of its 28
      layers) with ``LLAMA_TOL``, device ms per token against the weight-read
      bound, capture ms per key and pool bytes; then one agent turn with
-     OPT-350m through graphs, spoken through the pipeline (K1 counted).
-     After [bench], one greedy 64-token reply of GPT-2 and of Llama-3.2-1B
+     OPT-350m through graphs, spoken through the pipeline (K1 counted);
+     (f) the rest of the Flax ``generate``'s chat rules: Llama-3.2-1B with
+     the Instruct's published sampling fields (``LLAMA32_INSTRUCT_GEN``:
+     top_p 0.9 at temperature 0.6; top_k unset, so the reference's 50),
+     64-token sampled replies through graphs against ``graphs=False`` draw
+     for draw and in turns, the first step's kept sets after top-k and
+     after top-k then top-p against the smoke's own plain warpers on the CPU
+     (``plain_kept``); BART-large's decoder
+     (``BART_LARGE``, ``no_repeat_ngram_size`` 0: ``FlaxChatLM`` cannot run
+     the published 3) through ``BartDecoder``, greedy and with 4 beams
+     (``early_stopping`` True), graphed against eager and the card against
+     the CPU at 2 of its 12 layers, 64-token replies in turns, capture ms
+     and pool bytes; then one agent turn through the beam search (K1
+     counted).  After [bench], one greedy 64-token reply of GPT-2 and of Llama-3.2-1B
      profiled each way.
 
  14. parallel (last) — (a) ``train.main`` with ``--num_devices 1`` (NCCL at
@@ -404,7 +416,7 @@ PAR_WAV_TP, PAR_MEL_MAE = 1e-3, 1e-3  # TP-2 headline, 10 Euler steps: the card-
 PAR_WAV_DP = 1e-4  # DP-2 rows (tests/test_tp.py:148); bf16 rows at VOCODER_TOL
 ADAPTER_TOL = 1e-4  # Whisper and GPT-2, card against CPU, f32 with TF32 off: first-step logits, top-2 margins
 # (the same bound holds the adapters' graphed decode against their eager one, graphs=False, on the card)
-APP_ROUNDS = 2  # [apps] (c), (d): rounds of (eager, graphs, graphs, eager) for each timed reading
+APP_ROUNDS = 1  # [apps] (c), (d), (f): rounds of (eager, graphs, graphs, eager) for each timed reading
 # [apps] (d): Llama-3.2-1B's published config (meta-llama/Llama-3.2-1B config.json), the agent's default chat model
 # (Ollama's llama3.2:1b), random weights; its rotary form is given in whichever form the installed transformers takes
 LLAMA32 = dict(vocab_size=128256, hidden_size=2048, intermediate_size=8192, num_hidden_layers=16,
@@ -441,10 +453,22 @@ FAMILY_CONFIGS = {
         activation_function="gelu_new", tie_word_embeddings=False, bos_token_id=50256, eos_token_id=50256),
         "GPTJDecoder"),
 }
+# [apps] (f1): the sampling fields of meta-llama/Llama-3.2-1B-Instruct's published generation_config.json, set on
+# LLAMA32's model (its eos list is not set: the stub tokenizer's replies never reach it either way)
+LLAMA32_INSTRUCT_GEN = dict(do_sample=True, temperature=0.6, top_p=0.9)
+# [apps] (f2): facebook/bart-large's published config.json, its decoder as BartForCausalLM (as many encoder layers
+# as decoder layers: transformers 4.57 sizes the causal LM's cache by the former), random f32 weights; its
+# generation fields, with no_repeat_ngram_size 0 where it publishes 3: FlaxChatLM cannot run it (the port refuses it)
+BART_LARGE = dict(vocab_size=50265, d_model=1024, decoder_layers=12, encoder_layers=12, decoder_attention_heads=16,
+                  encoder_attention_heads=16, decoder_ffn_dim=4096, encoder_ffn_dim=4096, max_position_embeddings=1024,
+                  activation_function="gelu", scale_embedding=False, pad_token_id=1, bos_token_id=0, eos_token_id=2,
+                  decoder_start_token_id=2, forced_bos_token_id=0, forced_eos_token_id=2)
+BART_LARGE_GEN = dict(num_beams=4, early_stopping=True, no_repeat_ngram_size=0, forced_bos_token_id=0,
+                      forced_eos_token_id=2, length_penalty=1.0)
+BART_CPU_LAYERS = 2  # [apps] (f2): BART-large card against CPU at full width on 2 of its 12 decoder layers
 # [conformer] (c): Euler steps of the conformer's bundle, held against the live pipeline at the same count (the export
 # unrolls the steps, so its time grows with them; the [export] phase holds the 10-step programs)
 CONFORMER_EXPORT_STEPS = 2
-FAMILY_ROUNDS = 1  # [apps] (e): rounds of (eager, graphs, graphs, eager) for each family's timed readings
 GPTJ_CPU_LAYERS = 2  # [apps] (e): GPT-J card against CPU at full width on 2 of its 28 layers (24 GB a token on the CPU)
 # [graphs]: each replay against the eager call on the same inputs, equal to the bit; where a library picks another
 # algorithm under capture, the f32 wav within GRAPH_WAV_TOL (bf16: the [precision] bounds, VOCODER_TOL and MEL_MAE_TOL)
@@ -1460,29 +1484,71 @@ def decode_against(name: str, got, ref, run, what: str) -> dict:
     return row
 
 
+def plain_kept(logits: torch.Tensor, temperature: float, top_k, top_p) -> tuple:
+    """The Flax ``generate``'s sampling warpers on one row of logits, written out here apart from the port's
+    ``decode.warp``: the logits over the temperature (f32, as on the card), then in f64 on the host the top `top_k`
+    (all where None; among ties the lower token id, as ``lax.top_k``), then of those, sorted, the ones whose
+    cumulative probability before them is under `top_p` (``FlaxTopPLogitsWarper``: the one that crosses it kept,
+    and the first always) → (the kept mask (V,) on the CPU, the cumulative probabilities of the top-k in order)."""
+    x = (logits.float().cpu().reshape(-1) / torch.tensor(temperature, dtype=torch.float32)).double().numpy()
+    order = np.argsort(-x, kind="stable")[:top_k or None]
+    p = np.exp(x[order] - x[order[0]])
+    cum = np.cumsum(p / p.sum())
+    kept = order if top_p is None else order[np.concatenate(([0.0], cum[:-1])) < top_p]
+    mask = np.zeros(x.size, dtype=bool)
+    mask[kept] = True
+    return torch.from_numpy(mask), cum
+
+
 def sampled_against(got, ref, run, u: torch.Tensor, temperature: float, name: str = "(c) sampled GPT-2") -> dict:
     """One sampled decode by two adapters on the same weights and uniforms
     `u` (``run`` as in ``decode_against``): the ids equal up to the first step
     whose uniform lies within ADAPTER_TOL of the total of a boundary of the
-    drawn token's span of the top-50 CDF in `ref`'s logits."""
-    from emojivoice_tpu_torch.apps.decode import TOP_K
-
+    drawn token's span of the CDF over the tokens that `ref`'s generation
+    config's warpers keep (``plain_kept``: its top-k, then its top-p) in
+    `ref`'s logits."""
+    search = ref._search
     seen = {"got": [], "ref": []}
     ids = {side: run(adapter, seen[side]) for side, adapter in (("got", got), ("ref", ref))}
     margins = []
     for k, logits in enumerate(seen["ref"]):
-        scaled = logits[0].double().cpu() / temperature
-        kth = scaled.topk(TOP_K).values[-1]
-        probs = torch.softmax(scaled.masked_fill(scaled < kth, float("-inf")), -1)
+        kept = plain_kept(logits[0], temperature, search.top_k, search.top_p)[0]
+        probs = torch.softmax((logits[0].double().cpu() / temperature).masked_fill(~kept, -math.inf), -1)
         cdf = probs.cumsum(-1)
         x, tok = float(u[k]) * float(cdf[-1]), ids["ref"][k]
         margins.append(min(x - float(cdf[tok] - probs[tok]), float(cdf[tok]) - x) / float(cdf[-1]))
     close = next((k for k, m in enumerate(margins) if m < ADAPTER_TOL), len(margins))
     diff = next((k for k, (a, b) in enumerate(zip(ids["got"], ids["ref"])) if a != b), None)
-    row = dict(steps=len(margins), first_close_step=close, first_differing_step=diff, min_margin=min(margins))
+    row = dict(steps=len(margins), first_close_step=close, first_differing_step=diff, min_margin=min(margins),
+               top_k=search.top_k, top_p=search.top_p)
     if diff is not None and diff < close:
         raise RuntimeError(f"[apps] {name}: graphed against eager {row}")
     return row
+
+
+def kept_against_cpu(logits: torch.Tensor, search, temperature: float, name: str) -> dict:
+    """The tokens the port's sampling warpers (``decode.warp``) keep of one step's (1, V) logits on the card,
+    after its top-k alone and after its top-k then its top-p, against ``plain_kept`` on the CPU on the same
+    logits: the top-k sets equal; the top-p sets equal, or parted only where the cumulative probability at the
+    boundary lies within ADAPTER_TOL of top_p."""
+    from emojivoice_tpu_torch.apps.decode import warp
+
+    rows = {}
+    for stage, top_p in (("top_k", None), ("top_k_top_p", search.top_p)):
+        t = torch.tensor(temperature, device=logits.device)
+        card = torch.isfinite(warp(logits, t, search.top_k, top_p))[0].cpu()
+        cpu, cum = plain_kept(logits[0], temperature, search.top_k, top_p)
+        row = dict(kept=int(card.sum()), kept_cpu=int(cpu.sum()), equal=bool(torch.equal(card, cpu)),
+                   vocab=int(cpu.numel()), top_k=search.top_k, top_p=top_p)
+        if not row["equal"]:
+            lo, hi = sorted((row["kept"], row["kept_cpu"]))  # token i is kept where cum[i - 1] < top_p
+            row["boundary_margin"] = float(np.abs(cum[lo - 1:hi - 1] - top_p).min()) \
+                if top_p is not None and hi > lo else None
+            if row["boundary_margin"] is None or row["boundary_margin"] >= ADAPTER_TOL:
+                raise RuntimeError(f"[apps] {name}: the card's warpers keep another set than the plain ones "
+                                   f"after {stage} {row}")
+        rows[stage] = row
+    return rows
 
 
 def agent_turn(pipe, mrf, asr, llm, wav: str, out_dir: str, counted: bool) -> dict:
@@ -1660,8 +1726,8 @@ def apps_llama(tmp: str) -> dict:
     at the prompt's bucket (256), greedy and sampled, in turns; the decoder's rotary tables against the model's
     own rotary module; graphed against eager (first-step logits within LLAMA_TOL, ids equal up to the first
     close margin, the sampled reply draw for draw) and the card against the CPU (the same steps, uncaptured) on
-    the prefill and three steps; capture ms per key and pool bytes.  Then a tiny BART decoder, which has no
-    decode steps in the port, through ``TorchChatLM()`` on the card: it must say ``eager``, decode as
+    the prefill and three steps; capture ms per key and pool bytes.  Then a tiny BART decoder through
+    ``TorchChatLM()`` on the card: it must take its steps (``BartDecoder``) through captured graphs, decode as
     ``graphs=False`` does and end its reply in eos (the generation config forces it at the last token)."""
     from emojivoice_tpu_torch.apps import adapters as ad
     from emojivoice_tpu_torch.apps.feel_me import PROMPT
@@ -1741,9 +1807,9 @@ def apps_llama(tmp: str) -> dict:
 
 
 def apps_bart(tf, ids, mask, bucket: int) -> dict:
-    """(d) A causal LM without decode steps in the port, a tiny BART decoder (its forward takes no position_ids),
-    through ``TorchChatLM()`` on the card: it says ``eager`` on one line, decodes as ``graphs=False`` does and
-    ends its 64-token reply at the prompt (`ids`, `mask`) in eos (the generation config forces it last)."""
+    """(d) A tiny BART decoder (its forward takes no position_ids) through ``TorchChatLM()`` on the card: it takes
+    its decode steps (``BartDecoder``) through captured graphs, decodes as ``graphs=False`` does and ends its
+    64-token reply at the prompt (`ids`, `mask`) in eos (the generation config forces it last)."""
     from emojivoice_tpu_torch.apps.feel_me import PROMPT
     from emojivoice_tpu_torch.apps.torch_adapters import TorchChatLM
 
@@ -1753,16 +1819,20 @@ def apps_bart(tf, ids, mask, bucket: int) -> dict:
                                                 decoder_attention_heads=4, encoder_attention_heads=4,
                                                 decoder_ffn_dim=128, encoder_ffn_dim=128,
                                                 max_position_embeddings=1024)).eval()
+    bart.generation_config.forced_eos_token_id = 2
     chat = dict(tokenizer=StubTokenizer(), max_new_tokens=64, temperature=0.0, device=DEVICE)
     lm, lm_eager = TorchChatLM(model=bart, **chat), TorchChatLM(model=bart, graphs=False, **chat)
     reply = lm.chat(PROMPT, [], "hello robot, tell me a story about the sea")
     got = lm._generate(ids, mask)
-    row = dict(decode=lm.decode, has_graphs=lm.graphs is not None, reply_words=len(reply.split()),
+    stats = lm.graphs.stats() if lm.graphs is not None else {}
+    row = dict(decode=lm.decode, decoder=type(lm._dec).__name__, reply_words=len(reply.split()),
                ids_equal_graphs_false=bool(np.array_equal(got, lm_eager._generate(ids, mask))),
-               reply_ends_in_eos=bool(2 in got[0, bucket:]), device=str(next(bart.parameters()).device))
+               reply_ends_in_eos=bool(2 in got[0, bucket:]), device=str(next(bart.parameters()).device),
+               graphs=stats)
     print("[apps] (d) tiny BART decoder through TorchChatLM() " + json.dumps(row))
-    if lm.decode != "eager" or lm.graphs is not None or not reply or not row["ids_equal_graphs_false"] \
-            or lm.device.type != "cuda" or not row["reply_ends_in_eos"]:  # an early eos, or the forced one last
+    if lm.decode != "graphs" or row["decoder"] != "BartDecoder" or not reply or not row["ids_equal_graphs_false"] \
+            or lm.device.type != "cuda" or not row["reply_ends_in_eos"] or not lm.graphs.capture \
+            or stats["captures"] < 2:  # an early eos, or the forced one last
         raise RuntimeError(f"[apps] (d) BART: {row}")
     return row
 
@@ -1780,8 +1850,8 @@ def family_model(tf, family: str, device, **kw):
 def apps_family(tf, family: str) -> dict:
     """(e) One family at its published width (``family_model``), the stub tokenizer, through ``TorchChatLM``'s
     default (its decoder's captured graphs) against ``graphs=False``: graphed against eager (first-step logits
-    within LLAMA_TOL, ids equal up to the first close margin, the sampled reply draw for draw), then 64-token
-    replies at the prompt's bucket (256), greedy and sampled, in turns; the CUDA-event span of a greedy reply
+    within LLAMA_TOL, ids equal up to the first close margin, the sampled reply draw for draw) on 64-token
+    replies at the prompt's bucket (256); the host wall and CUDA-event span of a greedy reply
     through graphs per token against the weight-read bound; capture ms per key and pool bytes; the card against
     the CPU (the same steps, uncaptured) on the prefill and three steps (GPT-J's on GPTJ_CPU_LAYERS layers at
     full width)."""
@@ -1812,7 +1882,6 @@ def apps_family(tf, family: str) -> dict:
     def run_sampled(adapter, logits):
         return adapter._generate(ids, mask, step_generator(0, 0, "chat", DEVICE), logits)[0, bucket:].tolist()
 
-    # the first calls of each side (its captures, cuBLAS) are the checks' own; the timed replies follow them
     name = f"(e) {family}"
     out["graphs_vs_eager"] = decode_against(name, greedy, greedy_eager, run_greedy, "graphed against eager")
     sampled = TorchChatLM(model=model, temperature=0.6, seed=0, device=DEVICE, **chat)
@@ -1820,10 +1889,8 @@ def apps_family(tf, family: str) -> dict:
     uniforms = torch.rand(64, generator=step_generator(0, 0, "chat", DEVICE), device=DEVICE).cpu()
     out["sampled_graphs_vs_eager"] = sampled_against(sampled, sampled_eager, run_sampled, uniforms, 0.6,
                                                      f"{name} sampled")
-    out["greedy_ms"] = in_turns({"graphs": lambda: greedy.chat(PROMPT, [], user),
-                                 "eager": lambda: greedy_eager.chat(PROMPT, [], user)}, FAMILY_ROUNDS, warm=False)
-    out["sampled_ms"] = in_turns({"graphs": lambda: sampled.chat(PROMPT, [], user),
-                                  "eager": lambda: sampled_eager.chat(PROMPT, [], user)}, FAMILY_ROUNDS, warm=False)
+    # no replies timed in turns here (the checks above run both modes; (c), (d) and (f) time theirs): the wall and
+    # device span of one graphed greedy reply below are this family's timed readings
     tokens = decoded(run_greedy(greedy, None), greedy._eos)
     out["greedy_tokens"], out["sampled_tokens"] = tokens, decoded(run_sampled(sampled, None), greedy._eos)
     # the CUDA-event span of one greedy reply through graphs (its prefill, 64 replays and 64 token reads)
@@ -1899,6 +1966,198 @@ def apps_families(pipe, mrf, asr, wav: str, tmp: str) -> dict:
     return out
 
 
+def apps_instruct(tf) -> dict:
+    """(f1) Llama-3.2-1B (``llama32``) with the Instruct model's published sampling fields
+    (``LLAMA32_INSTRUCT_GEN``: top_p 0.9 at temperature 0.6; top_k unset, which reads as the reference's 50) in its
+    generation config, the stub tokenizer: 64-token sampled replies through ``TorchChatLM``'s graphs against
+    ``graphs=False``, equal draw for draw (``sampled_against``); the first step's kept sets on the card after top-k
+    and after top-k then top-p against ``plain_kept`` on the CPU (``kept_against_cpu``); the replies timed in
+    turns; the graphs' captures and pool."""
+    from emojivoice_tpu_torch.apps import adapters as ad
+    from emojivoice_tpu_torch.apps.feel_me import PROMPT
+    from emojivoice_tpu_torch.apps.torch_adapters import TorchChatLM
+    from emojivoice_tpu_torch.utils.prng import step_generator
+
+    model = llama32(tf, DEVICE)
+    for name, value in LLAMA32_INSTRUCT_GEN.items():
+        setattr(model.generation_config, name, value)
+    temperature = LLAMA32_INSTRUCT_GEN["temperature"]
+    chat = dict(tokenizer=StubTokenizer(), max_new_tokens=64, temperature=temperature, seed=0, device=DEVICE)
+    sampled, sampled_eager = TorchChatLM(model=model, **chat), TorchChatLM(model=model, graphs=False, **chat)
+    search = sampled._search
+    # an unset top_k is the reference's 50 (transformers 4.57's default, which FlaxChatLM reads)
+    if sampled.decode != "graphs" or (search.top_k, search.top_p) != (50, LLAMA32_INSTRUCT_GEN["top_p"]):
+        raise RuntimeError(f"[apps] (f1) the Instruct fields: decode {sampled.decode}, top_k {search.top_k}, "
+                           f"top_p {search.top_p}")
+    user = "hello robot, tell me a story about the sea"
+    ids, mask, bucket = sampled._encode(ad.build_messages(PROMPT, [], user))
+    out = dict(bucket=bucket, prompt_tokens=int(mask.sum()), top_k=search.top_k, top_p=search.top_p,
+               temperature=temperature)
+
+    def run_sampled(adapter, logits):
+        return adapter._generate(ids, mask, step_generator(0, 0, "chat", DEVICE), logits)[0, bucket:].tolist()
+
+    uniforms = torch.rand(64, generator=step_generator(0, 0, "chat", DEVICE), device=DEVICE).cpu()
+    out["graphs_vs_eager"] = sampled_against(sampled, sampled_eager, run_sampled, uniforms, temperature,
+                                             "(f1) Llama-3.2-1B-Instruct sampling")
+    seen = []
+    run_sampled(sampled, seen)
+    out["first_step_kept"] = kept_against_cpu(seen[0], search, temperature, "(f1) Llama-3.2-1B-Instruct")
+    out["sampled_ms"] = in_turns({"graphs": lambda: sampled.chat(PROMPT, [], user),
+                                  "eager": lambda: sampled_eager.chat(PROMPT, [], user)}, warm=False)
+    out["sampled_tokens"] = decoded(run_sampled(sampled, None), sampled._eos)
+    stats = sampled.graphs.stats()
+    if not sampled.graphs.capture or stats["captures"] != 2 or stats["graphs"] != 2:
+        raise RuntimeError(f"[apps] (f1) the Instruct sampling did not decode through captured graphs: {stats}")
+    out["graphs"] = {**stats, "pool_bytes": sampled.graphs.pool_bytes()}
+    del sampled, sampled_eager, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def bart_large(tf, device, **kw):
+    """BART-large's decoder (``BART_LARGE``, fields `kw` overridden) as ``BartForCausalLM`` with random weights
+    from seed 0, f32, made on `device`, its generation config set to ``BART_LARGE_GEN``."""
+    with torch.random.fork_rng(devices=[torch.device(device)] if torch.device(device).type == "cuda" else []):
+        torch.manual_seed(0)
+        with torch.device(device):
+            model = tf.BartForCausalLM(tf.BartConfig(**{**BART_LARGE, **kw})).float().eval()
+    for name, value in BART_LARGE_GEN.items():
+        setattr(model.generation_config, name, value)
+    return model
+
+
+def beams_against(name: str, got, ref, run, what: str) -> dict:
+    """One beam-search decode by two adapters on the same weights (``run`` as in ``decode_against``; each step's
+    (beams, V) log-probabilities after the rules land in its list): the first step's within ADAPTER_TOL, the best
+    sequences equal."""
+    seen = {"got": [], "ref": []}
+    ids = {side: run(adapter, seen[side]) for side, adapter in (("got", got), ("ref", ref))}
+    first, first_ref = seen["got"][0].float().cpu(), seen["ref"][0].float().cpu()
+    finite = torch.isfinite(first_ref)
+    row = dict(first_step_max_abs_err=float((first[finite] - first_ref[finite]).abs().max()),
+               steps=len(seen["ref"]), steps_got=len(seen["got"]), ids_equal=ids["got"] == ids["ref"],
+               first_differing_token=next((k for k, (a, b) in enumerate(zip(ids["got"], ids["ref"])) if a != b), None))
+    if not (row["first_step_max_abs_err"] <= ADAPTER_TOL and row["ids_equal"] and row["steps"] == row["steps_got"]):
+        raise RuntimeError(f"[apps] {name}: {what} {row}")
+    return row
+
+
+def apps_bart_large(tf, pipe, mrf, asr, wav: str, tmp: str) -> dict:
+    """(f2) BART-large's decoder (``bart_large``) through ``BartDecoder``'s steps: greedy and beam-search
+    (``num_beams`` 4, ``early_stopping`` True) replies through ``TorchChatLM``'s captured graphs against
+    ``graphs=False`` (transformers' forward, its cache reordered by the chosen beams): greedy as
+    ``decode_against``, beams as ``beams_against``; 64-token replies at the prompt's bucket timed in turns, capture
+    ms and pool bytes; the card against the CPU (the same steps, uncaptured) at full width on BART_CPU_LAYERS of the
+    12 layers, greedy and beams, LLAMA_CPU_TOKENS new tokens; then one agent turn (``agent_turn``: Whisper of (c)
+    → the beam-search BART through graphs → synthesis) as the main path's run of (f), its K1 launches read from
+    ``mrf.launches`` at 0."""
+    from emojivoice_tpu_torch.apps import adapters as ad
+    from emojivoice_tpu_torch.apps.feel_me import PROMPT
+    from emojivoice_tpu_torch.apps.torch_adapters import TorchChatLM
+
+    t = time.perf_counter()
+    model = bart_large(tf, DEVICE)
+    torch.cuda.synchronize()
+    out = dict(build_s=time.perf_counter() - t, params=sum(p.numel() for p in model.parameters()),
+               no_repeat_ngram_size="0 (published 3: FlaxChatLM cannot run it, the port refuses it)")
+    chat = dict(tokenizer=StubTokenizer(), max_new_tokens=64, temperature=0.0, device=DEVICE)
+
+    def adapters(beams: int, model=model, **kw):
+        model.generation_config.num_beams = beams
+        return TorchChatLM(model=model, **{**chat, **kw}), TorchChatLM(model=model, graphs=False, **{**chat, **kw})
+
+    greedy, greedy_eager = adapters(1)
+    beams, beams_eager = adapters(BART_LARGE_GEN["num_beams"])
+    if greedy.decode != "graphs" or type(greedy._dec).__name__ != "BartDecoder" or beams._dec.batch != 4 \
+            or beams._dec.kv.k[0].shape[0] != 4:
+        raise RuntimeError(f"[apps] (f2) BART-large decodes {greedy.decode} through {type(greedy._dec).__name__}, "
+                           f"beams {beams._dec.batch}")
+    user = "hello robot, tell me a story about the sea"
+    ids, mask, bucket = greedy._encode(ad.build_messages(PROMPT, [], user))
+    out["bucket"], out["prompt_tokens"] = bucket, int(mask.sum())
+
+    def run(adapter, logits):
+        return adapter._generate(ids, mask, None, logits)[0, bucket:].tolist()
+
+    out["greedy_graphs_vs_eager"] = decode_against("(f2) BART-large greedy", greedy, greedy_eager, run,
+                                                   "graphed against eager")
+    out["beams_graphs_vs_eager"] = beams_against("(f2) BART-large 4 beams", beams, beams_eager, run,
+                                                 "graphed against eager")
+    out["greedy_ms"] = in_turns({"graphs": lambda: greedy.chat(PROMPT, [], user),
+                                 "eager": lambda: greedy_eager.chat(PROMPT, [], user)}, warm=False)
+    out["beams_ms"] = in_turns({"graphs": lambda: beams.chat(PROMPT, [], user),
+                                "eager": lambda: beams_eager.chat(PROMPT, [], user)}, warm=False)
+    greedy_ids, beam_ids = run(greedy, None), run(beams, None)
+    out.update(greedy_tokens=decoded(greedy_ids, greedy._eos), beam_tokens=decoded(beam_ids, greedy._eos),
+               beams_differ_from_greedy=greedy_ids != beam_ids)
+    out["graphs"] = {}
+    for mode, adapter in (("greedy", greedy), ("beams", beams)):
+        stats = adapter.graphs.stats()
+        if not adapter.graphs.capture or stats["captures"] != 2 or stats["graphs"] != 2:
+            raise RuntimeError(f"[apps] (f2) BART-large {mode} did not decode through captured graphs: {stats}")
+        out["graphs"][mode] = {**stats, "pool_bytes": adapter.graphs.pool_bytes()}
+    if ("beam_decode",) not in beams.graphs.keys():
+        raise RuntimeError(f"[apps] (f2) BART-large beams: keys {beams.graphs.keys()}")
+    del greedy, greedy_eager, beams_eager
+
+    # the card against the CPU at full width on BART_CPU_LAYERS layers: the same steps, uncaptured, on a copy
+    t = time.perf_counter()
+    small = bart_large(tf, DEVICE, decoder_layers=BART_CPU_LAYERS, encoder_layers=BART_CPU_LAYERS)
+    small_cpu = copy.deepcopy(small).to("cpu")
+    short = dict(max_new_tokens=LLAMA_CPU_TOKENS)
+    out["vs_cpu"] = dict(layers=BART_CPU_LAYERS)
+    for n_beams in (1, BART_LARGE_GEN["num_beams"]):
+        card = adapters(n_beams, small, **short)[0]
+        small_cpu.generation_config.num_beams = n_beams
+        cpu = TorchChatLM(model=small_cpu, **{**chat, **short, "device": "cpu"})
+        if n_beams == 1:
+            out["vs_cpu"]["greedy"] = decode_against("(f2) BART-large", card, cpu, run, "card against CPU")
+        else:
+            out["vs_cpu"]["beams"] = beams_against("(f2) BART-large", card, cpu, run, "card against CPU")
+    out["vs_cpu"]["seconds"] = time.perf_counter() - t
+    del small, small_cpu, card, cpu
+
+    # one agent turn with the beam-search BART through graphs: the main path's run of (f)
+    t = time.perf_counter()
+    model.generation_config.num_beams = BART_LARGE_GEN["num_beams"]
+    agent = TorchChatLM(model=model, temperature=0.0, device=DEVICE, tokenizer=StubTokenizer(), max_new_tokens=4)
+    agent_turn(pipe, mrf, asr, agent, wav, f"{tmp}/agent_bart_warm", counted=False)  # the keys of both sides
+    replays = agent.graphs.stats()["replays"]
+    turn = agent_turn(pipe, mrf, asr, agent, wav, f"{tmp}/agent_bart", counted=True)
+    if agent.graphs.stats()["replays"] <= replays or agent._dec.batch != 4 or not turn["k1_launches"]:
+        raise RuntimeError(f"[apps] (f2) the beam-search BART agent turn did not decode through its graphs, or "
+                           f"launched no K1: {agent.graphs.stats()} {turn}")
+    out["agent_turn"] = dict(turn, graphs=agent.graphs.stats(), seconds=time.perf_counter() - t)
+    out["k1_launches"] = turn["k1_launches"]
+    del agent, beams, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def apps_rules(pipe, mrf, asr, wav: str, tmp: str) -> dict:
+    """(f) The rest of the Flax ``generate``'s chat rules on the card at published widths: (f1) the Instruct
+    sampling fields on Llama-3.2-1B (``apps_instruct``), (f2) BART-large's decoder greedy and with 4 beams, and an
+    agent turn through the beam search (``apps_bart_large``)."""
+    from emojivoice_tpu_torch.apps.torch_adapters import import_transformers
+    from emojivoice_tpu_torch.bench.util import device_info
+
+    tf = import_transformers()
+    smi = device_info(torch.device(DEVICE)).get("nvidia_smi")
+    t = time.perf_counter()
+    instruct = apps_instruct(tf)
+    print(f"[apps] (f1) Llama-3.2-1B with the Instruct sampling fields on the card ({smi}) " + json.dumps(instruct))
+    print(f"[time] apps (f1) instruct sampling: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    bart = apps_bart_large(tf, pipe, mrf, asr, wav, tmp)
+    print(f"[apps] (f2) BART-large decoder through its steps on the card ({smi}), no_repeat_ngram_size 0 (published "
+          "3: FlaxChatLM cannot run it) " + json.dumps(bart))
+    print(f"[time] apps (f2) BART-large: {time.perf_counter() - t:.1f} s")
+    return dict(card=smi, instruct=instruct, bart=bart, k1_launches=bart["k1_launches"])
+
+
 def apps_profile() -> dict:
     """(c) One greedy 64-token reply of the chat LM under ``torch.profiler``,
     through graphs and eagerly (the weights and prompt of (c)), then one of
@@ -1945,8 +2204,8 @@ def apps_profile() -> dict:
 
 def phase_apps(pipe, mrf) -> dict:
     """Phase 13: the apps on the pipeline of phase 3.  The main path's runs
-    are (a)'s measured turns, (b), (c)'s agent turn and (e)'s, each read
-    from ``mrf.launches`` at 0."""
+    are (a)'s measured turns, (b), (c)'s agent turn, (e)'s and (f)'s, each
+    read from ``mrf.launches`` at 0."""
     with tempfile.TemporaryDirectory(prefix="emojivoice_apps_") as tmp:
         turns = apps_turns(pipe, mrf, tmp)
         mrf.launches.clear()
@@ -1957,11 +2216,15 @@ def phase_apps(pipe, mrf) -> dict:
         llama = apps_llama(tmp)
         print(f"[time] apps (d) Llama: {time.perf_counter() - t:.1f} s")
         t = time.perf_counter()
-        families = apps_families(pipe, mrf, adapters.pop("asr"), turns["wav"], tmp)
+        asr = adapters.pop("asr")
+        families = apps_families(pipe, mrf, asr, turns["wav"], tmp)
         print(f"[time] apps (e) families: {time.perf_counter() - t:.1f} s")
-    return dict(turns=turns, cases=cases, adapters=adapters, llama=llama, families=families,
+        t = time.perf_counter()
+        rules = apps_rules(pipe, mrf, asr, turns["wav"], tmp)
+        print(f"[time] apps (f) rules: {time.perf_counter() - t:.1f} s")
+    return dict(turns=turns, cases=cases, adapters=adapters, llama=llama, families=families, rules=rules,
                 k1_launches=turns["k1_launches"] + cases["k1_launches"] + adapters["k1_launches"]
-                + families["k1_launches"])
+                + families["k1_launches"] + rules["k1_launches"])
 
 
 def wall_and_device_ms(fn) -> tuple:
@@ -2343,17 +2606,21 @@ def ragged_mas_problem(b: int, t_x: int, t_y: int, seed: int):
     return value.to(DEVICE), mask.to(DEVICE)
 
 
-def mas_row(mas, value, mask, tag: str) -> dict:
+def mas_row(mas, value, mask, tag: str, time_plain: bool = True) -> dict:
     """K2 against its plain version on (value, mask): equality, the path's
-    properties, both times, and the least time the card could take."""
+    properties, both times (the plain one where `time_plain`: a Python loop
+    of ~0.05-0.7 s a call), and the least time the card could take."""
     got = mas.maximum_path(value, mask)
     ref = mas.maximum_path_reference(value, mask)
     torch.cuda.synchronize()
     err = float((got - ref).abs().max())
     faults = mas.path_faults(got, mask)
     ok = torch.equal(got, ref) and not faults
-    plain_ms, k2_ms = abba_ms(lambda: mas.maximum_path_reference(value, mask),
-                              lambda: mas.maximum_path(value, mask))
+    if time_plain:
+        plain_ms, k2_ms = abba_ms(lambda: mas.maximum_path_reference(value, mask),
+                                  lambda: mas.maximum_path(value, mask))
+    else:
+        plain_ms, k2_ms = None, statistics.median(cuda_ms(lambda: mas.maximum_path(value, mask)))
     b, t_x, t_y = value.shape
     # value and mask read once, path written once; one add and one max per cell
     bytes_ms = 3 * value.numel() * 4 / HBM_BYTES_PER_S * 1e3
@@ -2362,16 +2629,18 @@ def mas_row(mas, value, mask, tag: str) -> dict:
     row = dict(B=b, T_x=t_x, T_y=t_y, max_abs_err=err, exact=ok, ms=k2_ms, plain_ms=plain_ms,
                bound_ms=max(bytes_ms, flops_ms), bound_by="bytes" if bytes_ms >= flops_ms else "operations",
                chain_steps=steps, us_per_step=k2_ms * 1e3 / (2 * steps))
+    plain = "not timed" if plain_ms is None else f"{plain_ms:9.3f} ms"
     print(f"[{tag}] B={b:2d} T_x={t_x:4d} T_y={t_y:4d}  max_abs_err={err:.1f}  K2 {k2_ms:8.4f} ms  "
-          f"plain {plain_ms:9.3f} ms  bound {row['bound_ms']:.4f} ms by {row['bound_by']}  "
+          f"plain {plain}  bound {row['bound_ms']:.4f} ms by {row['bound_by']}  "
           f"chain {steps} steps each way, {row['us_per_step']:.4f} us/step  "
           f"{'equal' if ok else 'MISMATCH ' + '; '.join(faults[:3])}")
     return row
 
 
 def phase_kernel_mas(mas) -> list:
-    rows = [mas_row(mas, *ragged_mas_problem(b, t_x, t_y, seed=i), tag="kernel") for i, (b, t_x, t_y)
-            in enumerate(MAS_SHAPES)]
+    # the plain loop is timed on the first shape, the one the kernels line reads beside the training batch's
+    rows = [mas_row(mas, *ragged_mas_problem(b, t_x, t_y, seed=i), tag="kernel", time_plain=i == 0)
+            for i, (b, t_x, t_y) in enumerate(MAS_SHAPES)]
     if not all(r["exact"] for r in rows):
         raise RuntimeError("K2 disagrees with its plain version")
     return rows

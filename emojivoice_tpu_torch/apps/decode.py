@@ -33,37 +33,56 @@ device.  No step takes a decision on the host, so each can be captured:
   module implements: default, linear, llama3, yarn), the gated MLP (SiLU;
   Gemma's tanh GELU), Gemma's embedding scaled by √hidden.  Positions and
   pad queries as GPT-2's.
-* GPT-Neo, OPT, XGLM, BLOOM and GPT-J (``GPTNeoDecoder``, ``OPTDecoder``,
-  ``XGLMDecoder``, ``BloomDecoder``, ``GPTJDecoder``): the same contract
-  and cache, through ``_StepDecoder``'s prefill and step.  GPT-Neo: learned
-  positions, no 1/√d scaling, a local layer's keys within ``window_size``
-  slots of the query (inside a turn the slot distance is the position
-  distance).  OPT: learned positions offset by 2, pre- or post-LayerNorm
-  layers, ``project_in`` / ``project_out`` around the layers, q scaled
-  before the product.  XGLM: sinusoidal positions offset by 2 from a table
-  made once for the cache's slots (the model's own ``embed_positions``
-  adds to its input in place and may grow its table, so a step never calls
-  it), the embedding scaled by √d.  BLOOM: ALiBi, the bias of a key its
-  head's slope times the key's real-token position, which the cache keeps
-  per slot.  GPT-J: rotary positions on the first ``rotary_dim`` of each
-  head in interleaved pairs, from the model's own sin/cos table, attention
-  and MLP in parallel off one LayerNorm.
+* GPT-Neo, OPT, XGLM, BLOOM, GPT-J and BART (``GPTNeoDecoder``,
+  ``OPTDecoder``, ``XGLMDecoder``, ``BloomDecoder``, ``GPTJDecoder``,
+  ``BartDecoder``): the same contract and cache, through ``_StepDecoder``'s
+  prefill and step.  GPT-Neo: learned positions, no 1/√d scaling, a local
+  layer's keys within ``window_size`` slots of the query (inside a turn the
+  slot distance is the position distance).  OPT: learned positions offset
+  by 2, pre- or post-LayerNorm layers, ``project_in`` / ``project_out``
+  around the layers, q scaled before the product.  XGLM: sinusoidal
+  positions offset by 2 from a table made once for the cache's slots (the
+  model's own ``embed_positions`` adds to its input in place and may grow
+  its table, so a step never calls it), the embedding scaled by √d.  BLOOM:
+  ALiBi, the bias of a key its head's slope times the key's real-token
+  position, which the cache keeps per slot.  GPT-J: rotary positions on the
+  first ``rotary_dim`` of each head in interleaved pairs, from the model's
+  own sin/cos table, attention and MLP in parallel off one LayerNorm.  BART
+  (``BartForCausalLM``): learned positions offset by 2, the embedding
+  scaled by √d where ``scale_embedding`` and then its LayerNorm, OPT's
+  post-LN layer, no final LayerNorm, no cross-attention.
 * Whisper.  ``encode()`` runs the encoder on the (1, n_mels, 3000)
   features, makes each decoder layer's cross-attention keys and values once
-  and resets the cache; ``step()`` feeds the last token and applies the
-  generation config's ``suppress_tokens``, ``begin_suppress_tokens`` (at the
-  first free step) and ``forced_decoder_ids`` from tables indexed by the
-  device step, in the Flax processors' order, then takes the argmax.
+  and resets the cache; ``step()`` feeds the last token, applies the
+  generation config's rules (``ChatRules`` after a one-token prompt, the
+  start token) and takes the argmax.
 
-Sampling (``sample_top_k``): the logits over the temperature, the 50 most
-likely tokens kept (ties at the 50th too, as transformers' top-k warper
-keeps them), then the token drawn by inverse CDF from one uniform, the
-turn's uniforms all drawn before the turn from its own generator.
+How a chat decoder chooses its tokens (``ChatSearch``, from the generation
+config as the Flax ``generate`` reads it for ``FlaxChatLM``'s call):
 
-The chat decoders apply the generation config's rules that the Flax
-``generate`` applies to the chat LM (``ChatRules``: ``forced_bos_token_id``,
-``forced_eos_token_id``) from tables made at construction, and refuse by
-name the ones the port does not implement.  Each decoder refuses, by name, a
+* the logits processors (``ChatRules``, in Flax's order): ``min_length``,
+  ``forced_bos_token_id``, ``forced_eos_token_id``, ``suppress_tokens``,
+  ``begin_suppress_tokens`` and ``forced_decoder_ids``, from tables made at
+  construction, indexed by the new token's device counter and by the
+  bucket, a device scalar that the prefill sets, so that one decode graph
+  serves every bucket;
+* greedy: the argmax;
+* sampling (``sample_top_k``): ``warp``'s temperature, top-k (the
+  generation config's ``top_k``; exactly k kept, ties going to the lower
+  token id as in ``lax.top_k``) and top-p, then the token drawn by inverse
+  CDF from one uniform, the turn's uniforms all drawn before the turn from
+  its own generator;
+* where ``num_beams`` > 1, greedy only, a beam search (``beam_step``: Flax's
+  ``_beam_search``): the cache and the last tokens hold one row per beam,
+  the prefill runs once on the prompt and its keys and values fill every
+  row, each step keeps 2 · beams candidates, tracks the running and the
+  finished beams with ``length_penalty``, reorders the cache by the chosen
+  beams in place and computes Flax's stop condition (``early_stopping``
+  True, False or ``"never"``) into a device flag that the host reads once a
+  step.
+
+What ``FlaxChatLM`` cannot run, ``no_repeat_ngram_size`` and beam
+sampling, is refused by name.  Each decoder refuses, by name, a
 configuration whose forward it does not implement.
 
 ``DecodeGraphs`` holds one captured graph per key (``utils/cuda_graphs.py``'s
@@ -79,7 +98,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Hashable, Iterable, Sequence
+from typing import Any, Callable, Dict, Hashable, Sequence
 
 import torch
 import torch.nn as nn
@@ -87,22 +106,50 @@ import torch.nn.functional as F
 
 from emojivoice_tpu_torch.utils.cuda_graphs import GraphCache, weights_stamp
 
-# transformers' GenerationConfig default top_k, which the Flax generate's sampling applies
-TOP_K = 50
 NEG_INF = float("-inf")
+NEG_BIG = -1.0e7  # Flax's beam search: the score of an empty or closed beam
 
 
-def sample_top_k(logits: torch.Tensor, temperature: torch.Tensor, u: torch.Tensor, k: int = TOP_K) -> torch.Tensor:
+def _top(x: torch.Tensor, k: int) -> tuple:
+    """The k largest of x's last axis, largest first, and their indices;
+    among equal values the lower index first, as ``lax.top_k`` orders them
+    (a stable sort: ``torch.topk`` leaves the order of ties open)."""
+    values, indices = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], indices[..., :k]
+
+
+def warp(logits: torch.Tensor, temperature, top_k=None, top_p=None) -> torch.Tensor:
+    """The Flax ``generate``'s sampling warpers in its order (its
+    ``_get_logits_warper``): the logits over the temperature, then top-k
+    (exactly k kept; among logits tied at the k-th the lower token ids, as
+    ``lax.top_k`` keeps them), then top-p (``FlaxTopPLogitsWarper``: of the
+    tokens sorted by probability, those whose cumulative probability is
+    under `top_p`, the one that crosses it, and at least one); the dropped
+    tokens -inf.  `top_k` None or 0 and `top_p` None keep every token."""
+    scaled = logits / temperature
+    if not top_k and top_p is None:
+        return scaled
+    values, order = torch.sort(scaled, dim=-1, descending=True, stable=True)
+    keep = torch.ones_like(values, dtype=torch.bool)
+    if top_k:
+        keep[..., top_k:] = False
+        values = values.masked_fill(~keep, NEG_INF)
+    if top_p is not None:
+        below = torch.softmax(values, dim=-1).cumsum(-1) < top_p
+        keep = keep & torch.cat((torch.ones_like(below[..., :1]), below[..., :-1]), dim=-1)
+    return scaled.masked_fill(~torch.zeros_like(keep).scatter(-1, order, keep), NEG_INF)
+
+
+def sample_top_k(logits: torch.Tensor, temperature: torch.Tensor, u: torch.Tensor, k, top_p) -> torch.Tensor:
     """Logits (..., V) f32, a temperature tensor and one uniform in [0, 1)
     per row (shape ``logits.shape[:-1]``) → the drawn tokens (..., 1).
 
-    The inverse CDF of the softmax over the `k` most likely tokens (ties at
-    the k-th kept): the first token whose running sum passes u · the total.
+    The inverse CDF of the softmax over the tokens ``warp`` keeps (`k`: its
+    top_k, `top_p`): the first token whose running sum passes u · the total.
     Only a token of non-zero probability is drawn; where rounding leaves
     none past u · total (u within a rounding of 1), the most likely one is."""
-    scaled = logits / temperature
-    kth = torch.topk(scaled, min(k, scaled.shape[-1]), dim=-1).values[..., -1:]
-    probs = torch.softmax(scaled.masked_fill(scaled < kth, NEG_INF), dim=-1)
+    scaled = warp(logits, temperature, k, top_p)
+    probs = torch.softmax(scaled, dim=-1)
     cdf = probs.cumsum(-1)
     hit = (cdf > u.unsqueeze(-1) * cdf[..., -1:]) & (probs > 0)
     return torch.where(hit.any(-1, keepdim=True), hit.int().argmax(-1, keepdim=True),
@@ -200,12 +247,13 @@ def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tens
 
 
 class StaticKV:
-    """Per layer, key and value buffers (1, G, length, d) of a fixed length,
-    one row of G per key/value head; the valid-slot mask (1, length); the
-    device counter of the slot the next token is written to."""
+    """Per layer, key and value buffers (batch, G, length, d) of a fixed
+    length, one row of G per key/value head and one batch row per beam (1
+    without beams); the valid-slot mask (1, length), which the beams share;
+    the device counter of the slot the next token is written to."""
 
-    def __init__(self, layers: int, heads: int, length: int, head_dim: int, dtype, device):
-        shape = (1, heads, length, head_dim)
+    def __init__(self, layers: int, heads: int, length: int, head_dim: int, dtype, device, batch: int = 1):
+        shape = (batch, heads, length, head_dim)
         self.k = [torch.zeros(shape, dtype=dtype, device=device) for _ in range(layers)]
         self.v = [torch.zeros(shape, dtype=dtype, device=device) for _ in range(layers)]
         self.valid = torch.zeros((1, length), dtype=torch.bool, device=device)
@@ -220,100 +268,278 @@ class StaticKV:
         return at
 
     def write(self, layer: int, at: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-        """One token's (1, H, 1, d) key and value into the slot `at`."""
+        """One token's (batch, H, 1, d) key and value into the slot `at`."""
         self.k[layer].index_copy_(2, at, k)
         self.v[layer].index_copy_(2, at, v)
 
     def attend(self, layer: int, q: torch.Tensor, scale=None) -> torch.Tensor:
         return _attend(q, self.k[layer], self.v[layer], self.valid[:, None, None, :], scale)
 
-
-# generation-config fields the Flax generate honours for FlaxChatLM's call and the port does not implement:
-# name → (the values that change nothing, what an implementation would need); ``min_length`` is checked by bucket
-UNSUPPORTED_RULES = {
-    "num_beams": (lambda v: v in (None, 1), "a beam search"),
-    "no_repeat_ngram_size": (lambda v: not v, "the turn's n-grams banned at each step"),
-    "suppress_tokens": (lambda v: not v, "the tokens' logits set to -inf at every step"),
-    "begin_suppress_tokens": (lambda v: not v, "the tokens' logits set to -inf at the first new token"),
-    "forced_decoder_ids": (lambda v: not v, "a forced token per step"),
-}
-# sampling: the port draws from the 50 most likely tokens (``sample_top_k``) and implements no top-p
-UNSUPPORTED_SAMPLING = {
-    "top_k": (lambda v: v in (None, TOP_K), f"another k than {TOP_K} in sample_top_k"),
-    "top_p": (lambda v: v is None or v >= 1.0, "a top-p warper after the top-k one"),
-}
+    def reorder(self, beams: torch.Tensor) -> None:
+        """Each batch row takes the keys and values of the row `beams` names,
+        in place (a beam search's chosen beams)."""
+        for t in self.k + self.v:
+            t.copy_(t.index_select(0, beams))
 
 
-def _refuse_rules(who: str, gen, checks: dict) -> None:
-    """Raise for the first generation-config field whose value the port's
-    chat decoding, graphed or eager, does not implement."""
-    for name, (ok, need) in checks.items():
-        value = getattr(gen, name, None)
-        if not ok(value):
-            raise ValueError(f"{who}: generation_config.{name}={value!r} is not implemented by the port's chat "
-                             f"decoding, graphed or eager (graphs=False would need {need} too)")
+def token_list(ids) -> list:
+    return [] if ids is None else [int(i) for i in ([ids] if isinstance(ids, int) else ids)]
+
+
+def _when(cond, then: torch.Tensor, other: torch.Tensor) -> torch.Tensor:
+    """`then` where `cond` (a Python bool, or a 0-d tensor on their device
+    inside a step) holds, else `other`."""
+    if isinstance(cond, bool):
+        return then if cond else other
+    return torch.where(cond, then, other)
 
 
 class ChatRules:
-    """The generation config's logits rules that the Flax ``generate``
-    applies to ``FlaxChatLM``'s greedy and sampled decoding, in its order:
-    ``forced_bos_token_id`` where ``cur_len`` is 1 (the first new token of a
-    one-token bucket, the only place it can fall after a prompt), then
-    ``forced_eos_token_id`` at the last of ``max_new_tokens``.  Each forces
-    its token: every other logit -inf, its own 0.  The rows are made at
-    construction.  ``min_length`` at or past the smallest bucket (the Flax
-    rule masks eos while ``cur_len <= min_length``), and every field of
-    ``UNSUPPORTED_RULES`` (and, where the adapter samples,
-    ``UNSUPPORTED_SAMPLING``) set to a value that changes something, are
-    refused by name."""
+    """The generation config's logits processors that the Flax ``generate``
+    applies (its ``_get_logits_processor``), in its order, each from tables
+    made at construction; shared by the chat LM's decoders, its eager loop
+    and Whisper's.  Flax indexes them by ``cur_len``, the index in the
+    sequence of the token being chosen, which is the prompt's length (the
+    bucket; Whisper's start token: 1) plus the new token's index n:
 
-    def __init__(self, gen, vocab: int, max_new_tokens: int, buckets: Sequence[int], device, sample: bool = False):
-        checks = dict(UNSUPPORTED_RULES, min_length=(lambda v: not v or v < min(buckets),
-                                                     "eos masked until the sequence reaches min_length"))
-        _refuse_rules("ChatRules", gen, {**checks, **(UNSUPPORTED_SAMPLING if sample else {})})
+    * ``min_length``: eos -inf while ``cur_len <= min_length``;
+    * ``forced_bos_token_id`` where ``cur_len`` is 1 (the first new token of
+      a one-token prompt);
+    * ``forced_eos_token_id`` at the last of ``max_new_tokens``;
+    * ``suppress_tokens`` -inf at every step;
+    * ``begin_suppress_tokens`` -inf at ``cur_len`` = the prompt's length,
+      plus one where it is 1 and a bos is forced, plus the last
+      ``forced_decoder_ids`` index;
+    * ``forced_decoder_ids``: index i forces its token at ``cur_len`` =
+      prompt + i - 1, i.e. at new token n = i - 1.
+
+    A forced token: every other logit -inf, its own 0.  ``__call__`` takes n
+    and the prompt's length as Python ints (eager) or 0-d device tensors (a
+    step: one decode graph serves every bucket)."""
+
+    def __init__(self, gen, vocab: int, max_new_tokens: int, device):
+        field = lambda name: getattr(gen, name, None)  # noqa: E731
         self.last = int(max_new_tokens) - 1
-        self.bos, self.eos = (self._row(getattr(gen, name, None), vocab, device)
+        self.vocab = torch.arange(vocab, device=device)
+        eos = token_list(field("eos_token_id"))
+        min_length = field("min_length")
+        # cur_len is at least 1: a min_length under 1 never bites
+        self.min_length = int(min_length) if min_length is not None and min_length >= 1 and eos else None
+        self.eos_mask = self._mask(eos, vocab, device)
+        self.bos, self.eos = (None if field(name) is None else self._row(field(name), vocab, device)
                               for name in ("forced_bos_token_id", "forced_eos_token_id"))
+        self.suppress = None if field("suppress_tokens") is None else self._mask(field("suppress_tokens"), vocab,
+                                                                                   device)
+        self.begin = None if field("begin_suppress_tokens") is None else self._mask(
+            field("begin_suppress_tokens"), vocab, device)
+        forced = [(int(i), t) for i, t in (field("forced_decoder_ids") or [])]
+        self.begin_offset = forced[-1][0] if forced else 0
+        self.forced = None
+        if forced:
+            self.forced = torch.full((max(i for i, _ in forced) + 1,), -1, dtype=torch.long, device=device)
+            for i, t in forced:
+                if t is not None:
+                    self.forced[i] = int(t)
 
     @staticmethod
-    def _row(token, vocab: int, device):
-        if token is None:
-            return None
+    def _mask(tokens, vocab: int, device) -> torch.Tensor:
+        """True at `tokens` (those past the vocabulary can never be chosen)."""
+        mask = torch.zeros(vocab, dtype=torch.bool, device=device)
+        mask[[t for t in token_list(tokens) if 0 <= t < vocab]] = True
+        return mask
+
+    @staticmethod
+    def _row(token, vocab: int, device) -> torch.Tensor:
         row = torch.full((1, vocab), NEG_INF, dtype=torch.float32, device=device)
         row[0, int(token)] = 0.0
         return row
 
-    def __call__(self, logits: torch.Tensor, n, at_one: bool = False) -> torch.Tensor:
-        """(1, V) f32 logits of the turn's new token `n` (an int, or a 0-d
-        tensor on the logits' device) → after the rules; `at_one`: the
-        sequence so far is one token long."""
-        if self.bos is not None and at_one:
-            logits = torch.where(torch.as_tensor(n == 0, device=logits.device), self.bos, logits)
+    def __call__(self, logits: torch.Tensor, n, prompt) -> torch.Tensor:
+        """(batch, V) f32 scores of new token `n` after a prompt of `prompt`
+        tokens → after the rules."""
+        cur = prompt + n
+        if self.min_length is not None:
+            logits = _when(cur <= self.min_length, logits.masked_fill(self.eos_mask, NEG_INF), logits)
+        if self.bos is not None:
+            logits = _when(cur == 1, self.bos, logits)
         if self.eos is not None:
-            logits = torch.where(torch.as_tensor(n == self.last, device=logits.device), self.eos, logits)
+            logits = _when(n == self.last, self.eos, logits)
+        if self.suppress is not None:
+            logits = logits.masked_fill(self.suppress, NEG_INF)
+        if self.begin is not None:
+            begin = prompt + self.begin_offset + ((prompt == 1) * 1 if self.bos is not None else 0)
+            logits = _when(cur == begin, logits.masked_fill(self.begin, NEG_INF), logits)
+        if self.forced is not None:
+            i = n + 1  # the forced_decoder_ids index of this token
+            tok = self.forced.index_select(0, torch.as_tensor(i, device=logits.device).clamp(max=len(self.forced) - 1)
+                                           .view(1))
+            hit = (tok >= 0) & torch.as_tensor(i < len(self.forced), device=logits.device)
+            logits = torch.where(hit, torch.where(self.vocab == tok, 0.0, NEG_INF), logits)
         return logits
+
+
+# generation-config fields the Flax generate honours for FlaxChatLM's call and cannot run, so neither does the port:
+# name → (the values that change nothing, what FlaxChatLM does with another)
+UNSUPPORTED_RULES = {
+    "no_repeat_ngram_size": (lambda v: not v, "its generate raises NotImplementedError (bcoo_gather: mode=CLIP)"),
+}
+# with sampling (temperature > 0): FlaxChatLM's generate runs no beam search
+UNSUPPORTED_SAMPLING = {
+    "num_beams": (lambda v: v in (None, 1), "its generate raises NotImplementedError (beam sampling)"),
+}
+
+
+def _refuse_rules(who: str, gen, checks: dict) -> None:
+    """Raise for the first generation-config field whose value the Flax
+    ``generate`` cannot run for ``FlaxChatLM``, and so neither can the port's
+    chat decoding, graphed or eager."""
+    for name, (ok, flax) in checks.items():
+        value = getattr(gen, name, None)
+        if not ok(value):
+            raise ValueError(f"{who}: generation_config.{name}={value!r} is not implemented by the port's chat "
+                             f"decoding, graphed or eager, nor by FlaxChatLM ({flax})")
+
+
+class ChatSearch:
+    """How the chat LM chooses its tokens, from the generation config as the
+    Flax ``generate`` reads it for ``FlaxChatLM``'s call: the logits
+    processors (``rules``), the sampling warpers' ``top_k`` (None or 0: none)
+    and ``top_p`` (None where ≥ 1), and, for greedy decoding with
+    ``num_beams`` > 1, the beam search's ``beams``, ``length_penalty`` and
+    ``early_stopping`` (True, False or ``"never"``), its ``eos`` ids and the
+    ``fill`` of a sequence past its end.  Refuses by name what Flax cannot
+    run (``UNSUPPORTED_RULES``; with `sample`, ``UNSUPPORTED_SAMPLING``)."""
+
+    def __init__(self, gen, vocab: int, max_new_tokens: int, device, sample: bool = False):
+        _refuse_rules("TorchChatLM", gen, {**UNSUPPORTED_RULES, **(UNSUPPORTED_SAMPLING if sample else {})})
+
+        def field(name, default=None):  # an unset field (None) reads as Flax's default
+            value = getattr(gen, name, None)
+            return default if value is None else value
+
+        self.rules = ChatRules(gen, vocab, max_new_tokens, device)
+        self.top_k = int(field("top_k", 50)) or None  # only an explicit 0 turns top-k off
+        self.top_p = float(field("top_p")) if field("top_p", 1.0) < 1.0 else None
+        self.beams = int(field("num_beams", 1))
+        self.length_penalty = float(field("length_penalty", 1.0))
+        self.early_stopping = field("early_stopping", False)
+        self.eos = tuple(token_list(field("eos_token_id")))
+        self.fill = int(field("pad_token_id", self.eos[0] if self.eos else 0))
+        self.max_new_tokens = int(max_new_tokens)
+
+
+def beam_state(search: ChatSearch, device) -> dict:
+    """The device tensors of one beam search (Flax's ``BeamSearchState``
+    without the prompt, which every beam shares): the running and finished
+    beams' new tokens (beams, max_new_tokens) and scores, the finished
+    flags, the running beams' last tokens (beams, 1) and the stop flag."""
+    k, n = search.beams, search.max_new_tokens
+    state = dict(running=torch.zeros((k, n), dtype=torch.long, device=device),
+                 running_scores=torch.zeros(k, dtype=torch.float32, device=device),
+                 seqs=torch.zeros((k, n), dtype=torch.long, device=device),
+                 scores=torch.zeros(k, dtype=torch.float32, device=device),
+                 finished=torch.zeros(k, dtype=torch.bool, device=device),
+                 tok=torch.zeros((k, 1), dtype=torch.long, device=device),
+                 done=torch.zeros((), dtype=torch.bool, device=device),
+                 first_scores=torch.full((k,), NEG_BIG, dtype=torch.float32, device=device),
+                 eos=torch.tensor(search.eos or [-1], dtype=torch.long, device=device))
+    state["first_scores"][0] = 0.0  # beam 0 alone is open at the start: the others would repeat it
+    return state
+
+
+def beam_reset(state: dict, search: ChatSearch) -> None:
+    """A new search's start, in place: every sequence the fill, beam 0's
+    running score 0 and every other score -1e7, nothing finished."""
+    state["running"].fill_(search.fill)
+    state["running_scores"].copy_(state["first_scores"])
+    state["seqs"].fill_(search.fill)
+    state["scores"].fill_(NEG_BIG)
+    state["finished"].zero_()
+    state["done"].zero_()
+
+
+def beam_step(state: dict, search: ChatSearch, scores: torch.Tensor, n) -> torch.Tensor:
+    """One step of the Flax ``generate``'s ``_beam_search`` for one prompt,
+    on device tensors and in place: `scores` (beams, V) are the running
+    beams' log-probabilities of new token `n` after the rules (a Python int,
+    or a 0-d device tensor inside a step).  The 2·beams best continuations
+    over all beams; those ending in eos enter the finished beams (their
+    score over (n + 1) ** length_penalty, merged with the finished ones by
+    score), the others the running beams (the best `beams`); then Flax's
+    ``beam_search_cond_fn`` for the next step into ``state["done"]``.
+    Returns, for each new running beam, the beam it continues: the rows of
+    its key/value cache."""
+    k, steps, device = search.beams, search.max_new_tokens, scores.device
+    vocab = scores.shape[-1]
+    top, index = _top((scores + state["running_scores"][:, None]).reshape(-1), 2 * k)
+    beam, tok = index // vocab, index % vocab
+    at = torch.as_tensor(n, device=device).view(1)
+    seqs = state["running"].index_select(0, beam).index_copy(1, at, tok[:, None])
+    ended = (tok[:, None] == state["eos"][None, :]).any(-1)
+    running = torch.where(ended, top + NEG_BIG, top)
+    nxt = _top(running, k)[1]
+    state["running"].copy_(seqs.index_select(0, nxt))
+    state["running_scores"].copy_(running.index_select(0, nxt))
+    state["tok"].copy_(tok.index_select(0, nxt)[:, None])
+
+    length = torch.as_tensor(n + 1, dtype=torch.float32, device=device)  # the new tokens so far
+    penalised = top / length ** search.length_penalty
+    full = state["finished"].all() & (search.early_stopping is True)
+    penalised = torch.where(~ended | full, penalised + NEG_BIG, penalised)
+    merged = torch.cat((state["scores"], penalised))
+    best = _top(merged, k)[1]
+    state["seqs"].copy_(torch.cat((state["seqs"], seqs)).index_select(0, best))
+    state["scores"].copy_(merged.index_select(0, best))
+    state["finished"].copy_(torch.cat((state["finished"], ended)).index_select(0, best))
+
+    # beam_search_cond_fn at cur_len + 1: below max_length, a beam still open, an improvement still possible
+    if search.early_stopping == "never" and search.length_penalty > 0.0:
+        length = torch.as_tensor(float(steps), device=device)
+    best_running = state["running_scores"][0] / length ** search.length_penalty
+    worst = torch.where(state["finished"], state["scores"].min(), NEG_BIG)
+    go = (best_running > worst).any() & ~(state["finished"].all() & (search.early_stopping is True))
+    state["done"].copy_(~(go & torch.as_tensor(n + 1 < steps, device=device)))
+    return beam.index_select(0, nxt)
+
+
+def beam_result(state: dict) -> torch.Tensor:
+    """The search's best sequence of new tokens, (max_new_tokens,): the best
+    finished one, or the best running one where none finished (Flax's
+    ``sequences[:, 0]``)."""
+    return torch.where(state["finished"].any(), state["seqs"][0], state["running"][0])
 
 
 class _ChatDecoder:
     """What the chat LM's decoders share: the static inputs of each prompt
-    bucket, the last token, the step's logits, the counters and the turn's
-    uniforms, all made at construction (``_buffers``), and the choice of
-    the next token after the generation config's rules (``_finish``).  A
-    subclass sets ``kv``, ``ln_f`` and ``head``."""
+    bucket, the last token(s), the step's scores, the counters and the
+    turn's uniforms, all made at construction (``_buffers``), and the choice
+    of the next token after the generation config's rules (``_finish``):
+    the argmax, a draw through the sampling warpers, or, where the search
+    has ``beams`` > 1, a step of the beam search over a batch of that many
+    rows (``beam_step``; its state in ``beam``), the cache reordered by
+    the chosen beams.  A subclass sets ``kv``, ``ln_f`` and ``head``, and
+    calls ``_search_for`` with the adapter's ``ChatSearch`` (its
+    ``max_new_tokens`` and ``beams``) before it makes its cache (of
+    ``batch`` rows)."""
 
     max_new_tokens: int
     kv: StaticKV
+    batch: int = 1
 
-    def _buffers(self, model: nn.Module, buckets: Sequence[int], vocab: int, device) -> None:
-        self.rules = ChatRules(model.generation_config, vocab, self.max_new_tokens, buckets, device)
+    def _search_for(self, search: ChatSearch) -> None:
+        self.search, self.max_new_tokens, self.batch = search, search.max_new_tokens, search.beams
+
+    def _buffers(self, buckets: Sequence[int], vocab: int, device) -> None:
         self.ids: Dict[int, torch.Tensor] = {}  # bucket → (1, bucket) token ids
         self.mask: Dict[int, torch.Tensor] = {}  # bucket → (1, bucket) True at a real token
-        self.tok = torch.zeros((1, 1), dtype=torch.long, device=device)
-        self.logits = torch.zeros((1, vocab), dtype=torch.float32, device=device)
+        self.tok = torch.zeros((self.batch, 1), dtype=torch.long, device=device)
+        self.logits = torch.zeros((self.batch, vocab), dtype=torch.float32, device=device)
         self.pos = torch.zeros((), dtype=torch.long, device=device)  # the next token's position
         self.n = torch.zeros((), dtype=torch.long, device=device)  # new tokens chosen this turn
+        self.prompt = torch.zeros((), dtype=torch.long, device=device)  # the bucket: the rules' prompt length
         self.u = torch.zeros((self.max_new_tokens,), dtype=torch.float32, device=device)
         self.temperature = torch.ones((), dtype=torch.float32, device=device)
+        self.beam = beam_state(self.search, device) if self.batch > 1 else {}
 
     def inputs(self, bucket: int) -> tuple:
         """The bucket's static (ids, mask), made at its first use."""
@@ -326,25 +552,36 @@ class _ChatDecoder:
 
     def _prefilled(self, bucket: int, mask: torch.Tensor) -> None:
         """After a prefill: the real tokens' slots valid, the next slot and
-        position, no new token yet."""
+        position, the bucket, no new token yet (a new beam search)."""
         kv = self.kv
         kv.valid.zero_()
         kv.valid[:, :bucket].copy_(mask)
         kv.slot.fill_(bucket)
         self.pos.copy_(mask.sum())
+        self.prompt.fill_(bucket)
         self.n.zero_()
+        if self.beam:
+            beam_reset(self.beam, self.search)
 
-    def _finish(self, x: torch.Tensor, sample: bool, at_one: bool = False) -> None:
-        """The last position's logits after the rules (`at_one`: a prefill of
-        a one-token bucket), then the token: the argmax, or drawn with the
-        uniform of this new token."""
-        self.logits.copy_(self.rules(self.head(self.ln_f(x[:, -1])).float(), self.n, at_one))
-        if sample:
-            u = self.u.index_select(0, self.n.clamp(max=self.max_new_tokens - 1).view(1))
-            tok = sample_top_k(self.logits, self.temperature, u)
+    def _finish(self, x: torch.Tensor, sample: bool) -> None:
+        """The last position's logits after the rules, then the token(s):
+        the argmax, drawn with the uniform of this new token, or a beam
+        step (a prefill's one row serves every beam)."""
+        search = self.search
+        logits = self.head(self.ln_f(x[:, -1])).float()
+        if self.beam:
+            scores = search.rules(torch.log_softmax(logits, dim=-1).expand(self.batch, -1), self.n, self.prompt)
+            self.logits.copy_(scores)
+            self.kv.reorder(beam_step(self.beam, search, scores, self.n))
+            self.tok.copy_(self.beam["tok"])
         else:
-            tok = self.logits.argmax(-1, keepdim=True)
-        self.tok.copy_(tok)
+            self.logits.copy_(search.rules(logits, self.n, self.prompt))
+            if sample:
+                u = self.u.index_select(0, self.n.clamp(max=self.max_new_tokens - 1).view(1))
+                tok = sample_top_k(self.logits, self.temperature, u, search.top_k, search.top_p)
+            else:
+                tok = self.logits.argmax(-1, keepdim=True)
+            self.tok.copy_(tok)
         self.n.add_(1)
 
 
@@ -352,7 +589,7 @@ class GPT2Decoder(_ChatDecoder):
     """A ``GPT2LMHeadModel``'s prefill and one-token decode step over a
     ``StaticKV`` (the module docstring)."""
 
-    def __init__(self, model: nn.Module, buckets: Sequence[int], max_new_tokens: int):
+    def __init__(self, model: nn.Module, buckets: Sequence[int], search: ChatSearch):
         cfg = model.config
         _refuse("GPT2Decoder", cfg, {
             "model_type": lambda v: v == "gpt2",
@@ -371,13 +608,13 @@ class GPT2Decoder(_ChatDecoder):
         self.ln_f = _norm(body.ln_f)
         self.head = _dense(model.lm_head)
         d, dtype, device = self.wte.shape[1], self.wte.dtype, self.wte.device
-        self.max_new_tokens = int(max_new_tokens)
+        self._search_for(search)
         length = max(buckets) + self.max_new_tokens
         if length > self.wpe.shape[0]:
-            raise ValueError(f"GPT2Decoder: {max(buckets)} + {max_new_tokens} slots pass the position table's "
+            raise ValueError(f"GPT2Decoder: {max(buckets)} + {self.max_new_tokens} slots pass the position table's "
                              f"{self.wpe.shape[0]}")
-        self.kv = StaticKV(len(self.blocks), self.heads, length, d // self.heads, dtype, device)
-        self._buffers(model, buckets, self.wte.shape[0], device)
+        self.kv = StaticKV(len(self.blocks), self.heads, length, d // self.heads, dtype, device, self.batch)
+        self._buffers(buckets, self.wte.shape[0], device)
 
     def _mlp(self, blk: dict, x: torch.Tensor) -> torch.Tensor:
         return x + blk["m_proj"](F.gelu(blk["c_fc"](blk["ln_2"](x)), approximate="tanh"))
@@ -399,7 +636,7 @@ class GPT2Decoder(_ChatDecoder):
             x = x + blk["c_proj"](_merge(_attend(q, k, v, allowed[:, None])))
             x = self._mlp(blk, x)
         self._prefilled(bucket, mask)
-        self._finish(x, sample, bucket == 1)
+        self._finish(x, sample)
 
     def step(self, sample: bool) -> None:
         kv = self.kv
@@ -430,12 +667,11 @@ class LlamaDecoder(_ChatDecoder):
     module docstring).  ``pretraining_tp`` is not refused: transformers'
     PyTorch forward of these models (4.57) does not read it."""
 
-    def __init__(self, model: nn.Module, buckets: Sequence[int], max_new_tokens: int):
+    def __init__(self, model: nn.Module, buckets: Sequence[int], search: ChatSearch):
         cfg = model.config
         body = model.model
         rotary = body.rotary_emb
-        self.max_new_tokens = int(max_new_tokens)
-        length = max(buckets) + self.max_new_tokens
+        length = max(buckets) + search.max_new_tokens
         act = getattr(cfg, "hidden_act", None)
         _refuse("LlamaDecoder", cfg, {
             "model_type": lambda v: v in LLAMA_FAMILY,
@@ -477,8 +713,9 @@ class LlamaDecoder(_ChatDecoder):
         emb = torch.cat((freqs, freqs), dim=-1)
         self.cos = (emb.cos() * rotary.attention_scaling).to(dtype)
         self.sin = (emb.sin() * rotary.attention_scaling).to(dtype)
-        self.kv = StaticKV(len(self.blocks), self.kv_heads, length, head_dim, dtype, device)
-        self._buffers(model, buckets, vocab, device)
+        self._search_for(search)
+        self.kv = StaticKV(len(self.blocks), self.kv_heads, length, head_dim, dtype, device, self.batch)
+        self._buffers(buckets, vocab, device)
 
     def _embed(self, ids: torch.Tensor) -> torch.Tensor:
         x = F.embedding(ids, self.embed)
@@ -519,7 +756,7 @@ class LlamaDecoder(_ChatDecoder):
         for i, blk in enumerate(self.blocks):
             x = self._layer(blk, x, cos, sin, i, allowed=allowed)
         self._prefilled(bucket, mask)
-        self._finish(x, sample, bucket == 1)
+        self._finish(x, sample)
 
     def step(self, sample: bool) -> None:
         kv = self.kv
@@ -565,16 +802,16 @@ class _StepDecoder(_ChatDecoder):
     window = None
     local = None
 
-    def _setup(self, model: nn.Module, buckets: Sequence[int], max_new_tokens: int, layers: int, heads: int,
-               head_dim: int, vocab: int, ref: torch.Tensor) -> int:
-        """The cache of ``max(buckets) + max_new_tokens`` slots and the
-        buffers on `ref`'s dtype and device → the slot count."""
-        self.max_new_tokens = int(max_new_tokens)
+    def _setup(self, buckets: Sequence[int], search: ChatSearch, layers: int, heads: int, head_dim: int,
+               vocab: int, ref: torch.Tensor) -> int:
+        """The search (its ``max_new_tokens`` and ``beams``), the cache of
+        ``max(buckets) + max_new_tokens`` slots and the buffers on `ref`'s dtype and device → the slot count."""
+        self._search_for(search)
         length = max(buckets) + self.max_new_tokens
         self.heads = heads
-        self.kv = StaticKV(layers, heads, length, head_dim, ref.dtype, ref.device)
+        self.kv = StaticKV(layers, heads, length, head_dim, ref.dtype, ref.device, self.batch)
         self.slots = torch.arange(length, device=ref.device)
-        self._buffers(model, buckets, vocab, ref.device)
+        self._buffers(buckets, vocab, ref.device)
         return length
 
     def _context(self, pos: torch.Tensor):
@@ -602,7 +839,7 @@ class _StepDecoder(_ChatDecoder):
                 return _attend(q, k, v, self._band(i, allowed, band), self.scale, bias)
             x = self._layer(blk, x, attend, ctx)
         self._prefilled(bucket, mask)
-        self._finish(x, sample, bucket == 1)
+        self._finish(x, sample)
 
     def step(self, sample: bool) -> None:
         kv = self.kv
@@ -628,7 +865,7 @@ class GPTNeoDecoder(_StepDecoder):
 
     scale = 1.0
 
-    def __init__(self, model: nn.Module, buckets: Sequence[int], max_new_tokens: int):
+    def __init__(self, model: nn.Module, buckets: Sequence[int], search: ChatSearch):
         cfg = model.config
         _refuse("GPTNeoDecoder", cfg, {
             "model_type": lambda v: v == "gpt_neo",
@@ -647,7 +884,7 @@ class GPTNeoDecoder(_StepDecoder):
         self.local = [t == "local" for t in cfg.attention_layers]
         self.window = int(cfg.window_size)
         vocab, d = self.wte.shape
-        length = self._setup(model, buckets, max_new_tokens, len(self.blocks), cfg.num_heads, d // cfg.num_heads,
+        length = self._setup(buckets, search, len(self.blocks), cfg.num_heads, d // cfg.num_heads,
                              vocab, self.wte)
         if length > self.wpe.shape[0]:
             raise ValueError(f"GPTNeoDecoder: {length} slots pass the position table's {self.wpe.shape[0]}")
@@ -672,7 +909,7 @@ class OPTDecoder(_StepDecoder):
     scale = 1.0
     OFFSET = 2
 
-    def __init__(self, model: nn.Module, buckets: Sequence[int], max_new_tokens: int):
+    def __init__(self, model: nn.Module, buckets: Sequence[int], search: ChatSearch):
         cfg = model.config
         _refuse("OPTDecoder", cfg, {
             "model_type": lambda v: v == "opt",
@@ -695,7 +932,7 @@ class OPTDecoder(_StepDecoder):
             return x if project_out is None else project_out(x)
         self.ln_f = ln_f
         self.head = _dense(model.lm_head)
-        length = self._setup(model, buckets, max_new_tokens, len(self.blocks), cfg.num_attention_heads,
+        length = self._setup(buckets, search, len(self.blocks), cfg.num_attention_heads,
                              cfg.hidden_size // cfg.num_attention_heads, self.embed.shape[0], self.embed)
         if length + self.OFFSET > self.wpe.shape[0]:
             raise ValueError(f"OPTDecoder: {length} slots pass the position table's {self.wpe.shape[0] - self.OFFSET}")
@@ -747,7 +984,7 @@ class XGLMDecoder(OPTDecoder):
 
     pre = True
 
-    def __init__(self, model: nn.Module, buckets: Sequence[int], max_new_tokens: int):
+    def __init__(self, model: nn.Module, buckets: Sequence[int], search: ChatSearch):
         cfg = model.config
         _refuse("XGLMDecoder", cfg, {
             "model_type": lambda v: v == "xglm",
@@ -761,7 +998,7 @@ class XGLMDecoder(OPTDecoder):
         self.head = _dense(model.lm_head)
         self.act = STEP_ACTIVATIONS[cfg.activation_function]
         self.q_scale = (cfg.d_model // cfg.attention_heads) ** -0.5
-        length = self._setup(model, buckets, max_new_tokens, len(self.blocks), cfg.attention_heads,
+        length = self._setup(buckets, search, len(self.blocks), cfg.attention_heads,
                              cfg.d_model // cfg.attention_heads, self.embed.shape[0], self.embed)
         if length > cfg.max_position_embeddings:
             raise ValueError(f"XGLMDecoder: {length} slots pass the {cfg.max_position_embeddings} positions")
@@ -770,6 +1007,43 @@ class XGLMDecoder(OPTDecoder):
 
     def _embed(self, ids, pos):
         return F.embedding(ids, self.embed) * self.embed_scale + F.embedding(pos + self.OFFSET, self.positions)
+
+
+class BartDecoder(OPTDecoder):
+    """A ``BartForCausalLM``'s prefill and step (the module docstring): the
+    embedding scaled by √d_model where ``scale_embedding``, learned positions
+    offset by 2 (the real tokens counted from 0, as the Flax BART's and the
+    eager loop's are), the embedding's LayerNorm, OPT's post-LN layer with
+    the scores scaled after the product (as transformers' BART attention
+    scales them), no final LayerNorm, the tied head.  A causal LM has no
+    encoder states, so the layers' cross-attention never runs."""
+
+    pre = False
+    q_scale = 1.0
+
+    def __init__(self, model: nn.Module, buckets: Sequence[int], search: ChatSearch):
+        cfg = model.config
+        _refuse("BartDecoder", cfg, {
+            "model_type": lambda v: v == "bart",
+            "activation_function": lambda v: v in STEP_ACTIVATIONS,
+        })
+        dec = model.model.decoder
+        self.embed, self.wpe = dec.embed_tokens.weight, dec.embed_positions.weight
+        self.embed_scale = math.sqrt(cfg.d_model) if cfg.scale_embedding else 1.0
+        self.embed_ln = _norm(dec.layernorm_embedding)
+        self.blocks = self._blocks(dec.layers)
+        self.ln_f = lambda x: x
+        self.head = _dense(model.lm_head)
+        self.act = STEP_ACTIVATIONS[cfg.activation_function]
+        heads = cfg.decoder_attention_heads
+        self.scale = (cfg.d_model // heads) ** -0.5
+        length = self._setup(buckets, search, len(self.blocks), heads, cfg.d_model // heads,
+                             self.embed.shape[0], self.embed)
+        if length + self.OFFSET > self.wpe.shape[0]:
+            raise ValueError(f"BartDecoder: {length} slots pass the position table's {self.wpe.shape[0] - self.OFFSET}")
+
+    def _embed(self, ids, pos):
+        return self.embed_ln(F.embedding(ids, self.embed) * self.embed_scale + F.embedding(pos + self.OFFSET, self.wpe))
 
 
 def alibi_slopes(heads: int) -> torch.Tensor:
@@ -794,7 +1068,7 @@ class BloomDecoder(_StepDecoder):
     ``apply_residual_connection_post_layernorm``, BLOOM's tanh GELU and the
     tied head.  Without a position table, no bucket is too long."""
 
-    def __init__(self, model: nn.Module, buckets: Sequence[int], max_new_tokens: int):
+    def __init__(self, model: nn.Module, buckets: Sequence[int], search: ChatSearch):
         cfg = model.config
         _refuse("BloomDecoder", cfg, {"model_type": lambda v: v == "bloom"})
         body = model.transformer
@@ -810,7 +1084,7 @@ class BloomDecoder(_StepDecoder):
         heads = cfg.n_head
         head_dim = cfg.hidden_size // heads
         self.scale = 1.0 / math.sqrt(head_dim)
-        length = self._setup(model, buckets, max_new_tokens, len(self.blocks), heads, head_dim,
+        length = self._setup(buckets, search, len(self.blocks), heads, head_dim,
                              self.embed.shape[0], self.embed)
         self.slopes = alibi_slopes(heads).to(self.embed.device)[None, :, None, None]  # (1, H, 1, 1)
         self.key_pos = torch.zeros((1, length), dtype=torch.float32, device=self.embed.device)
@@ -843,7 +1117,7 @@ class GPTJDecoder(_StepDecoder):
     pairs, from the attention's own sin/cos table; one LayerNorm feeding the
     attention and the MLP in parallel; an untied head with a bias."""
 
-    def __init__(self, model: nn.Module, buckets: Sequence[int], max_new_tokens: int):
+    def __init__(self, model: nn.Module, buckets: Sequence[int], search: ChatSearch):
         cfg = model.config
         _refuse("GPTJDecoder", cfg, {
             "model_type": lambda v: v == "gptj",
@@ -861,7 +1135,7 @@ class GPTJDecoder(_StepDecoder):
         self.act = STEP_ACTIVATIONS[cfg.activation_function]
         heads = cfg.n_head
         head_dim = cfg.n_embd // heads
-        length = self._setup(model, buckets, max_new_tokens, len(self.blocks), heads, head_dim,
+        length = self._setup(buckets, search, len(self.blocks), heads, head_dim,
                              self.embed.shape[0], self.embed)
         table = body.h[0].attn.embed_positions  # (positions, rotary_dim): the sines, then the cosines
         if length > table.shape[0]:
@@ -891,8 +1165,7 @@ class WhisperDecoder:
     attention keys and values, and its greedy one-token decode step with the
     generation config's rules (the module docstring)."""
 
-    def __init__(self, model: nn.Module, max_length: int, start: int, suppress: Iterable[int] = (),
-                 begin_suppress: Iterable[int] = (), begin_index: int = 1, forced: Dict[int, int] = None):
+    def __init__(self, model: nn.Module, max_length: int, start: int, rules: ChatRules):
         cfg = model.config
         _refuse("WhisperDecoder", cfg, {
             "model_type": lambda v: v == "whisper",
@@ -925,17 +1198,8 @@ class WhisperDecoder:
         self.start = int(start)
         self.tok = torch.zeros((1, 1), dtype=torch.long, device=device)
         self.logits = torch.zeros((1, vocab), dtype=torch.float32, device=device)
-        # the rules' tables: indexed by the step, the index in the sequence of the token chosen
-        self.suppress = torch.zeros(vocab, dtype=torch.bool, device=device)
-        self.suppress[list(suppress)] = True
-        self.begin_suppress = torch.zeros(vocab, dtype=torch.bool, device=device)
-        self.begin_suppress[list(begin_suppress)] = True
-        self.begin_index = int(begin_index)
-        self.forced = torch.full((max_length,), -1, dtype=torch.long, device=device)
-        for i, t in (forced or {}).items():
-            if i < max_length:
-                self.forced[i] = t
-        self.vocab = torch.arange(vocab, device=device)
+        # the generation config's rules after the start token, a prompt of one token
+        self.rules = rules
 
     @staticmethod
     def _layer(layer) -> dict:
@@ -967,14 +1231,6 @@ class WhisperDecoder:
         self.kv.slot.zero_()
         self.tok.fill_(self.start)
 
-    def _rules(self, logits: torch.Tensor, step: torch.Tensor) -> torch.Tensor:
-        """Suppress, suppress at the first free step, force: the Flax
-        processors' order."""
-        logits = logits.masked_fill(self.suppress, NEG_INF)
-        logits = logits.masked_fill(self.begin_suppress & (step == self.begin_index), NEG_INF)
-        forced = self.forced.index_select(0, step.view(1))
-        return torch.where(forced >= 0, torch.where(self.vocab == forced, 0.0, NEG_INF), logits)
-
     def step(self) -> None:
         kv = self.kv
         x = F.embedding(self.tok, self.embed) + F.embedding(kv.slot.view(1, 1), self.dec_pos)
@@ -986,8 +1242,9 @@ class WhisperDecoder:
             x = x + lay["o"](_merge(kv.attend(i, q)))
             x = x + lay["cross_o"](_merge(_attend(_heads(lay["cross_q"](lay["cross_ln"](x)), self.heads), ck, cv)))
             x = self._mlp(lay, x)
+        logits = self.head(self.dec_norm(x))[:, -1].float()
+        self.logits.copy_(self.rules(logits, kv.slot, 1))  # slot n's token chooses new token n
         kv.slot.add_(1)
-        self.logits.copy_(self._rules(self.head(self.dec_norm(x))[:, -1].float(), kv.slot))
         self.tok.copy_(self.logits.argmax(-1, keepdim=True))
 
 

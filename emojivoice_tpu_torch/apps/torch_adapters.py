@@ -28,9 +28,9 @@ forward over its growing cache, a token at a time, as the yardstick.
 Both decode loops apply what the Flax ``generate`` applied: greedy decoding
 gives the Flax adapters' token ids on the same weights
 (``io/from_jax.py::hf_flax_params_to_torch``), and sampling draws from the
-same distribution (temperature, then the 50 most likely tokens) by inverse
-CDF from the turn's uniforms, drawn at once before its first token
-(``decode.sample_top_k``), in both modes alike.
+same distribution (temperature, then the generation config's top-k and
+top-p) by inverse CDF from the turn's uniforms, drawn at once before its
+first token (``decode.sample_top_k``), in both modes alike.
 
 Both take either a pretrained name or an injected (model, tokenizer); tests
 drive them with tiny random-init configs and stub tokenizers.  Each runs on
@@ -38,13 +38,16 @@ the card unless ``device="cpu"`` is given.
 
 The chat LM's decode steps exist for the model types of ``CHAT_DECODERS``
 (GPT-2, the Llama family: llama, mistral, gemma, and gpt_neo, opt, xglm,
-bloom, gptj).  Another causal LM that transformers' ``AutoModelForCausalLM``
-builds (bart's decoder, ...) decodes through transformers' forward on the
-same device, as ``graphs=False`` does; the adapter says so on one line when
-it is made, and ``TorchChatLM.decode`` reads ``"graphs"`` or ``"eager"``.
-Either way the generation config's rules that the Flax ``generate`` applies
-(``decode.ChatRules``) are applied, and the ones the port does not implement
-are refused by name.
+bloom, gptj, bart).  Another causal LM that transformers'
+``AutoModelForCausalLM`` builds decodes through transformers' forward on
+the same device, as ``graphs=False`` does; the adapter says so on one line
+when it is made, and ``TorchChatLM.decode`` reads ``"graphs"`` or
+``"eager"``.  Either way the generation config's rules that the Flax
+``generate`` applies for ``FlaxChatLM``'s call (``decode.ChatSearch``: the
+logits processors, the top-k and top-p warpers, a greedy beam search where
+``num_beams`` > 1, the config's ``max_new_tokens``) are applied, and what
+``FlaxChatLM`` cannot run (``no_repeat_ngram_size``, beam sampling) is
+refused by name.
 """
 
 from __future__ import annotations
@@ -57,16 +60,17 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from emojivoice_tpu_torch.apps.decode import (BloomDecoder, ChatRules, DecodeGraphs, GPT2Decoder, GPTJDecoder,
-                                              GPTNeoDecoder, LlamaDecoder, OPTDecoder, WhisperDecoder, XGLMDecoder,
-                                              sample_top_k)
+from emojivoice_tpu_torch.apps.decode import (BartDecoder, BloomDecoder, ChatRules, ChatSearch, DecodeGraphs,
+                                              GPT2Decoder, GPTJDecoder, GPTNeoDecoder, LlamaDecoder, OPTDecoder,
+                                              WhisperDecoder, XGLMDecoder, beam_reset, beam_result, beam_state,
+                                              beam_step, sample_top_k, token_list)
 from emojivoice_tpu_torch.utils.prng import step_generator
 
 WHISPER_SAMPLE_RATE = 16_000
 # the chat LM's model types with decode steps of the port's own (apps/decode.py); another type decodes eagerly
 CHAT_DECODERS = {"gpt2": GPT2Decoder, "llama": LlamaDecoder, "mistral": LlamaDecoder, "gemma": LlamaDecoder,
                  "gpt_neo": GPTNeoDecoder, "opt": OPTDecoder, "xglm": XGLMDecoder, "bloom": BloomDecoder,
-                 "gptj": GPTJDecoder}
+                 "gptj": GPTJDecoder, "bart": BartDecoder}
 
 
 def import_transformers():
@@ -108,10 +112,6 @@ def _load_wav_16k(wav_path: str) -> np.ndarray:
     if sr != WHISPER_SAMPLE_RATE:
         data = resample_poly_np(data, sr, WHISPER_SAMPLE_RATE)
     return np.asarray(data, dtype=np.float32)
-
-
-def _token_list(ids) -> list:
-    return [] if ids is None else [int(i) for i in ([ids] if isinstance(ids, int) else ids)]
 
 
 class TorchWhisperASR:
@@ -157,31 +157,16 @@ class TorchWhisperASR:
         self._max_length = int(max_length or min(model.config.max_target_positions, 128))
         gen = model.generation_config
         self._start = int(gen.decoder_start_token_id)
-        self._eos = set(_token_list(gen.eos_token_id))
-        self._pad = _token_list(gen.pad_token_id if gen.pad_token_id is not None else gen.eos_token_id)[0]
-        self._suppress = _token_list(getattr(gen, "suppress_tokens", None))
-        self._begin_suppress = _token_list(getattr(gen, "begin_suppress_tokens", None))
-        forced = getattr(gen, "forced_decoder_ids", None) or []
-        self._forced = {int(i): int(t) for i, t in forced}
-        # the first free step: after the start token and the last forced one
-        self._begin_index = 1 + (int(forced[-1][0]) if forced else 0)
+        self._eos = set(token_list(gen.eos_token_id))
+        self._pad = token_list(gen.pad_token_id if gen.pad_token_id is not None else gen.eos_token_id)[0]
+        # the generation config's rules after the start token, a prompt of one token (decode.ChatRules)
+        self._rules = ChatRules(gen, model.get_output_embeddings().weight.shape[0], self._max_length - 1,
+                                self.device)
         self.graphs = DecodeGraphs(self.device) if graphs else None
         self._dec = self._decoder() if graphs else None
 
     def _decoder(self) -> WhisperDecoder:
-        return WhisperDecoder(self._model, self._max_length, self._start, self._suppress, self._begin_suppress,
-                              self._begin_index, self._forced)
-
-    def _logits(self, logits: torch.Tensor, cur: int) -> torch.Tensor:
-        """The Flax processors' order: suppress, suppress at begin, force."""
-        if self._suppress:
-            logits[:, self._suppress] = -float("inf")
-        if self._begin_suppress and cur == self._begin_index:
-            logits[:, self._begin_suppress] = -float("inf")
-        if cur in self._forced:
-            logits.fill_(-float("inf"))
-            logits[:, self._forced[cur]] = 0.0
-        return logits
+        return WhisperDecoder(self._model, self._max_length, self._start, self._rules)
 
     @torch.inference_mode()
     def _generate(self, feats: np.ndarray, logits_out: Optional[list] = None) -> np.ndarray:
@@ -216,7 +201,7 @@ class TorchWhisperASR:
         past = None
         for cur in range(1, self._max_length):
             out = self._model(encoder_outputs=enc, decoder_input_ids=ids, past_key_values=past, use_cache=True)
-            logits = self._logits(out.logits[:, -1].float(), cur)
+            logits = self._rules(out.logits[:, -1].float(), cur - 1, 1)
             if logits_out is not None:
                 logits_out.append(logits.clone())
             tok = int(logits.argmax(-1))
@@ -254,6 +239,16 @@ class TorchChatLM:
     the largest bucket plus ``max_new_tokens`` slots.  Another type, and
     every model under ``graphs=False``, decodes through transformers'
     forward (``decode="eager"``).
+
+    Both modes apply the generation config as ``FlaxChatLM``'s ``generate``
+    does: ``min_length``, the forced bos / eos tokens, ``suppress_tokens``,
+    ``begin_suppress_tokens`` and ``forced_decoder_ids`` at every step;
+    ``top_k`` and ``top_p`` when sampling; a greedy beam search where
+    ``num_beams`` > 1 (with ``length_penalty`` and ``early_stopping``; the
+    graphs' keys ``("beam_prefill", bucket)`` and ``("beam_decode",)``, a
+    cache of one row per beam); its ``max_new_tokens`` over the adapter's.
+    ``no_repeat_ngram_size`` and ``num_beams`` > 1 with sampling, which
+    ``FlaxChatLM`` cannot run, are refused by name when the adapter is made.
     """
 
     def __init__(
@@ -280,6 +275,10 @@ class TorchChatLM:
         self.temperature = float(temperature)
         self.max_new_tokens = int(max_new_tokens)
         self.seed = int(seed)
+        gen = model.generation_config
+        # the Flax generate takes the generation config's max_new_tokens over the adapter's max_length
+        if getattr(gen, "max_new_tokens", None) is not None:
+            self.max_new_tokens = int(gen.max_new_tokens)
         # a bucket + its new tokens must fit the model's position table
         n_pos = getattr(model.config, "max_position_embeddings", None) or getattr(
             model.config, "n_positions", None
@@ -296,13 +295,15 @@ class TorchChatLM:
         if pad is None:
             pad = int(model.config.pad_token_id or model.config.eos_token_id or 0)
         self._pad_id = int(pad)
-        gen = model.generation_config
-        self._eos = set(_token_list(model.config.eos_token_id))
+        self._eos = set(token_list(model.config.eos_token_id))
+        # the generation config's rules, warpers and beam search; what FlaxChatLM cannot run is refused here
+        self._search = ChatSearch(gen, model.get_output_embeddings().weight.shape[0], self.max_new_tokens,
+                                  self.device, sample=self.temperature > 0)
+        self._rules = self._search.rules
+        # a sequence ends at the generation config's eos, as the Flax generate's loop ends it (else the model's)
+        self._stop = set(self._search.eos) or self._eos
         # what follows eos in a sequence (the Flax generate fills with the generation config's pad)
-        self._fill = _token_list(gen.pad_token_id if gen.pad_token_id is not None else gen.eos_token_id)[0]
-        # the rules of the generation config; what the port does not implement is refused here, in either mode
-        self._rules = ChatRules(gen, model.get_output_embeddings().weight.shape[0], self.max_new_tokens,
-                                self.prompt_buckets, self.device, sample=self.temperature > 0)
+        self._fill = self._search.fill
         # a forward without position_ids (bart's decoder) counts the slots it is fed: it is fed no pads
         self._takes_positions = "position_ids" in inspect.signature(model.forward).parameters
         model_type = model.config.model_type
@@ -314,7 +315,7 @@ class TorchChatLM:
         self._dec = self._decoder() if self.graphs is not None else None
 
     def _decoder(self):
-        return CHAT_DECODERS[self._model.config.model_type](self._model, self.prompt_buckets, self.max_new_tokens)
+        return CHAT_DECODERS[self._model.config.model_type](self._model, self.prompt_buckets, self._search)
 
     # -- prompt construction (the JAX adapter's, unchanged) -------------------
 
@@ -364,7 +365,7 @@ class TorchChatLM:
                     temperature: Optional[torch.Tensor] = None) -> torch.Tensor:
         if u is None:
             return logits.argmax(-1, keepdim=True)
-        return sample_top_k(logits, temperature, u)
+        return sample_top_k(logits, temperature, u, self._search.top_k, self._search.top_p)
 
     @torch.inference_mode()
     def _generate(self, ids: np.ndarray, mask: np.ndarray, generator: Optional[torch.Generator] = None,
@@ -373,17 +374,23 @@ class TorchChatLM:
         sequence: the prompt, the new tokens up to and with eos, then the fill
         (the Flax ``generate``'s ``sequences``).  Greedy without a generator;
         with one, the turn's ``max_new_tokens`` uniforms are drawn from it at
-        once, one a new token.  Positions count the prompt's real tokens from
-        0, as the Flax GPT-2 does; a pad's own position is never attended to.
-        With `logits_out`, each step's logits, (1, V) f32 on the device, are
-        appended to it."""
+        once, one a new token.  Where the generation config asks for beams
+        (greedy only), Flax's beam search over that many rows, stopped where
+        its condition stops it: the best sequence.  Positions count the
+        prompt's real tokens from 0, as the Flax GPT-2 does; a pad's own
+        position is never attended to.  With `logits_out`, each step's scores
+        after the rules, (1, V) f32 (with beams (beams, V) log-probabilities)
+        on the device, are appended to it."""
         bucket = ids.shape[1]
         seq = np.full((1, bucket + self.max_new_tokens), self._fill, dtype=np.int64)
         seq[0, :bucket] = ids[0]
+        sample, beams = generator is not None, self._search.beams > 1
+        if sample and beams:
+            raise ValueError(f"TorchChatLM: generation_config.num_beams={self._search.beams} is a greedy beam search; "
+                             "beam sampling is not implemented (nor by FlaxChatLM)")
         ids_t, mask_t = torch.from_numpy(np.asarray(ids, np.int64)), torch.from_numpy(np.asarray(mask, np.int64))
         if self.graphs is None:
             return self._generate_eager(ids_t.to(self.device), mask_t.to(self.device), generator, seq, logits_out)
-        sample = generator is not None
         with self.graphs.lock:
             if self.graphs.watch(self._model):
                 self._dec = self._decoder()
@@ -396,14 +403,21 @@ class TorchChatLM:
                 dec.temperature.fill_(self.temperature)
             for cur in range(bucket, seq.shape[1]):
                 if cur == bucket:
-                    self.graphs.run(("prefill", bucket, sample), lambda: dec.prefill(bucket, sample))
+                    key = ("beam_prefill", bucket) if beams else ("prefill", bucket, sample)
+                    self.graphs.run(key, lambda: dec.prefill(bucket, sample))
                 else:
-                    self.graphs.run(("decode", sample), lambda: dec.step(sample))
-                seq[0, cur] = self.graphs.read(dec.tok)
+                    self.graphs.run(("beam_decode",) if beams else ("decode", sample), lambda: dec.step(sample))
                 if logits_out is not None:
                     logits_out.append(dec.logits.clone())
-                if seq[0, cur] in self._eos:
+                if beams:
+                    if self.graphs.read(dec.beam["done"]):
+                        break
+                    continue
+                seq[0, cur] = self.graphs.read(dec.tok)
+                if seq[0, cur] in self._stop:
                     break
+            if beams:
+                seq[0, bucket:] = beam_result(dec.beam).cpu().numpy()
         return seq
 
     def _generate_eager(self, inp: torch.Tensor, attn: torch.Tensor, generator: Optional[torch.Generator],
@@ -416,30 +430,49 @@ class TorchChatLM:
         its positions from the first slot it is fed, pads included; under
         left pads that would shift every real token's position, so it is
         fed the prompt's real tokens alone, whose positions then count from
-        0 as the Flax ``generate``'s do."""
+        0 as the Flax ``generate``'s do.  A beam search feeds the prompt as
+        that many identical rows (Flax's expanded prompt) and reorders the
+        cache by the chosen beams after each step."""
         bucket = inp.shape[1]
-        u = temperature = None
+        search = self._search
+        u = temperature = state = None
         if generator is not None:
             u = torch.rand(self.max_new_tokens, generator=generator, device=self.device)
             temperature = torch.full((), self.temperature, dtype=torch.float32, device=self.device)
         if not self._takes_positions:
             real = attn[0].bool()
             inp, attn = inp[:, real], attn[:, real]
+        if search.beams > 1:
+            inp, attn = inp.expand(search.beams, -1), attn.expand(search.beams, -1)
+            state = beam_state(search, self.device)
+            beam_reset(state, search)
         past = None
         for cur in range(bucket, seq.shape[1]):
+            n = cur - bucket
             kw = {}
             if self._takes_positions:
                 kw["position_ids"] = (attn.cumsum(-1) - 1).clamp(min=0)[:, -inp.shape[1]:]
             out = self._model(input_ids=inp, attention_mask=attn, past_key_values=past, use_cache=True, **kw)
-            logits = self._rules(out.logits[:, -1].float(), cur - bucket, cur == 1)
+            logits = out.logits[:, -1].float()
+            if state is None:
+                logits = self._rules(logits, n, bucket)
+                tok = self._next_token(logits, None if u is None else u[n: n + 1], temperature)
+                seq[0, cur] = int(tok)
+                done = seq[0, cur] in self._stop
+            else:
+                logits = self._rules(torch.log_softmax(logits, dim=-1), n, bucket)
+                chosen = beam_step(state, search, logits, n)
+                tok, done = state["tok"].clone(), bool(state["done"])
             if logits_out is not None:
                 logits_out.append(logits.clone())
-            tok = self._next_token(logits, None if u is None else u[cur - bucket: cur - bucket + 1], temperature)
-            seq[0, cur] = int(tok)
-            if seq[0, cur] in self._eos:
+            if done:
                 break
             inp, past = tok, out.past_key_values
+            if state is not None:
+                past.reorder_cache(chosen)  # each row continues the beam it chose
             attn = torch.cat([attn, torch.ones_like(tok)], dim=1)
+        if state is not None:
+            seq[0, bucket:] = beam_result(state).cpu().numpy()
         return seq
 
     def chat(self, system_prompt: str, history: List[dict], user_msg: str) -> str:

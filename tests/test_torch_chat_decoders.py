@@ -42,7 +42,7 @@ from emojivoice_tpu_torch.apps.torch_adapters import CHAT_DECODERS, TorchChatLM 
 from emojivoice_tpu_torch.io.from_jax import hf_flax_params_to_torch  # noqa: E402
 from emojivoice_tpu_torch.utils.prng import step_generator  # noqa: E402
 from tests.test_torch_adapters import StubTokenizer, bridged  # noqa: E402
-from tests.test_torch_decode_graphs import left_padded, stub_card  # noqa: E402,F401  (stub_card is a fixture)
+from tests.test_torch_decode_graphs import chat_search, left_padded, stub_card  # noqa: E402,F401  (stub_card is a fixture)
 
 torch.set_num_threads(2)
 
@@ -143,7 +143,7 @@ def teacher_forced(dec, model, bucket, n_pad, n_forced=6, seed=1):
 def stale_then_forced(model, n_pad, bucket=16):
     """A longer bucket's turn runs first, so stale slots past the bucket are
     in the cache; then prefill and six teacher-forced steps."""
-    dec = CHAT_DECODERS[model.config.model_type](model, BUCKETS, max_new_tokens=8)
+    dec = CHAT_DECODERS[model.config.model_type](model, BUCKETS, chat_search(model))
     with torch.no_grad():
         ids, mask = left_padded(40, 64, seed=9)
         dec.inputs(64)[0].copy_(torch.from_numpy(ids))
@@ -183,7 +183,7 @@ def test_decoders_read_the_models_layout(pairs):
     final LayerNorm), GPT-Neo's layer types and window, GPT-J's partial
     rotary table, BLOOM's slopes, XGLM's table (the model's own buffer,
     which the steps leave as it is)."""
-    dec = {family: CHAT_DECODERS[family](pairs[family][1], BUCKETS, 8) for family in FAMILIES}
+    dec = {family: CHAT_DECODERS[family](pairs[family][1], BUCKETS, chat_search(pairs[family][1])) for family in FAMILIES}
     assert dec["opt"].project_in is not None and not dec["opt"].pre
     assert (dec["gpt_neo"].local, dec["gpt_neo"].window) == ([False, True], 8)
     assert dec["gptj"].cos.shape == (64 + 8, 4)

@@ -109,23 +109,26 @@ def test_f14_bart_decoder_chats_like_flax(capsys):
     """BART's forward takes no ``position_ids``: fed the prompt's real tokens
     alone, its own positions count them from 0, as Flax's do; the forced eos
     ends a reply that reaches ``max_new_tokens``.  Ids (with 5 left pads and
-    none) and ``chat()`` equal ``FlaxChatLM``'s; the default adapter decodes
-    eagerly and says so."""
+    none) and ``chat()`` equal ``FlaxChatLM``'s, through the default
+    adapter (``BartDecoder``'s steps, uncaptured here) and through the eager
+    loop (``graphs=False``); neither prints a line."""
     flax_model, model = tiny_bart()
     assert model.generation_config.forced_eos_token_id == 2
     kw = dict(tokenizer=StubTokenizer(), temperature=0.0, max_new_tokens=12, prompt_buckets=(16, 32))
     fl = FlaxChatLM(model=flax_model, **kw)
     capsys.readouterr()
-    lm = TorchChatLM(model=model, device="cpu", **kw)
-    assert (lm.decode, lm.graphs) == ("eager", None)
-    assert capsys.readouterr().out.startswith("[TorchChatLM] model_type 'bart' has no decode steps in the port")
+    lm, eager = TorchChatLM(model=model, device="cpu", **kw), TorchChatLM(model=model, device="cpu", graphs=False, **kw)
+    assert (lm.decode, eager.decode, eager.graphs) == ("graphs", "eager", None)
+    assert not capsys.readouterr().out
     for n_real in (11, 16):
         ids, mask = left_padded(n_real, 16, seed=n_real)
-        got = lm._generate(ids, mask)
-        np.testing.assert_array_equal(got, flax_ids(fl, ids, mask))
-        assert got[0, -1] == 2 and len(set(got[0, 16:])) > 2
+        want = flax_ids(fl, ids, mask)
+        for adapter in (lm, eager):
+            got = adapter._generate(ids, mask)
+            np.testing.assert_array_equal(got, want)
+            assert got[0, -1] == 2 and len(set(got[0, 16:])) > 2
     for user in ("hi there", "tell me more about the sea"):
-        assert lm.chat("be brief", [], user) == fl.chat("be brief", [], user)
+        assert lm.chat("be brief", [], user) == eager.chat("be brief", [], user) == fl.chat("be brief", [], user)
 
 
 # ---------------------------------------------------------------- the generation config's rules
@@ -148,18 +151,57 @@ def test_forced_tokens_follow_flax(rule, bucket):
                                       ref)
 
 
+# the flags the port once refused, each at a value that changes the ids (min_length and suppress_tokens from
+# tests/test_torch_chat_rules.py::rule_values: picked from the ids without them), and the temperature
+FLAGS = {"num_beams": (3, 0.0), "min_length": (None, 0.0), "suppress_tokens": (None, 0.0), "top_p": (0.5, 0.6),
+         "top_k": (3, 0.6)}
+
+
+@pytest.mark.parametrize("flag", list(FLAGS))
+def test_generation_flags_follow_flax(flag):
+    """Flags the port once refused, now implemented: the greedy ones
+    (a beam search over 3 beams, eos masked until ``cur_len`` passes
+    ``min_length``, suppressed tokens) change ``FlaxChatLM``'s ids, and the
+    port gives them through its steps and eagerly; top-p and top-k change
+    the sampled ids, which are equal between the modes, and the first step
+    keeps the Flax warpers' set."""
+    from emojivoice_tpu_torch.apps.decode import warp
+    from emojivoice_tpu_torch.utils.prng import step_generator
+    from tests.test_torch_chat_rules import BUCKET, flax_kept, flax_pair_of, rule_values
+
+    value, temperature = FLAGS[flag]
+    fields = rule_values(flag, "gpt2") if value is None else {flag: value}
+    plain = flax_pair_of("gpt2")
+    flax_model, model = flax_pair_of("gpt2", **fields)
+    kw = dict(tokenizer=StubTokenizer(), temperature=temperature, max_new_tokens=8, prompt_buckets=(BUCKET,))
+    ids, mask = left_padded(BUCKET, BUCKET, seed=7)
+    flagged = [TorchChatLM(model=model, device="cpu", graphs=graphs, **kw) for graphs in (True, False)]
+    if temperature:
+        logits = []
+        got = [lm._generate(ids, mask, step_generator(3, 0, "chat", "cpu"), logits if lm.graphs else None)
+               for lm in flagged]
+        np.testing.assert_array_equal(got[0], got[1])
+        kept = torch.isfinite(warp(logits[0], torch.tensor(temperature), flagged[0]._search.top_k,
+                                   flagged[0]._search.top_p))
+        assert torch.equal(kept, flax_kept(logits[0], flax_model, temperature))
+        unflagged = TorchChatLM(model=plain[1], device="cpu", **kw)
+        assert not np.array_equal(got[0], unflagged._generate(ids, mask, step_generator(3, 0, "chat", "cpu")))
+        return
+    want = flax_ids(FlaxChatLM(model=flax_model, **kw), ids, mask)
+    for lm in flagged:
+        np.testing.assert_array_equal(lm._generate(ids, mask), want)
+    assert not np.array_equal(flax_ids(FlaxChatLM(model=plain[0], **kw), ids, mask), want)
+
+
 @pytest.mark.parametrize("flag, value, temperature", [
-    ("num_beams", 4, 0.0),
     ("no_repeat_ngram_size", 3, 0.0),
-    ("min_length", 40, 0.0),
-    ("suppress_tokens", [5], 0.0),
-    ("top_p", 0.9, 0.6),
-    ("top_k", 20, 0.6),
+    ("num_beams", 4, 0.6),
 ])
 def test_generation_flags_the_port_does_not_implement_are_refused(flag, value, temperature):
-    """Each names its flag, graphed and eager alike; the sampling warpers
-    only where the adapter samples, and ``min_length`` only where it can
-    bite (at or past the smallest bucket: 16)."""
+    """What ``FlaxChatLM`` cannot run, the port refuses by name, graphed and
+    eager alike: ``no_repeat_ngram_size`` and a beam search while sampling
+    (``test_torch_chat_beams.py`` and ``test_torch_chat_rules.py`` hold
+    Flax's own failures on both)."""
     from tests.test_torch_chat_decoders import torch_model
 
     model = torch_model("gptj")
@@ -169,7 +211,4 @@ def test_generation_flags_the_port_does_not_implement_are_refused(flag, value, t
         with pytest.raises(ValueError, match=f"generation_config.{flag}="):
             TorchChatLM(temperature=temperature, graphs=graphs, **kw)
     if temperature:
-        assert TorchChatLM(temperature=0.0, **kw).decode == "graphs"
-    if flag == "min_length":
-        model.generation_config.min_length = 15
         assert TorchChatLM(temperature=0.0, **kw).decode == "graphs"

@@ -10,7 +10,8 @@ CPU at tiny widths.
   forward over its growing cache): the same ids, greedy and sampled, over
   turns that switch prompt buckets and come back.
 * Sampling: it replays from its seed, and ``sample_top_k`` draws the top-50
-  distribution (a frequency test beside ``torch.multinomial``).
+  distribution (a frequency test beside ``torch.multinomial``; exactly 50
+  kept where two tie at the 50th, as the Flax top-k warper keeps them).
 * The decoders refuse, by name, a configuration they do not implement; a
   model type without decode steps decodes eagerly and says so.
 * A stub ``torch.cuda.CUDAGraph`` stands in for the card: the capture runs
@@ -29,7 +30,8 @@ import numpy as np
 import pytest
 import torch
 
-from emojivoice_tpu_torch.apps.decode import DecodeGraphs, GPT2Decoder, WhisperDecoder, sample_top_k
+from emojivoice_tpu_torch.apps.decode import (ChatRules, ChatSearch, DecodeGraphs, GPT2Decoder, WhisperDecoder,
+                                              sample_top_k)
 from emojivoice_tpu_torch.apps.torch_adapters import TorchChatLM, TorchWhisperASR, import_transformers
 from emojivoice_tpu_torch.utils.prng import step_generator
 from tests.test_torch_adapters import StubTokenizer, seeded_features, whisper_config
@@ -62,6 +64,12 @@ def tiny_gpt2():
     return gpt2()
 
 
+def chat_search(model, max_new_tokens=8):
+    """The ``ChatSearch`` that ``TorchChatLM`` hands its decoder: `model`'s
+    generation config over its vocabulary, greedy, on the CPU."""
+    return ChatSearch(model.generation_config, model.get_output_embeddings().weight.shape[0], max_new_tokens, "cpu")
+
+
 def left_padded(n_real, bucket, seed):
     ids = np.zeros((1, bucket), np.int64)
     ids[0, bucket - n_real:] = np.random.default_rng(seed).integers(3, 96, n_real)
@@ -76,7 +84,7 @@ def test_gpt2_steps_match_the_models_logits(tiny_gpt2, n_pad):
     model's forward over the whole left-padded sequence.  A longer bucket's
     turn runs first, so stale slots past the bucket are in the cache; the
     pad rows' cached keys and values stay finite."""
-    dec = GPT2Decoder(tiny_gpt2, BUCKETS, max_new_tokens=8)
+    dec = GPT2Decoder(tiny_gpt2, BUCKETS, chat_search(tiny_gpt2))
     with torch.no_grad():
         ids, mask = left_padded(40, 64, seed=9)
         dec.inputs(64)[0].copy_(torch.from_numpy(ids))
@@ -113,7 +121,8 @@ def test_whisper_steps_match_the_models_logits():
     teacher-forced steps: each step's logits against the model's forward
     over the whole decoder sequence."""
     model = whisper(seed=2)
-    dec = WhisperDecoder(model, max_length=16, start=1)
+    dec = WhisperDecoder(model, max_length=16, start=1,
+                         rules=ChatRules(model.generation_config, model.config.vocab_size, 15, "cpu"))
     feats = torch.from_numpy(seeded_features(4))
     forced = [1] + list(np.random.default_rng(3).integers(3, 64, 8))
     with torch.no_grad():
@@ -190,24 +199,29 @@ def test_sampling_replays_from_its_seed(tiny_gpt2):
 def test_sample_top_k_draws_the_top_k_distribution():
     """40,000 draws on fixed logits (80 tokens, a tie at the 50th): each
     token's frequency within 5 standard errors of its probability, beside
-    ``torch.multinomial``'s; tokens under the 50th are never drawn, and both
-    tokens tied at the 50th are kept."""
+    ``torch.multinomial``'s; tokens under the 50th are never drawn, and of
+    the two tokens tied at the 50th exactly one is kept, the lower token id,
+    as the Flax top-k warper (``lax.top_k``) keeps exactly k."""
     n, temperature = 40_000, torch.tensor(0.7)
     logits = torch.from_numpy(np.random.default_rng(0).normal(size=80).astype(np.float32)) * 0.5
     order = logits.argsort(descending=True)
     logits[order[50]] = logits[order[49]]  # a tie at the 50th
     scaled = logits / temperature
-    probs = torch.softmax(scaled.masked_fill(scaled < scaled[order[49]], float("-inf")), -1)
+    kept = torch.zeros(80, dtype=torch.bool)
+    kept[order[:49]] = True
+    low, high = sorted((int(order[49]), int(order[50])))
+    kept[low] = True
+    probs = torch.softmax(scaled.masked_fill(~kept, float("-inf")), -1)
     gen = torch.Generator().manual_seed(1)
     u = torch.rand(n, generator=gen)
-    drawn = sample_top_k(logits.expand(n, -1), temperature, u)[:, 0]
+    drawn = sample_top_k(logits.expand(n, -1), temperature, u, 50, None)[:, 0]
     ref = torch.multinomial(probs, n, replacement=True, generator=gen)
     se = (probs * (1 - probs) / n).sqrt()
     for draws in (drawn, ref):
         freq = torch.bincount(draws, minlength=80).double() / n
         assert float(((freq - probs).abs() - 5 * se - 1e-9).max()) <= 0
-    assert int((probs > 0).sum()) == 51 and set(drawn.tolist()) <= set(torch.nonzero(probs).flatten().tolist())
-    assert {int(order[49]), int(order[50])} <= set(drawn.tolist())
+    assert int((probs > 0).sum()) == 50 and set(drawn.tolist()) <= set(torch.nonzero(probs).flatten().tolist())
+    assert low in set(drawn.tolist()) and high not in set(drawn.tolist())
 
 
 # ---------------------------------------------------------------- refusals
@@ -229,16 +243,22 @@ def test_whisper_decoder_refuses_what_it_does_not_implement(flag, value):
         TorchWhisperASR(model=whisper(**{flag: value}), tokenizer=StubTokenizer(), device="cpu")
 
 
+def gpt_neox(seed=0):
+    """A tiny GPT-NeoX, a causal LM type without decode steps in the port."""
+    torch.manual_seed(seed)
+    return tf.GPTNeoXForCausalLM(tf.GPTNeoXConfig(vocab_size=96, hidden_size=32, num_hidden_layers=2,
+                                                  num_attention_heads=2, intermediate_size=64,
+                                                  max_position_embeddings=256, bos_token_id=1,
+                                                  eos_token_id=2)).eval()
+
+
 def test_another_causal_lm_is_refused_by_type(capsys):
     """A causal LM whose type has no decode steps in the port (here a tiny
-    BART decoder) is not refused: the default ``TorchChatLM`` decodes it
-    through transformers' forward on its device, says so on one line, and
-    gives the ids of ``graphs=False``, greedy and sampled."""
-    torch.manual_seed(0)
-    model = tf.BartForCausalLM(tf.BartConfig(vocab_size=96, d_model=32, decoder_layers=2, encoder_layers=2,
-                                             decoder_attention_heads=2, encoder_attention_heads=2,
-                                             decoder_ffn_dim=64, encoder_ffn_dim=64,
-                                             max_position_embeddings=256)).eval()
+    GPT-NeoX; BART's decoder has steps of its own since they were written)
+    is not refused: the default ``TorchChatLM`` decodes it through
+    transformers' forward on its device, says so on one line, and gives the
+    ids of ``graphs=False``, greedy and sampled."""
+    model = gpt_neox()
     capsys.readouterr()
     for temperature in (0.0, 0.8):
         lm, eager = chat_pair(model, temperature)
@@ -247,7 +267,7 @@ def test_another_causal_lm_is_refused_by_type(capsys):
         gens = [step_generator(7, 0, "chat", "cpu") if temperature else None for _ in range(2)]
         np.testing.assert_array_equal(lm._generate(ids, mask, gens[0]), eager._generate(ids, mask, gens[1]))
     said = [line for line in capsys.readouterr().out.splitlines() if line.startswith("[TorchChatLM]")]
-    assert said == ["[TorchChatLM] model_type 'bart' has no decode steps in the port: it decodes through "
+    assert said == ["[TorchChatLM] model_type 'gpt_neox' has no decode steps in the port: it decodes through "
                     "transformers' forward on cpu, one token at a time"] * 2  # one line for each adapter made
 
 

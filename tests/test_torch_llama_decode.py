@@ -42,7 +42,7 @@ from emojivoice_tpu_torch.apps.torch_adapters import TorchChatLM  # noqa: E402
 from emojivoice_tpu_torch.io.from_jax import hf_flax_params_to_torch  # noqa: E402
 from emojivoice_tpu_torch.utils.prng import step_generator  # noqa: E402
 from tests.test_torch_adapters import StubTokenizer, bridged  # noqa: E402
-from tests.test_torch_decode_graphs import left_padded, stub_card  # noqa: E402,F401  (stub_card is a fixture)
+from tests.test_torch_decode_graphs import chat_search, left_padded, stub_card  # noqa: E402,F401  (stub_card is a fixture)
 
 torch.set_num_threads(2)
 
@@ -135,7 +135,7 @@ def test_llama_steps_match_the_models_logits(pairs, family, n_pad):
     logits against the model's forward; the pad rows' cached keys and
     values stay finite."""
     model = pairs[family][1]
-    dec = LlamaDecoder(model, BUCKETS, max_new_tokens=8)
+    dec = LlamaDecoder(model, BUCKETS, chat_search(model))
     assert (dec.heads, dec.kv_heads, dec.head_dim) == (4, 2, 16 if family == "gemma" else 8)
     with torch.no_grad():
         ids, mask = left_padded(40, 64, seed=9)
@@ -155,7 +155,7 @@ def test_published_rope_scaling_and_tied_head_follow_the_model():
     model = torch_model("llama", rope_theta=500000.0, tie_word_embeddings=True, attention_bias=True,
                         rope_scaling=dict(rope_type="llama3", factor=32.0, low_freq_factor=1.0, high_freq_factor=4.0,
                                           original_max_position_embeddings=64))
-    dec = LlamaDecoder(model, BUCKETS, max_new_tokens=8)
+    dec = LlamaDecoder(model, BUCKETS, chat_search(model))
     assert dec.rope_type == "llama3" and torch.equal(dec.inv_freq, model.model.rotary_emb.inv_freq.float())
     assert model.lm_head.weight is model.model.embed_tokens.weight
     err = teacher_forced(dec, model, 32, 3)
@@ -182,7 +182,7 @@ def test_f12_flax_llama_ignores_rope_theta(pairs):
         with torch.no_grad():
             want = model(input_ids=torch.from_numpy(ids), attention_mask=torch.from_numpy(mask),
                          position_ids=torch.from_numpy(pos)).logits[0, -1].numpy()
-        dec = LlamaDecoder(model, (16,), max_new_tokens=1)
+        dec = LlamaDecoder(model, (16,), chat_search(model, 1))
         dec.inputs(16)[0].copy_(torch.from_numpy(ids))
         dec.inputs(16)[1].copy_(torch.from_numpy(mask))
         with torch.no_grad():
@@ -306,7 +306,7 @@ def gpt_neo():
 
 
 def bart():
-    """A BART decoder, a causal LM type without decode steps in the port."""
+    """A BART decoder (``BartForCausalLM``: decode steps of its own, ``decode.BartDecoder``)."""
     torch.manual_seed(0)
     cfg = transformers.BartConfig(vocab_size=96, d_model=32, decoder_layers=2, encoder_layers=2,
                                   decoder_attention_heads=2, encoder_attention_heads=2, decoder_ffn_dim=64,
@@ -314,18 +314,28 @@ def bart():
     return transformers.BartForCausalLM(cfg).eval()
 
 
-@pytest.mark.parametrize("family, decode", [("llama", "graphs"), ("gpt_neo", "graphs"), ("bart", "eager")])
+def gpt_neox():
+    """A GPT-NeoX, a causal LM type without decode steps in the port."""
+    torch.manual_seed(0)
+    cfg = transformers.GPTNeoXConfig(vocab_size=96, hidden_size=32, num_hidden_layers=2, num_attention_heads=2,
+                                     intermediate_size=64, max_position_embeddings=256, bos_token_id=1,
+                                     eos_token_id=2)
+    return transformers.GPTNeoXForCausalLM(cfg).eval()
+
+
+@pytest.mark.parametrize("family, decode", [("llama", "graphs"), ("gpt_neo", "graphs"), ("bart", "graphs"),
+                                            ("gpt_neox", "eager")])
 def test_feel_me_llm_device_constructs_for_the_family(family, decode, tmp_path, monkeypatch, capsys):
     """``feel_me --llm device --llm_model <dir>`` on a model saved with
     ``save_pretrained`` (the stub tokenizer in place of the tokenizer files):
-    a tiny llama and a tiny gpt_neo decode through their graphs, a tiny
-    BART decoder through the eager loop and says so on one line; either way
-    its ids equal ``graphs=False``'s."""
+    a tiny llama, gpt_neo and BART decoder decode through their graphs, a
+    tiny GPT-NeoX (a type without decode steps) through the eager loop and
+    says so on one line; either way its ids equal ``graphs=False``'s."""
     from emojivoice_tpu_torch.apps import feel_me
     from emojivoice_tpu_torch.apps.feel_me import FeelMe
     from emojivoice_tpu_torch.inference.pipeline import SynthesisPipeline
 
-    model = {"llama": lambda: torch_model("llama"), "gpt_neo": gpt_neo, "bart": bart}[family]()
+    model = {"llama": lambda: torch_model("llama"), "gpt_neo": gpt_neo, "bart": bart, "gpt_neox": gpt_neox}[family]()
     model.save_pretrained(tmp_path / family)
     monkeypatch.setattr(transformers.AutoTokenizer, "from_pretrained", lambda name, **kw: StubTokenizer())
     monkeypatch.setattr(SynthesisPipeline, "from_random", classmethod(lambda cls, **kw: object()))
