@@ -15,6 +15,15 @@ synthesis and the device adapters on the CPU.
 
 Defaults mirror the reference operating point: 10 ODE steps, temperature
 0.667, speaking rate 0.8, denoiser 2.5e-4 (feel_me.py:71-77,185).
+
+With the recorder of ``utils/observability.py`` enabled, a turn records
+``feel_me.respond`` (the chat LM's reply, whose ``llm.*`` spans are its
+children, then the emoji parse and the voice's choice) and one
+``feel_me.segment`` a chunk handed to the sink (a spoken segment on the
+pipelined path), with its index: the making of the chunk up to its hand
+over, so the first one's end is the turn's first audio.  Take the spans
+out and the module is the JAX package's, statement for statement
+(``tests/test_torch_import.py``).
 """
 
 from __future__ import annotations
@@ -24,6 +33,7 @@ from typing import List, Optional
 
 from emojivoice_tpu_torch.apps import adapters as ad
 from emojivoice_tpu_torch.apps.emoji import EMOJI_MAPPING, EMOJI_MAPPING_MALE, parse_emoji_response
+from emojivoice_tpu_torch.utils import observability as obs
 
 # Reference system prompt (feel_me.py:38-62) — instructs exactly one
 # trailing emoji from the 11-voice set.
@@ -134,13 +144,14 @@ class FeelMe:
             chosen, _ = choose_strategy(text, self.segment_chars,
                                         self.speaking_rate)
             if chosen != "full":
-                for chunk in auto_stream(self.pipeline, text, spk=spk,
-                                         segment_chars=self.segment_chars,
-                                         language=self.language, **kw):
+                for chunk in obs.spanned(auto_stream(self.pipeline, text, spk=spk,
+                                                     segment_chars=self.segment_chars,
+                                                     language=self.language, **kw), "feel_me.segment"):
                     self.sink.play(chunk, 22050)
                 return None
-        res = self.pipeline.synthesise(
-            [text], spks=[spk], language=self.language, **kw)[0]
+        with obs.span("feel_me.segment", segment=0):
+            res = self.pipeline.synthesise(
+                [text], spks=[spk], language=self.language, **kw)[0]
         self.sink.play(res.wav, res.sample_rate)
         return res
 
@@ -148,11 +159,12 @@ class FeelMe:
         """LLM half of a turn: user text → (llm reply, speaker id, spoken
         text), no audio.  Lets UIs display the reply before/while speaking
         (the reference game types the text, then plays, main.py:324-368)."""
-        response = self.llm.chat(self.prompt, self.history, user_text)
-        self.history.append({"role": "user", "content": user_text})
-        self.history.append({"role": "assistant", "content": response})
-        spk, text = parse_emoji_response(response, self.mapping)
-        spoken = text if text else "nice"  # reference: feel_me.py:315-317
+        with obs.span("feel_me.respond"):
+            response = self.llm.chat(self.prompt, self.history, user_text)
+            self.history.append({"role": "user", "content": user_text})
+            self.history.append({"role": "assistant", "content": response})
+            spk, text = parse_emoji_response(response, self.mapping)
+            spoken = text if text else "nice"  # reference: feel_me.py:315-317
         return response, spk, spoken
 
     def turn(self, user_text: str) -> tuple[str, int, str]:

@@ -32,6 +32,18 @@ same distribution (temperature, then the generation config's top-k and
 top-p) by inverse CDF from the turn's uniforms, drawn at once before its
 first token (``decode.sample_top_k``), in both modes alike.
 
+With the recorder of ``utils/observability.py`` enabled, both record spans
+on the calling thread.  Whisper: ``asr.features`` (from ``transcribe``'s
+call: the wav's load and resample and the log-mel on the host),
+``asr.encode`` (the features' copy in and the encoder) and one ``asr.step``
+a token (the decode step and the token's read).  The chat LM, each span
+with the adapter's ``turn``: ``llm.prompt`` (the messages, the fit to a
+bucket and the tokenizer), ``llm.prefill`` (the prefill through the first
+token's read), one ``llm.step`` a further token with, inside it,
+``llm.replay`` (the step's graph launch on the host, or its eager forward)
+and ``llm.read`` (the token's copy to the host and the wait for it), and
+``llm.detokenize``.
+
 Both take either a pretrained name or an injected (model, tokenizer); tests
 drive them with tiny random-init configs and stub tokenizers.  Each runs on
 the card unless ``device="cpu"`` is given.
@@ -64,6 +76,7 @@ from emojivoice_tpu_torch.apps.decode import (BartDecoder, BloomDecoder, ChatRul
                                               GPT2Decoder, GPTJDecoder, GPTNeoDecoder, LlamaDecoder, OPTDecoder,
                                               WhisperDecoder, XGLMDecoder, beam_reset, beam_result, beam_state,
                                               beam_step, sample_top_k, token_list)
+from emojivoice_tpu_torch.utils import observability as obs
 from emojivoice_tpu_torch.utils.prng import step_generator
 
 WHISPER_SAMPLE_RATE = 16_000
@@ -183,11 +196,13 @@ class TorchWhisperASR:
             if self.graphs.watch(self._model):
                 self._dec = self._decoder()
             dec = self._dec
-            dec.feats.copy_(feats)
-            self.graphs.run(("encode",), dec.encode)
+            with obs.span("asr.encode"):
+                dec.feats.copy_(feats)
+                self.graphs.run(("encode",), dec.encode)
             for cur in range(1, self._max_length):
-                self.graphs.run(("decode", self._max_length), dec.step)
-                tok = self.graphs.read(dec.tok)
+                with obs.span("asr.step"):
+                    self.graphs.run(("decode", self._max_length), dec.step)
+                    tok = self.graphs.read(dec.tok)
                 if logits_out is not None:
                     logits_out.append(dec.logits.clone())
                 seq[0, cur] = tok
@@ -196,22 +211,25 @@ class TorchWhisperASR:
         return seq
 
     def _generate_eager(self, feats: torch.Tensor, seq: np.ndarray, logits_out: Optional[list]) -> np.ndarray:
-        enc = self._model.get_encoder()(feats)
+        with obs.span("asr.encode"):
+            enc = self._model.get_encoder()(feats)
         ids = torch.tensor([[self._start]], device=self.device)
         past = None
         for cur in range(1, self._max_length):
-            out = self._model(encoder_outputs=enc, decoder_input_ids=ids, past_key_values=past, use_cache=True)
-            logits = self._rules(out.logits[:, -1].float(), cur - 1, 1)
+            with obs.span("asr.step"):
+                out = self._model(encoder_outputs=enc, decoder_input_ids=ids, past_key_values=past, use_cache=True)
+                logits = self._rules(out.logits[:, -1].float(), cur - 1, 1)
+                tok = int(logits.argmax(-1))
             if logits_out is not None:
                 logits_out.append(logits.clone())
-            tok = int(logits.argmax(-1))
             seq[0, cur] = tok
             if tok in self._eos:
                 break
             ids, past = torch.tensor([[tok]], device=self.device), out.past_key_values
         return seq
 
-    def transcribe_array(self, wav: np.ndarray, sample_rate: int) -> str:
+    def _features(self, wav: np.ndarray, sample_rate: int) -> np.ndarray:
+        """Audio → the log-mel features (1, n_mels, 3000), on the host."""
         from emojivoice_tpu_torch.data.audio_np import resample_poly_np
 
         wav = np.asarray(wav, dtype=np.float32)
@@ -219,12 +237,21 @@ class TorchWhisperASR:
             wav = wav.mean(axis=-1)
         if sample_rate != WHISPER_SAMPLE_RATE:
             wav = resample_poly_np(wav, sample_rate, WHISPER_SAMPLE_RATE)
-        feats = self._fe(wav, sampling_rate=WHISPER_SAMPLE_RATE, return_tensors="np").input_features
+        return self._fe(wav, sampling_rate=WHISPER_SAMPLE_RATE, return_tensors="np").input_features
+
+    def _text(self, feats: np.ndarray) -> str:
         seq = self._generate(feats)[0]
         return self._tok.decode(seq.tolist(), skip_special_tokens=True).strip()
 
+    def transcribe_array(self, wav: np.ndarray, sample_rate: int) -> str:
+        with obs.span("asr.features"):
+            feats = self._features(wav, sample_rate)
+        return self._text(feats)
+
     def transcribe(self, wav_path: str) -> str:
-        return self.transcribe_array(_load_wav_16k(wav_path), WHISPER_SAMPLE_RATE)
+        with obs.span("asr.features"):
+            feats = self._features(_load_wav_16k(wav_path), WHISPER_SAMPLE_RATE)
+        return self._text(feats)
 
 
 class TorchChatLM:
@@ -380,8 +407,10 @@ class TorchChatLM:
         prompt's real tokens from 0, as the Flax GPT-2 does; a pad's own
         position is never attended to.  With `logits_out`, each step's scores
         after the rules, (1, V) f32 (with beams (beams, V) log-probabilities)
-        on the device, are appended to it."""
-        bucket = ids.shape[1]
+        on the device, are appended to it.  Its spans carry the turn ``chat``
+        counted for it (the prompt's copy in, before ``llm.prefill``, is in
+        none of them)."""
+        bucket, turn = ids.shape[1], self._turn - 1
         seq = np.full((1, bucket + self.max_new_tokens), self._fill, dtype=np.int64)
         seq[0, :bucket] = ids[0]
         sample, beams = generator is not None, self._search.beams > 1
@@ -390,7 +419,8 @@ class TorchChatLM:
                              "beam sampling is not implemented (nor by FlaxChatLM)")
         ids_t, mask_t = torch.from_numpy(np.asarray(ids, np.int64)), torch.from_numpy(np.asarray(mask, np.int64))
         if self.graphs is None:
-            return self._generate_eager(ids_t.to(self.device), mask_t.to(self.device), generator, seq, logits_out)
+            return self._generate_eager(ids_t.to(self.device), mask_t.to(self.device), generator, seq, logits_out,
+                                        turn)
         with self.graphs.lock:
             if self.graphs.watch(self._model):
                 self._dec = self._decoder()
@@ -402,18 +432,24 @@ class TorchChatLM:
                 torch.rand(self.max_new_tokens, generator=generator, device=self.device, out=dec.u)
                 dec.temperature.fill_(self.temperature)
             for cur in range(bucket, seq.shape[1]):
-                if cur == bucket:
-                    key = ("beam_prefill", bucket) if beams else ("prefill", bucket, sample)
-                    self.graphs.run(key, lambda: dec.prefill(bucket, sample))
-                else:
-                    self.graphs.run(("beam_decode",) if beams else ("decode", sample), lambda: dec.step(sample))
-                if logits_out is not None:
-                    logits_out.append(dec.logits.clone())
+                prefill = cur == bucket
+                with obs.span("llm.prefill" if prefill else "llm.step", turn=turn):
+                    with obs.span(None if prefill else "llm.replay", turn=turn):
+                        if prefill:
+                            key = ("beam_prefill", bucket) if beams else ("prefill", bucket, sample)
+                            self.graphs.run(key, lambda: dec.prefill(bucket, sample))
+                        else:
+                            self.graphs.run(("beam_decode",) if beams else ("decode", sample), lambda: dec.step(sample))
+                    if logits_out is not None:
+                        logits_out.append(dec.logits.clone())
+                    with obs.span(None if prefill else "llm.read", turn=turn):
+                        # whether the beams are done, or the token
+                        value = self.graphs.read(dec.beam["done"] if beams else dec.tok)
                 if beams:
-                    if self.graphs.read(dec.beam["done"]):
+                    if value:
                         break
                     continue
-                seq[0, cur] = self.graphs.read(dec.tok)
+                seq[0, cur] = value
                 if seq[0, cur] in self._stop:
                     break
             if beams:
@@ -421,7 +457,7 @@ class TorchChatLM:
         return seq
 
     def _generate_eager(self, inp: torch.Tensor, attn: torch.Tensor, generator: Optional[torch.Generator],
-                        seq: np.ndarray, logits_out: Optional[list]) -> np.ndarray:
+                        seq: np.ndarray, logits_out: Optional[list], turn: Optional[int] = None) -> np.ndarray:
         """Transformers' forward over its growing cache, a token at a time.
         A forward that takes ``position_ids`` gets, at every call, a tensor
         of its own: the mask's count of real tokens from 0, for the tokens
@@ -449,20 +485,27 @@ class TorchChatLM:
         past = None
         for cur in range(bucket, seq.shape[1]):
             n = cur - bucket
-            kw = {}
-            if self._takes_positions:
-                kw["position_ids"] = (attn.cumsum(-1) - 1).clamp(min=0)[:, -inp.shape[1]:]
-            out = self._model(input_ids=inp, attention_mask=attn, past_key_values=past, use_cache=True, **kw)
-            logits = out.logits[:, -1].float()
-            if state is None:
-                logits = self._rules(logits, n, bucket)
-                tok = self._next_token(logits, None if u is None else u[n: n + 1], temperature)
-                seq[0, cur] = int(tok)
-                done = seq[0, cur] in self._stop
-            else:
-                logits = self._rules(torch.log_softmax(logits, dim=-1), n, bucket)
-                chosen = beam_step(state, search, logits, n)
-                tok, done = state["tok"].clone(), bool(state["done"])
+            with obs.span("llm.prefill" if n == 0 else "llm.step", turn=turn):
+                with obs.span(None if n == 0 else "llm.replay", turn=turn):
+                    kw = {}
+                    if self._takes_positions:
+                        kw["position_ids"] = (attn.cumsum(-1) - 1).clamp(min=0)[:, -inp.shape[1]:]
+                    out = self._model(input_ids=inp, attention_mask=attn, past_key_values=past, use_cache=True,
+                                      **kw)
+                    logits = out.logits[:, -1].float()
+                    if state is None:
+                        logits = self._rules(logits, n, bucket)
+                        tok = self._next_token(logits, None if u is None else u[n: n + 1], temperature)
+                    else:
+                        logits = self._rules(torch.log_softmax(logits, dim=-1), n, bucket)
+                        chosen = beam_step(state, search, logits, n)
+                        tok = state["tok"].clone()
+                with obs.span(None if n == 0 else "llm.read", turn=turn):
+                    if state is None:
+                        seq[0, cur] = int(tok)
+                        done = seq[0, cur] in self._stop
+                    else:
+                        done = bool(state["done"])
             if logits_out is not None:
                 logits_out.append(logits.clone())
             if done:
@@ -478,9 +521,12 @@ class TorchChatLM:
     def chat(self, system_prompt: str, history: List[dict], user_msg: str) -> str:
         from emojivoice_tpu_torch.apps.adapters import build_messages
 
-        ids, mask, bucket = self._encode(build_messages(system_prompt, history, user_msg))
-        generator = step_generator(self.seed, self._turn, "chat", self.device) if self.temperature > 0 else None
+        turn = self._turn
+        with obs.span("llm.prompt", turn=turn):
+            ids, mask, bucket = self._encode(build_messages(system_prompt, history, user_msg))
+            generator = step_generator(self.seed, turn, "chat", self.device) if self.temperature > 0 else None
         self._turn += 1
         new_ids = self._generate(ids, mask, generator)[0, bucket:].tolist()
-        new_ids = new_ids[: next((i for i, t in enumerate(new_ids) if t in self._eos), len(new_ids))]
-        return self._tok.decode(new_ids, skip_special_tokens=True).strip()
+        with obs.span("llm.detokenize", turn=turn):
+            new_ids = new_ids[: next((i for i, t in enumerate(new_ids) if t in self._eos), len(new_ids))]
+            return self._tok.decode(new_ids, skip_special_tokens=True).strip()

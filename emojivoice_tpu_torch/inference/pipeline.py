@@ -42,7 +42,14 @@ into pinned host memory are enqueued too, and ``finalize`` waits for
 this batch's copies only: work enqueued later, by this thread or another,
 does not delay it.  Each call records when every stage ended (CUDA events
 on the card, the host clock on the CPU) and reports per-stage milliseconds
-beside the reference RTF formulas.
+beside the reference RTF formulas; its ``PendingSynthesis`` carries the
+host's seconds in the text frontend and in the two-stage host read.  With
+the recorder of ``utils/observability.py`` enabled, ``synthesise_async``
+records on the calling thread ``pipeline.frontend`` (``encode_texts``),
+``pipeline.stage_a`` (the inputs' upload and the encoder),
+``pipeline.host_read`` (the read that picks the mel bucket) and
+``pipeline.launch`` (the noise, the decoder, vocoder and denoiser, and the
+host copies enqueued).
 
 **Through captured CUDA graphs** (``graphs=``; the default on a CUDA device
 without a mesh, as ``jax.jit`` is the reference's default): each stage of a
@@ -92,6 +99,7 @@ from emojivoice_tpu_torch.inference.graphs import GraphStore
 from emojivoice_tpu_torch.models.matcha import MatchaTTS
 from emojivoice_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, collectives, gather_rows, rows
 from emojivoice_tpu_torch.parallel.tp import shard_params
+from emojivoice_tpu_torch.utils import observability as obs
 from emojivoice_tpu_torch.utils.buckets import default_mel_buckets, default_text_buckets, pick_bucket
 from emojivoice_tpu_torch.utils.masks import fix_len_compatibility, intersperse
 from emojivoice_tpu_torch.utils.prng import synthesis_noise
@@ -149,6 +157,8 @@ class PendingSynthesis:
     t0: float
     clock: StageClock
     done: Any = None  # CUDA event recorded after the copies; None on the CPU
+    frontend_s: float = 0.0  # the host's text frontend (``encode_texts``), seconds
+    host_read_s: float = 0.0  # the host read of the predicted mel length (0 fused), seconds
 
 
 class SynthesisPipeline:
@@ -411,7 +421,9 @@ class SynthesisPipeline:
         if vocode and self.vocoder is None:
             raise ValueError("this pipeline has no vocoder: it serves mels only (pass vocode=False)")
         t0 = time.perf_counter()
-        x_np, xl_np, cleaned, _ = self.encode_texts(texts, language)
+        with obs.span("pipeline.frontend"):
+            x_np, xl_np, cleaned, _ = self.encode_texts(texts, language)
+        frontend_s = time.perf_counter() - t0
         b = x_np.shape[0]
         if seed is None:
             if self.mesh is not None:
@@ -419,56 +431,70 @@ class SynthesisPipeline:
             seed = int(np.random.randint(0, 2**31))
         if self.graphs is not None:
             with self.graphs.lock:
-                out, clock = self._staged(x_np, xl_np, spks, seed, n_timesteps, temperature, length_scale,
-                                          denoiser_strength, fused, fused_mel_bucket, keep_mel, vocode, pcm16)
-                out, done = to_host_async(out)
-            return PendingSynthesis(out=out, cleaned=cleaned, b=b, t0=t0, clock=clock, done=done)
+                out, done, clock, host_read_s = self._staged(
+                    x_np, xl_np, spks, seed, n_timesteps, temperature, length_scale, denoiser_strength, fused,
+                    fused_mel_bucket, keep_mel, vocode, pcm16)
+            return PendingSynthesis(out=out, cleaned=cleaned, b=b, t0=t0, clock=clock, done=done,
+                                    frontend_s=frontend_s, host_read_s=host_read_s)
         clock = StageClock(self.device)
         # over a mesh whose data axis divides the batch, this rank's rows; all of them otherwise
         group = self.mesh.group(DATA_AXIS) if self.mesh is not None and b % self.mesh.size(DATA_AXIS) == 0 \
             and self.mesh.size(DATA_AXIS) > 1 else None
         mine = rows(self.mesh if group is not None else None, b)
-        x = upload(torch.from_numpy(x_np[mine]), self.device)
-        x_lengths = upload(torch.from_numpy(xl_np[mine]), self.device)
-        spk = self._speakers(spks, b)
-        spk = spk[mine] if spk is not None else None
+        with obs.span("pipeline.stage_a"):
+            x = upload(torch.from_numpy(x_np[mine]), self.device)
+            x_lengths = upload(torch.from_numpy(xl_np[mine]), self.device)
+            spk = self._speakers(spks, b)
+            spk = spk[mine] if spk is not None else None
 
-        # fused, the encoder runs in the compute dtype; two-stage, stage A stays f32 (the JAX stage A casts nothing)
-        enc = (self.compute_model if fused else self.model).encode_text(x, x_lengths, spk, length_scale)
-        clock.mark("encoder")
+            # fused, the encoder runs in the compute dtype; two-stage, stage A stays f32 (the JAX stage A casts nothing)
+            enc = (self.compute_model if fused else self.model).encode_text(x, x_lengths, spk, length_scale)
+            clock.mark("encoder")
+        host_read_s = 0.0
         if fused:
             m_bucket = fused_mel_bucket or self.mel_buckets[-1]
         else:
-            # the host sync: the predicted mel length picks the mel bucket
-            y_len_max = enc[2].max()
-            if group is not None:
-                collectives["all_reduce"] += 1
-                torch.distributed.all_reduce(y_len_max, op=torch.distributed.ReduceOp.MAX, group=group)
-            y_len_max = int(y_len_max.item())
-            m_bucket = pick_bucket(fix_len_compatibility(y_len_max), self.mel_buckets)
+            m_bucket, host_read_s = self._mel_bucket(enc[2], group)
             if self.compute_dtype != torch.float32:  # stage B's inputs in the compute dtype, as the JAX stage B casts
                 mu_x, w_ceil, y_lengths, x_mask, spk_e = enc
                 dt = self.compute_dtype
                 enc = (mu_x.to(dt), w_ceil, y_lengths, x_mask.to(dt), spk_e.to(dt) if spk_e is not None else None)
-        z = synthesis_noise(seed, b, m_bucket, self.model_cfg.n_feats, temperature, self.device)[mine]  # f32
-        dec = self.compute_model.decode_mel(*enc, m_bucket, n_timesteps, z)
-        clock.mark("decoder")
+        with obs.span("pipeline.launch"):
+            z = synthesis_noise(seed, b, m_bucket, self.model_cfg.n_feats, temperature, self.device)[mine]  # f32
+            dec = self.compute_model.decode_mel(*enc, m_bucket, n_timesteps, z)
+            clock.mark("decoder")
 
-        out = {"mel_lengths": dec["mel_lengths"]}
-        if keep_mel:
-            out["mel"] = dec["mel"].float()
-        if vocode:
-            out["wav"] = self._vocode_denoise_pcm(dec["mel"], denoiser_strength > 0, denoiser_strength, pcm16,
-                                                  clock)
-        out = {k: gather_rows(v, group) for k, v in out.items()}
-        out, done = to_host_async(out)
-        return PendingSynthesis(out=out, cleaned=cleaned, b=b, t0=t0, clock=clock, done=done)
+            out = {"mel_lengths": dec["mel_lengths"]}
+            if keep_mel:
+                out["mel"] = dec["mel"].float()
+            if vocode:
+                out["wav"] = self._vocode_denoise_pcm(dec["mel"], denoiser_strength > 0, denoiser_strength, pcm16,
+                                                      clock)
+            out = {k: gather_rows(v, group) for k, v in out.items()}
+            out, done = to_host_async(out)
+        return PendingSynthesis(out=out, cleaned=cleaned, b=b, t0=t0, clock=clock, done=done,
+                                frontend_s=frontend_s, host_read_s=host_read_s)
+
+    def _mel_bucket(self, y_lengths: torch.Tensor, group=None) -> tuple[int, float]:
+        """The two-stage host read: the longest predicted mel length (over a
+        mesh's data axis too) picks the mel bucket → (bucket, seconds the
+        read took).  On one CUDA stream the read returns when everything
+        enqueued before it has finished."""
+        t0 = time.perf_counter()
+        with obs.span("pipeline.host_read"):
+            y_len_max = y_lengths.max()
+            if group is not None:
+                collectives["all_reduce"] += 1
+                torch.distributed.all_reduce(y_len_max, op=torch.distributed.ReduceOp.MAX, group=group)
+            m_bucket = pick_bucket(fix_len_compatibility(int(y_len_max.item())), self.mel_buckets)
+        return m_bucket, time.perf_counter() - t0
 
     def _staged(self, x_np, xl_np, spks, seed, n_timesteps, temperature, length_scale, denoiser_strength, fused,
                 fused_mel_bucket, keep_mel, vocode, pcm16):
         """``synthesise_async``'s work through the graph store, one graph per
         stage: encoder + durations, CFM decode, vocoder, denoiser + pcm16;
-        called under the store's lock → (device outputs, clock).  The keys
+        called under the store's lock → (host outputs, the CUDA event after
+        their copies, clock, seconds of the host read).  The keys
         carry what the JAX pipeline's keys carry (``_get_stage_a`` /
         ``_get_stage_b`` / ``_get_fused``) and changes a program here: the
         buckets, the batch, the step count, the dtypes, denoise and pcm16;
@@ -479,29 +505,32 @@ class SynthesisPipeline:
         g = self.graphs
         b, t_bucket = x_np.shape
         clock = StageClock(self.device)
-        x = upload(torch.from_numpy(x_np), self.device)
-        x_lengths = upload(torch.from_numpy(xl_np), self.device)
-        spk = self._speakers(spks, b)
-        # fused, the encoder runs in the compute dtype; two-stage, stage A stays f32 (the JAX stage A casts nothing)
-        model = self.compute_model if fused else self.model
-        enc_key = ("encoder", t_bucket, b, spk is not None, self.compute_dtype if fused else torch.float32)
-        enc = g.run(enc_key, model.encode_text, (x, x_lengths, spk, float(length_scale)), weights=(model,))
-        clock.mark("encoder")
+        with obs.span("pipeline.stage_a"):
+            x = upload(torch.from_numpy(x_np), self.device)
+            x_lengths = upload(torch.from_numpy(xl_np), self.device)
+            spk = self._speakers(spks, b)
+            # fused, the encoder runs in the compute dtype; two-stage, stage A stays f32 (the JAX stage A casts nothing)
+            model = self.compute_model if fused else self.model
+            enc_key = ("encoder", t_bucket, b, spk is not None, self.compute_dtype if fused else torch.float32)
+            enc = g.run(enc_key, model.encode_text, (x, x_lengths, spk, float(length_scale)), weights=(model,))
+            clock.mark("encoder")
+        host_read_s = 0.0
         if fused:
             m_bucket = fused_mel_bucket or self.mel_buckets[-1]
         else:
-            # the host sync: the predicted mel length picks the mel bucket
-            m_bucket = pick_bucket(fix_len_compatibility(int(enc[2].max().item())), self.mel_buckets)
-        z = synthesis_noise(seed, b, m_bucket, self.model_cfg.n_feats, temperature, self.device)  # f32
-        mel, mel_lengths = g.run(("decoder", t_bucket, m_bucket, b, n_timesteps, self.compute_dtype),
-                                 self._decode_fn(m_bucket, n_timesteps), (*enc, z), weights=(self.compute_model,))
-        clock.mark("decoder")
-        out = {"mel_lengths": mel_lengths}
-        if keep_mel:
-            out["mel"] = mel.float()
-        if vocode:
-            out["wav"] = self._vocode_denoise_pcm(mel, denoiser_strength > 0, denoiser_strength, pcm16, clock)
-        return out, clock
+            m_bucket, host_read_s = self._mel_bucket(enc[2])
+        with obs.span("pipeline.launch"):
+            z = synthesis_noise(seed, b, m_bucket, self.model_cfg.n_feats, temperature, self.device)  # f32
+            mel, mel_lengths = g.run(("decoder", t_bucket, m_bucket, b, n_timesteps, self.compute_dtype),
+                                     self._decode_fn(m_bucket, n_timesteps), (*enc, z), weights=(self.compute_model,))
+            clock.mark("decoder")
+            out = {"mel_lengths": mel_lengths}
+            if keep_mel:
+                out["mel"] = mel.float()
+            if vocode:
+                out["wav"] = self._vocode_denoise_pcm(mel, denoiser_strength > 0, denoiser_strength, pcm16, clock)
+            out, done = to_host_async(out)
+        return out, done, clock, host_read_s
 
     def _decode_fn(self, m_bucket: int, n_timesteps: int):
         """Stage B's decode on stage A's outputs, cast to the compute dtype

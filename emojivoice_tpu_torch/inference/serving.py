@@ -39,12 +39,22 @@ instead of B = 1.  What that buys on the H100 is in ``PERF.md``.
   is utt/s from ``stats()``, not 1/rtf.
 
 No external deps, two background threads; ``stats()`` exposes counters for
-observability (batch-size histogram, queue wait, dispatch latency).
+observability (``BatchingEngine.stats``), always on.  With the recorder of
+``utils/observability.py`` enabled, the engine records spans on the host
+clock: on the worker thread ``engine.wait`` (blocked on an empty queue),
+``engine.collect`` (the collection window), ``engine.slot_wait`` (blocked on
+an in-flight slot) and ``engine.dispatch`` (the pipeline's
+``synthesise_async``, whose ``pipeline.*`` spans are its children); on the
+results thread ``engine.fetch`` (``finalize``: the wait for the batch's host
+copies and the results' build) and ``engine.resolve`` (the counters and the
+futures).  Each carries the batch's id (``batch``), and those from the
+collection on the batch's request ids (``rids``, one per ``submit``).
 """
 
 from __future__ import annotations
 
 import collections
+import itertools
 import queue
 import threading
 import time
@@ -52,6 +62,7 @@ from concurrent.futures import Future
 from dataclasses import dataclass, field
 from typing import Optional, Sequence
 
+from emojivoice_tpu_torch.utils import observability as obs
 from emojivoice_tpu_torch.utils.buckets import pick_bucket
 
 
@@ -62,11 +73,42 @@ class _Request:
     key: tuple
     future: Future
     seed: int = 0
-    t_submit: float = field(default_factory=time.monotonic)
+    rid: int = 0  # the request's id: the engine's count of requests before it
+    t_submit: float = field(default_factory=time.perf_counter)
 
 
 class BatchingEngine:
-    """Coalesces concurrent synthesis requests into padded-batch dispatches."""
+    """Coalesces concurrent synthesis requests into padded-batch dispatches.
+
+    ``stats()``'s counters, on the host clock (``time.perf_counter``), each
+    over the engine's life; a mean divides a sum by its count:
+
+    * ``requests``: submitted; ``batches``: dispatched and finalized;
+      ``batched_rows``, ``pad_rows``, ``batch_hist`` (bucket → batches):
+      their real and pad rows; ``errors``: requests that failed;
+      ``failed_batches``: dispatches or fetches that raised (their rows are
+      dispatched again one by one).
+    * ``wait_s_sum`` (``mean_wait_ms``, ``wait_ms_p50``/``_p95`` over the last
+      1,024 requests): each request's queue wait, from ``submit`` to the start
+      of its batch's dispatch.  It holds the time queued while the worker is
+      busy with earlier batches, then the collection window
+      (``collect_s_sum``) and the wait for an in-flight slot
+      (``slot_wait_s_sum``), counted once per request.  The text frontend and
+      the pipeline's host read come after it.
+    * ``collect_s_sum``: per batch, the collection window, from the worker's
+      first request to the batch's close (the wait window or ``max_batch``).
+    * ``slot_wait_s_sum``: per batch, the worker blocked on one of the two
+      in-flight slots, waiting for the results thread to finish a batch.
+    * ``frontend_s_sum`` and ``host_read_s_sum``: per batch, the pipeline's
+      text frontend (``encode_texts``) and its host read of the predicted mel
+      length (which waits for all work enqueued before it on the stream, an
+      earlier batch's included), as ``PendingSynthesis`` reports them.
+    * ``dispatch_s_sum`` (``mean_dispatch_ms``, over ``batches`` and
+      ``failed_batches``): per batch, from the start of its dispatch to the
+      end of ``finalize``: the host's enqueue, the host read, the device's
+      time for the batch and the wait for its host copies, not the enqueue
+      alone.
+    """
 
     def __init__(
         self,
@@ -108,6 +150,10 @@ class BatchingEngine:
             "batch_hist": collections.Counter(),
             "wait_s_sum": 0.0,
             "dispatch_s_sum": 0.0,
+            "collect_s_sum": 0.0,
+            "slot_wait_s_sum": 0.0,
+            "frontend_s_sum": 0.0,
+            "host_read_s_sum": 0.0,
         }
         # recent per-request queue waits for percentile reporting (bounded:
         # stats() stays O(window), old traffic ages out)
@@ -117,6 +163,7 @@ class BatchingEngine:
         # dispatched-and-unresolved batches (and their device memory) to two
         self._in_flight: queue.Queue = queue.Queue()
         self._slots = threading.Semaphore(2)
+        self._batch_ids = itertools.count()
         self._worker = threading.Thread(target=self._run, name="batching-engine", daemon=True)
         self._finalizer = threading.Thread(target=self._drain, name="batching-engine-results", daemon=True)
         self._finalizer.start()
@@ -169,7 +216,8 @@ class BatchingEngine:
             if seed is None:
                 self._seed = (self._seed + 1) % (2**31 - 1)
                 seed = self._seed
-            self._queue.put(_Request(text=text, spk=int(spk), key=key, future=fut, seed=int(seed)))
+            self._queue.put(_Request(text=text, spk=int(spk), key=key, future=fut, seed=int(seed),
+                                     rid=self._stats["requests"]))
             self._stats["requests"] += 1
         return fut
 
@@ -192,6 +240,8 @@ class BatchingEngine:
                              keep_mel=False, vocode=True, pcm16=self.pcm16)
 
     def stats(self) -> dict:
+        """The counters (the class docstring says what each covers) and the
+        means and percentiles derived from them."""
         with self._lock:
             s = dict(self._stats)
             s["batch_hist"] = dict(self._stats["batch_hist"])
@@ -226,9 +276,9 @@ class BatchingEngine:
         """Gather requests sharing first's program key until max_batch or the
         wait window closes; non-matching requests are handed back."""
         batch, holdback = [first], []
-        deadline = time.monotonic() + self.max_wait_s
+        deadline = time.perf_counter() + self.max_wait_s
         while len(batch) < self.max_batch:
-            remaining = deadline - time.monotonic()
+            remaining = deadline - time.perf_counter()
             if remaining <= 0:
                 break
             try:
@@ -253,7 +303,7 @@ class BatchingEngine:
             # the failed attempt was a real dispatch: record it so
             # monitoring can see batch-level failures happening at all
             self._stats["failed_batches"] += 1
-            self._stats["dispatch_s_sum"] += time.monotonic() - t0
+            self._stats["dispatch_s_sum"] += time.perf_counter() - t0
         if len(batch) > 1:
             # isolate the poison row: the co-batched requests are
             # innocent (e.g. one text overflows the largest bucket) —
@@ -265,10 +315,14 @@ class BatchingEngine:
         with self._lock:
             self._stats["errors"] += 1
 
-    def _dispatch_async(self, batch: list[_Request]):
+    def _dispatch_async(self, batch: list[_Request], bid: Optional[int] = None, waits: tuple = (0.0, 0.0)):
         """Enqueue one padded batch on the device WITHOUT fetching
         results; returns an in-flight record for _finalize, or None if the
-        dispatch itself failed (already handled)."""
+        dispatch itself failed (already handled).  `bid` is the batch's id
+        (a new one where None), `waits` its (collection window, slot wait),
+        seconds, for the counters."""
+        if bid is None:
+            bid = next(self._batch_ids)
         n = len(batch)
         bucket = pick_bucket(n, self.batch_buckets)
         texts = [r.text for r in batch] + [batch[-1].text] * (bucket - n)
@@ -278,39 +332,49 @@ class BatchingEngine:
         # and are trimmed before results surface)
         seeds = [r.seed for r in batch] + [batch[-1].seed] * (bucket - n)
         steps, temp, ls, dn, language, keep_mel = batch[0].key
-        t0 = time.monotonic()
-        try:
-            pending = self.pipe.synthesise_async(
-                texts, spks=spks, n_timesteps=steps, temperature=temp, length_scale=ls,
-                denoiser_strength=dn, language=language, seed=seeds,
-                keep_mel=keep_mel, pcm16=self.pcm16,
-            )
-        except Exception as e:  # noqa: BLE001 — bad text/shape surfaces here
-            self._fail(batch, e, t0)
-            return None
-        return (batch, n, bucket, pending, t0)
+        with obs.span("engine.dispatch", batch=bid) as sp:
+            if sp is not None:
+                sp.rids = [r.rid for r in batch]
+            t0 = time.perf_counter()
+            try:
+                pending = self.pipe.synthesise_async(
+                    texts, spks=spks, n_timesteps=steps, temperature=temp, length_scale=ls,
+                    denoiser_strength=dn, language=language, seed=seeds,
+                    keep_mel=keep_mel, pcm16=self.pcm16,
+                )
+            except Exception as e:  # noqa: BLE001 — bad text/shape surfaces here
+                self._fail(batch, e, t0)
+                return None
+        return (batch, n, bucket, pending, t0, bid, waits)
 
     def _finalize(self, rec):
         """Fetch a dispatched batch's outputs and resolve its futures."""
-        batch, n, bucket, pending, t0 = rec
+        batch, n, bucket, pending, t0, bid, (collect_s, slot_wait_s) = rec
         try:
-            results = self.pipe.finalize(pending)
+            with obs.span("engine.fetch", batch=bid):
+                results = self.pipe.finalize(pending)
         except Exception as e:  # noqa: BLE001 — runtime errors surface here
             self._fail(batch, e, t0)
             return
-        dt_s = time.monotonic() - t0
-        # update stats BEFORE resolving futures: callers read stats() as
-        # soon as result() unblocks, and must see this batch counted
-        with self._lock:
-            self._stats["batches"] += 1
-            self._stats["batched_rows"] += n
-            self._stats["pad_rows"] += bucket - n
-            self._stats["batch_hist"][bucket] += 1
-            self._stats["dispatch_s_sum"] += dt_s
-            self._stats["wait_s_sum"] += sum(t0 - r.t_submit for r in batch)
-            self._waits.extend(t0 - r.t_submit for r in batch)
-        for r, res in zip(batch, results):
-            self._resolve(r.future, result=res)
+        with obs.span("engine.resolve", batch=bid):
+            dt_s = time.perf_counter() - t0
+            # update stats BEFORE resolving futures: callers read stats() as
+            # soon as result() unblocks, and must see this batch counted
+            with self._lock:
+                self._stats["batches"] += 1
+                self._stats["batched_rows"] += n
+                self._stats["pad_rows"] += bucket - n
+                self._stats["batch_hist"][bucket] += 1
+                self._stats["dispatch_s_sum"] += dt_s
+                self._stats["wait_s_sum"] += sum(t0 - r.t_submit for r in batch)
+                self._waits.extend(t0 - r.t_submit for r in batch)
+                self._stats["collect_s_sum"] += collect_s
+                self._stats["slot_wait_s_sum"] += slot_wait_s
+                # the pipeline's host phases (another backend may report none)
+                self._stats["frontend_s_sum"] += getattr(pending, "frontend_s", 0.0)
+                self._stats["host_read_s_sum"] += getattr(pending, "host_read_s", 0.0)
+            for r, res in zip(batch, results):
+                self._resolve(r.future, result=res)
 
     @staticmethod
     def _resolve(future: Future, result=None, exc=None):
@@ -328,7 +392,9 @@ class BatchingEngine:
         # Dispatch side of the depth-1 pipeline: collect a batch, take a slot,
         # enqueue it on the device, hand it to the results thread.
         while True:
-            req = self._queue.get()
+            bid = next(self._batch_ids)
+            with obs.span("engine.wait", batch=bid):
+                req = self._queue.get()
             if req is None:
                 if self._closed and self._queue.empty():
                     self._in_flight.put(None)  # after every dispatched batch: drain, then stop
@@ -336,11 +402,17 @@ class BatchingEngine:
                     return
                 self._queue.put(None)  # keep the sentinel until the queue drains
                 continue
-            batch, holdback = self._collect(req)
-            for h in holdback:  # different program key → next round
-                self._queue.put(h)
-            self._slots.acquire()
-            rec = self._dispatch_async(batch)
+            t_first = time.perf_counter()
+            with obs.span("engine.collect", batch=bid) as sp:
+                batch, holdback = self._collect(req)
+                for h in holdback:  # different program key → next round
+                    self._queue.put(h)
+                if sp is not None:
+                    sp.rids = [r.rid for r in batch]
+            t_closed = time.perf_counter()
+            with obs.span("engine.slot_wait", batch=bid, rids=sp.rids if sp is not None else None):
+                self._slots.acquire()
+            rec = self._dispatch_async(batch, bid, (t_closed - t_first, time.perf_counter() - t_closed))
             if rec is None:  # failed at dispatch, already handled
                 self._slots.release()
             else:

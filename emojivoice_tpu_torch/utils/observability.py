@@ -3,6 +3,15 @@
 
 * ``trace()`` records a ``torch.profiler`` trace (CPU, and CUDA activities
   when the work runs on the card) and writes it as a Chrome trace;
+* ``span()`` and ``begin()``/``end()`` record the program's own spans at its
+  layer boundaries into a bounded buffer in memory, on the host clock
+  ``time.perf_counter`` (the clock a profiler trace's host markers map onto
+  the device's timeline), each with its own id, the id of the span open on
+  its thread when it began (its cause), the thread's name and the batch,
+  request or turn ids it is given; ``enable()``, ``disable()``, ``drain()``
+  and ``dropped()`` (the spans a full buffer turned away) control it.  Off by default: a span site then costs
+  its call and one module-level flag test; no span is made, no lock taken
+  and no clock read;
 * ``enable_nan_checks()`` is ``torch.autograd.set_detect_anomaly``;
 * ``seed_everything()`` seeds python, numpy and torch;
 * ``is_main_process`` / ``main_process_only`` read the ``torch.distributed``
@@ -18,8 +27,10 @@
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import functools
+import itertools
 import json
 import logging
 import os
@@ -27,6 +38,7 @@ import random as _random
 import socket
 import struct
 import sys
+import threading
 import time
 import zlib
 from pathlib import Path
@@ -96,6 +108,160 @@ def trace(log_dir: str = "torch-trace", enabled: bool = True, device="cuda"):
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(str(out / "trace.json"))
+
+
+SPAN_CAPACITY = 1 << 16  # spans the buffer holds; a full buffer turns later ones away and counts them
+
+_on = False  # the one flag a span site tests when tracing is off
+_spans: collections.deque = collections.deque()
+_dropped = 0  # spans turned away by a full buffer since enable()
+_span_ids = itertools.count(1)
+_local = threading.local()  # each thread's stack of open spans
+
+
+class Span:
+    """One recorded span: `name`, start `t0` and end `t1` (seconds on
+    ``time.perf_counter``), its `id`, the id of the span open on the same
+    thread when it began (`parent`, None at the top), the `thread`'s name,
+    and the ids it was given: the engine's `batch` and the batch's request
+    ids `rids`, the chat LM's `turn`, the agent's spoken `segment`."""
+
+    __slots__ = ("name", "t0", "t1", "id", "parent", "thread", "batch", "rids", "turn", "segment")
+
+    def as_dict(self) -> dict:
+        out = {"name": self.name, "t0": self.t0, "t1": self.t1, "id": self.id, "parent": self.parent,
+               "thread": self.thread}
+        for k in ("batch", "rids", "turn", "segment"):
+            v = getattr(self, k)
+            if v is not None:
+                out[k] = v
+        return out
+
+
+def begin(name: str, batch=None, rids=None, turn=None, segment=None) -> Optional[Span]:
+    """Open a span on this thread → the span, to be closed by ``end``; None
+    (and nothing recorded) while tracing is off."""
+    if not _on:
+        return None
+    stack = getattr(_local, "stack", None)
+    if stack is None:
+        stack = _local.stack = []
+    sp = Span()
+    sp.name, sp.id, sp.parent = name, next(_span_ids), stack[-1].id if stack else None
+    sp.thread = threading.current_thread().name
+    sp.batch, sp.rids, sp.turn, sp.segment = batch, rids, turn, segment
+    stack.append(sp)
+    sp.t1 = None
+    sp.t0 = time.perf_counter()
+    return sp
+
+
+def end(sp: Optional[Span], keep: bool = True) -> None:
+    """Close a span ``begin`` opened and, unless `keep` is false, put it in
+    the buffer, or count it in ``dropped()`` where the buffer is full.
+    None, or a span closed before, is left as it is; a span closed out of
+    order (its site raised past an inner ``end``) is taken off the stack
+    all the same."""
+    global _dropped
+    if sp is None or sp.t1 is not None:
+        return
+    sp.t1 = time.perf_counter()
+    stack = getattr(_local, "stack", [])
+    if stack and stack[-1] is sp:
+        stack.pop()
+    elif sp in stack:
+        stack.remove(sp)
+    if not keep:
+        return
+    if len(_spans) < SPAN_CAPACITY:
+        _spans.append(sp)
+    else:
+        _dropped += 1
+
+
+class _Open:
+    __slots__ = ("sp",)
+
+    def __init__(self, sp: Span):
+        self.sp = sp
+
+    def __enter__(self) -> Span:
+        return self.sp
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        end(self.sp)
+
+
+class _Off:
+    __slots__ = ()
+
+    def __enter__(self) -> None:
+        return None
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        return None
+
+
+_OFF = _Off()
+
+
+def span(name: Optional[str], batch=None, rids=None, turn=None, segment=None):
+    """``with span(name, ...) as sp:`` records the block as one span (``sp``
+    is the open ``Span``, or None while tracing is off).  A None `name`
+    records nothing: a site whose block is a span only on some passes."""
+    if not _on or name is None:
+        return _OFF
+    return _Open(begin(name, batch, rids, turn, segment))
+
+
+def spanned(items, name: str):
+    """`items`' elements, each one's making (the wait for it) recorded as a
+    span `name` with its index as ``segment``; the wait that finds the end
+    is no span."""
+    it = iter(items)
+    for i in itertools.count():
+        sp = begin(name, segment=i)
+        try:
+            item = next(it)
+        except StopIteration:
+            end(sp, keep=False)
+            return
+        finally:
+            end(sp)
+        yield item
+
+
+def enable() -> None:
+    """Start recording spans into an empty buffer of ``SPAN_CAPACITY``
+    spans, with nothing dropped."""
+    global _on, _spans, _dropped
+    _spans, _dropped = collections.deque(), 0
+    _on = True
+
+
+def disable() -> None:
+    """Stop recording; spans still open are recorded when they close, and
+    what the buffer holds stays for ``drain``."""
+    global _on
+    _on = False
+
+
+def dropped() -> int:
+    """The spans that closed while the buffer held ``SPAN_CAPACITY`` since
+    ``enable()``: not recorded, so a reading over the spans is partial
+    where this is not 0."""
+    return _dropped
+
+
+def drain() -> list:
+    """Take every recorded span out of the buffer → their ``Span.as_dict``s,
+    in the order they closed."""
+    out = []
+    while True:
+        try:
+            out.append(_spans.popleft().as_dict())
+        except IndexError:
+            return out
 
 
 class StepTimer:

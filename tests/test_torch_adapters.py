@@ -25,6 +25,7 @@ from emojivoice_tpu.apps.flax_adapters import FlaxChatLM, FlaxWhisperASR  # noqa
 from emojivoice_tpu_torch.apps import adapters as ad  # noqa: E402
 from emojivoice_tpu_torch.apps.torch_adapters import TorchChatLM, TorchWhisperASR  # noqa: E402
 from emojivoice_tpu_torch.io.from_jax import hf_flax_params_to_torch  # noqa: E402
+from emojivoice_tpu_torch.utils import observability as obs  # noqa: E402
 
 torch.set_num_threads(2)
 LOGIT_TOL = 1e-4
@@ -188,6 +189,77 @@ def test_feel_me_turn_with_torch_llm(tiny_gpt2):
     response, spk, spoken = app.turn("hi robot")
     assert response.endswith("🙂") and spoken == "what a day" and spk == 12
     assert len(sink.played) == 1
+
+
+@pytest.mark.parametrize("graphs", [True, False], ids=["graphs", "eager"])
+def test_whisper_records_its_features_encoder_and_a_step_a_token(whisper_pair, tmp_path, graphs):
+    """The recorder on: ``transcribe`` records ``asr.features`` (the wav's
+    load included), then ``asr.encode``, then one ``asr.step`` a decoded
+    token, and transcribes as with it off."""
+    from scipy.io import wavfile
+
+    asr = TorchWhisperASR(model=whisper_pair[1], tokenizer=StubTokenizer(), max_length=12, device="cpu",
+                          graphs=graphs)
+    path = tmp_path / "utt.wav"
+    wavfile.write(path, 22050, (sine() * 32767).astype(np.int16))
+    want = asr.transcribe(str(path))
+    seqs, real = [], asr._generate
+    asr._generate = lambda feats: seqs.append(real(feats)) or seqs[-1]
+    obs.enable()
+    try:
+        got = asr.transcribe(str(path))
+    finally:
+        obs.disable()
+    spans = sorted(obs.drain(), key=lambda s: s["t0"])
+    assert got == want
+    tokens = list(seqs[0][0, 1:])
+    n = next((i + 1 for i, t in enumerate(tokens) if t == 2), len(tokens))
+    assert [s["name"] for s in spans] == ["asr.features", "asr.encode"] + ["asr.step"] * n
+    assert all(s["parent"] is None for s in spans) and all(a["t1"] <= b["t0"] for a, b in zip(spans, spans[1:]))
+
+
+@pytest.mark.parametrize("reply", ["what a day 🙂", "One short line. Then another line here. And a last one 🙂"],
+                         ids=["full", "pipelined"])
+def test_feel_me_records_its_reply_and_each_segment(tiny_gpt2, reply):
+    """A turn records ``feel_me.respond`` around the chat LM's spans and one
+    ``feel_me.segment`` a chunk handed to the sink, each ended before the
+    chunk reaches the sink: the first one's end is the turn's first audio."""
+    import time
+
+    from emojivoice_tpu_torch.apps.feel_me import FeelMe
+    from tests.test_torch_apps import tiny_port_pipe
+
+    class ReplyTokenizer(StubTokenizer):
+        def decode(self, ids, skip_special_tokens=True):
+            return reply
+
+    class TimedSink:
+        def __init__(self):
+            self.played = []
+
+        def play(self, wav, sample_rate):
+            self.played.append(time.perf_counter())
+
+    llm = TorchChatLM(model=tiny_gpt2, tokenizer=ReplyTokenizer(), temperature=0.0, max_new_tokens=4,
+                      prompt_buckets=(16, 32, 64, 128, 256), device="cpu")
+    sink = TimedSink()
+    app = FeelMe(tiny_port_pipe(), asr=ad.ConsoleASR(), llm=llm, sink=sink, steps=2, language=None, segment_chars=24)
+    obs.enable()
+    try:
+        app.turn("hi robot")
+    finally:
+        obs.disable()
+    spans = obs.drain()
+    (respond,) = [s for s in spans if s["name"] == "feel_me.respond"]
+    assert {s["name"] for s in spans if s["parent"] == respond["id"]} == {"llm.prompt", "llm.prefill", "llm.step",
+                                                                          "llm.detokenize"}
+    segments = [s for s in spans if s["name"] == "feel_me.segment"]
+    assert [s["segment"] for s in segments] == list(range(len(sink.played)))
+    assert len(segments) == (1 if reply.startswith("what") else 3)
+    assert all(s["t1"] <= t for s, t in zip(segments, sink.played)) and respond["t1"] <= segments[0]["t0"]
+    by_id = {s["id"]: s for s in spans}
+    stages = [s for s in spans if s["name"].startswith("pipeline.")]
+    assert stages and all(by_id[s["parent"]]["name"] == "feel_me.segment" for s in stages)
 
 
 def test_fit_messages_preserves_system_prompt(tiny_gpt2):

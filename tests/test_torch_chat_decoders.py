@@ -40,6 +40,7 @@ from flax.traverse_util import flatten_dict  # noqa: E402
 from emojivoice_tpu_torch.apps import decode  # noqa: E402
 from emojivoice_tpu_torch.apps.torch_adapters import CHAT_DECODERS, TorchChatLM  # noqa: E402
 from emojivoice_tpu_torch.io.from_jax import hf_flax_params_to_torch  # noqa: E402
+from emojivoice_tpu_torch.utils import observability as obs  # noqa: E402
 from emojivoice_tpu_torch.utils.prng import step_generator  # noqa: E402
 from tests.test_torch_adapters import StubTokenizer, bridged  # noqa: E402
 from tests.test_torch_decode_graphs import chat_search, left_padded, stub_card  # noqa: E402,F401  (stub_card is a fixture)
@@ -244,6 +245,47 @@ def test_stub_graphs_capture_each_key_once_and_replay(stub_card, pairs, family):
     entries = {k: e for (k, _), e in staged.graphs.entries().items()}
     assert entries[("decode", True)].replays == decode_calls - 1
     assert entries[("prefill", 16, True)].replays == 1 and entries[("prefill", 32, True)].replays == 0
+
+
+# ---------------------------------------------------------------- spans
+
+@pytest.mark.parametrize("mode", ["graphs", "eager"])
+@pytest.mark.parametrize("temperature", [0.0, 0.8], ids=["greedy", "sampled"])
+def test_a_turn_records_its_prefill_and_a_step_a_token(stub_card, mode, temperature):  # noqa: F811
+    """The recorder on, GPT-J's chat turns reply as with it off and record,
+    each span with the turn's number and in this order: ``llm.prompt``,
+    ``llm.prefill`` (the first new token), one ``llm.step`` a further new
+    token with one ``llm.replay`` and then one ``llm.read`` inside it, and
+    ``llm.detokenize``."""
+    model = torch_model("gptj")
+
+    def lm():
+        adapter = TorchChatLM(model=model, tokenizer=StubTokenizer(), temperature=temperature, max_new_tokens=8,
+                              prompt_buckets=BUCKETS, device="cpu", graphs=mode == "graphs")
+        return stub_card(adapter) if mode == "graphs" else adapter
+
+    plain, traced = lm(), lm()
+    seqs, real = [], traced._generate
+    traced._generate = lambda *a: seqs.append(real(*a)) or seqs[-1]
+    messages = ("hello", "tell me more " * 6)
+    want = [plain.chat("sys", [], m) for m in messages]
+    obs.enable()
+    try:
+        got = [traced.chat("sys", [], m) for m in messages]
+    finally:
+        obs.disable()
+    spans = obs.drain()
+    assert got == want and len(seqs) == 2
+    for turn, seq in enumerate(seqs):
+        new = list(seq[0, -8:])
+        n_new = next((i + 1 for i, t in enumerate(new) if t == 2), len(new))
+        mine = sorted((s for s in spans if s.get("turn") == turn), key=lambda s: s["t0"])
+        assert [s["name"] for s in mine] == ["llm.prompt", "llm.prefill"] + \
+            ["llm.step", "llm.replay", "llm.read"] * (n_new - 1) + ["llm.detokenize"]
+        steps = {s["id"] for s in mine if s["name"] == "llm.step"}
+        assert all((s["parent"] in steps) == (s["name"] in ("llm.replay", "llm.read")) for s in mine)
+        assert all(a["t1"] <= b["t0"] for a, b in zip(mine, mine[1:]) if b["parent"] is None)
+    assert len(spans) == sum(1 for s in spans if s.get("turn") in (0, 1))
 
 
 # ---------------------------------------------------------------- refusals

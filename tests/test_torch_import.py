@@ -357,15 +357,38 @@ def test_emoji_mapping_equals_the_jax_packages():
 
 
 # the apps' host-side copies: every top-level statement equal to the JAX package's once the package name is
-# normalised, but for the names that differ on purpose (the ASR fallback, the parsers and their prog names)
+# normalised and the port's spans are taken out, but for the names that differ on purpose (the ASR fallback, the
+# parsers and their prog names)
 APP_COPIES = {"adapters": {"WhisperASR", "TransformersLLM", "on_disk", "default_asr"}, "feel_me": {"build_parser", "main"},
               "demos": {"main"}, "game_ui": set(), "pepper": {"main"}, "record_audio": {"main"}}
+
+
+def _without_spans(tree):
+    """`tree` with the recorder's spans (``utils/observability.py``) taken out: a ``with obs.span(...)`` block
+    is its body, ``obs.spanned(items, ...)`` is ``items``, and the recorder's import goes."""
+    import ast
+
+    class Strip(ast.NodeTransformer):
+        def visit_With(self, node):
+            self.generic_visit(node)
+            spans = [i for i in node.items if ast.unparse(i.context_expr).startswith("obs.span(")]
+            return node.body if spans and len(spans) == len(node.items) else node
+
+        def visit_Call(self, node):
+            self.generic_visit(node)
+            return node.args[0] if ast.unparse(node.func) == "obs.spanned" else node
+
+        def visit_ImportFrom(self, node):
+            return None if [a.asname for a in node.names] == ["obs"] else node
+
+    return ast.fix_missing_locations(Strip().visit(tree))
 
 
 def _statements(path: Path, package: str) -> dict:
     import ast
 
-    body = ast.parse(path.read_text().replace(package, "emojivoice_tpu")).body[1:]  # after the docstring
+    tree = _without_spans(ast.parse(path.read_text().replace(package, "emojivoice_tpu")))
+    body = tree.body[1:]  # after the docstring
     out = {}
     for node in body:
         if isinstance(node, (ast.FunctionDef, ast.ClassDef)):

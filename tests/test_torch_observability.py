@@ -6,11 +6,16 @@ factory and its backends behave alike.  Event files are each package's own
 read back record by record): the port writes them where the ``tensorboard``
 package imports and falls back to the jsonl sidecar alone where it does not,
 as the JAX writer does without tensorflow; it never imports TensorFlow, so
-TensorFlow's own summaries still work after it in the same process."""
+TensorFlow's own summaries still work after it in the same process.
+
+The span recorder, the port's own: nothing recorded while it is off;
+nesting, causes, ids and threads while it is on; the bounded buffer; many
+threads at once."""
 
 import json
 import struct
 import sys
+import threading
 import zlib
 
 import numpy as np
@@ -172,3 +177,138 @@ def test_step_timer_on_a_card_device_waits_for_it(monkeypatch):
     with timer.measure(device="cuda:0"):
         pass
     assert synced == ["cuda:0", "cuda:0"]
+
+
+# ---------------------------------------------------------------- the span recorder
+
+
+@pytest.fixture
+def recorder():
+    """The recorder on, with an empty buffer; off and drained after the test."""
+    obs.enable()
+    try:
+        yield obs
+    finally:
+        obs.disable()
+        obs.drain()
+
+
+def test_no_span_is_recorded_while_tracing_is_off():
+    obs.disable()
+    obs.drain()
+    assert obs.begin("a", batch=1) is None
+    obs.end(None)
+    with obs.span("b", turn=2) as sp:
+        assert sp is None
+    assert obs.span("c") is obs.span("d")  # one shared do-nothing context: nothing made per site
+    assert list(obs.spanned(iter([1, 2]), "e")) == [1, 2]
+    assert obs.drain() == []
+
+
+def test_spans_nest_on_their_thread_and_carry_their_ids(recorder):
+    with obs.span("outer", batch=7, rids=[3, 4]) as outer:
+        inner = obs.begin("inner", turn=2)
+        obs.end(inner)
+        obs.end(inner)  # a second end leaves the span as it was
+        with obs.span(None):  # a None name records nothing
+            with obs.span("leaf", segment=0):
+                pass
+    spans = {s["name"]: s for s in obs.drain()}
+    assert set(spans) == {"outer", "inner", "leaf"}
+    assert spans["outer"]["parent"] is None and spans["outer"]["id"] == outer.id
+    assert spans["inner"]["parent"] == spans["leaf"]["parent"] == outer.id
+    assert (spans["outer"]["batch"], spans["outer"]["rids"], spans["inner"]["turn"], spans["leaf"]["segment"]) == \
+        (7, [3, 4], 2, 0)
+    assert "turn" not in spans["outer"] and spans["outer"]["thread"] == threading.current_thread().name
+    assert spans["outer"]["t0"] <= spans["inner"]["t0"] <= spans["inner"]["t1"] <= spans["leaf"]["t0"] \
+        <= spans["leaf"]["t1"] <= spans["outer"]["t1"]
+    assert obs.drain() == []  # drained once
+
+
+def test_a_span_closed_out_of_order_leaves_the_stack(recorder):
+    a = obs.begin("a")
+    b = obs.begin("b")
+    obs.end(a)  # b's site raised past its end
+    with obs.span("c"):
+        pass
+    obs.end(b, keep=False)
+    spans = {s["name"]: s for s in obs.drain()}
+    assert set(spans) == {"a", "c"} and spans["c"]["parent"] == b.id
+    with obs.span("d"):
+        pass
+    (d,) = obs.drain()
+    assert d["parent"] is None
+
+
+def test_spanned_records_each_item_and_not_the_end(recorder):
+    def items():
+        for i in range(3):
+            with obs.span("child"):
+                pass
+            yield i
+
+    assert list(obs.spanned(items(), "seg")) == [0, 1, 2]
+    spans = obs.drain()
+    segs = [s for s in spans if s["name"] == "seg"]
+    assert [s["segment"] for s in segs] == [0, 1, 2]
+    assert [s["parent"] for s in spans if s["name"] == "child"] == [s["id"] for s in segs]
+
+
+def test_the_buffer_is_bounded_and_disable_keeps_what_it_holds(monkeypatch):
+    monkeypatch.setattr(obs, "SPAN_CAPACITY", 4)
+    obs.enable()
+    try:
+        for i in range(3):
+            with obs.span(f"s{i}"):
+                pass
+        late = obs.begin("late")
+        obs.disable()
+        assert obs.begin("off") is None
+        obs.end(late)  # opened while on: recorded when it closes
+        assert obs.dropped() == 0
+        assert [s["name"] for s in obs.drain()] == ["s0", "s1", "s2", "late"]
+        obs.enable()
+        for i in range(6):
+            with obs.span(f"t{i}"):
+                pass
+        assert obs.dropped() == 2  # a full buffer turns the later spans away and counts them
+        assert [s["name"] for s in obs.drain()] == ["t0", "t1", "t2", "t3"]
+        obs.enable()
+        assert obs.dropped() == 0
+    finally:
+        obs.disable()
+        obs.drain()
+
+
+def test_concurrent_threads_keep_their_own_stacks(recorder):
+    """More threads than cores record nested spans at a short switch
+    interval: every span is kept, ids are unique, and each child's cause is
+    its own thread's outer span."""
+    n_threads, per = 12, 200
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        def work(k):
+            for i in range(per):
+                with obs.span("outer", batch=k):
+                    with obs.span("inner", batch=k):
+                        pass
+
+        threads = [threading.Thread(target=work, args=(k,), name=f"w{k}") for k in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+            assert not t.is_alive()
+    finally:
+        sys.setswitchinterval(old)
+    spans = obs.drain()
+    assert len(spans) == 2 * n_threads * per and len({s["id"] for s in spans}) == len(spans)
+    by_id = {s["id"]: s for s in spans}
+    for s in spans:
+        assert s["thread"] == f"w{s['batch']}"
+        if s["name"] == "inner":
+            parent = by_id[s["parent"]]
+            assert parent["name"] == "outer" and parent["thread"] == s["thread"] and parent["t0"] <= s["t0"]
+        else:
+            assert s["parent"] is None

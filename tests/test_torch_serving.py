@@ -33,6 +33,7 @@ from emojivoice_tpu_torch import config as cfglib
 from emojivoice_tpu_torch.inference.pipeline import SynthesisPipeline
 from emojivoice_tpu_torch.inference.serving import BatchingEngine
 from emojivoice_tpu_torch.io.from_jax import hifigan_state_dict_from_flax, matcha_state_dict_from_flax
+from emojivoice_tpu_torch.utils import observability as obs
 from tests.test_pipeline import tiny_root
 
 torch.set_num_threads(2)
@@ -394,3 +395,97 @@ def test_profile_engine_measures_a_burst(pipe, engine):
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="CUDA"):
             profile_engine.main([])
+
+
+# ---------------------------------------------------------------------------
+# spans and counters
+# ---------------------------------------------------------------------------
+
+def _merged_batch(pipe):
+    """Four requests merged into one batch of the tiny pipeline → stats()."""
+    with BatchingEngine(pipe, max_batch=4, max_wait_ms=2000, batch_buckets=(1, 2, 4)) as eng:
+        futs = [eng.submit(f"hello number {i}", spk=i, n_timesteps=2) for i in range(4)]
+        for f in futs:
+            assert f.result(timeout=TIMEOUT).mel_length > 0
+        return eng.stats()
+
+
+def test_no_span_is_recorded_with_tracing_off(pipe):
+    obs.disable()
+    obs.drain()
+    assert _merged_batch(pipe)["batches"] == 1
+    assert obs.drain() == []
+
+
+def test_a_merged_batch_is_one_dispatch_with_the_pipelines_spans(pipe):
+    """The recorder on: one ``engine.dispatch`` whose children are the
+    pipeline's four stages, every row's request id once, the batch's id on
+    the worker's and the results thread's spans."""
+    obs.enable()
+    try:
+        s = _merged_batch(pipe)
+    finally:
+        obs.disable()
+    spans = obs.drain()
+    assert s["batches"] == 1
+    (dispatch,) = [x for x in spans if x["name"] == "engine.dispatch"]
+    bid = dispatch["batch"]
+    assert sorted(dispatch["rids"]) == [0, 1, 2, 3]
+    children = sorted((x for x in spans if x["parent"] == dispatch["id"]), key=lambda x: x["t0"])
+    assert [x["name"] for x in children] == ["pipeline.frontend", "pipeline.stage_a", "pipeline.host_read",
+                                            "pipeline.launch"]
+    assert all(dispatch["t0"] <= x["t0"] <= x["t1"] <= dispatch["t1"] for x in children)
+    by_name = {}
+    for x in spans:
+        by_name.setdefault(x["name"], []).append(x)
+    for name in ("engine.collect", "engine.slot_wait"):
+        (x,) = by_name[name]
+        assert x["batch"] == bid and x["rids"] == dispatch["rids"] and x["thread"] == "batching-engine"
+    assert by_name["engine.wait"][0]["batch"] == bid
+    for name in ("engine.fetch", "engine.resolve"):
+        (x,) = by_name[name]
+        assert x["batch"] == bid and x["thread"] == "batching-engine-results" and x["t0"] >= dispatch["t1"]
+    assert not any(x["name"].startswith("pipeline.") and x["parent"] != dispatch["id"] for x in spans)
+
+
+def test_the_queue_wait_holds_the_collection_and_the_slot_wait(pipe):
+    """Batch by batch: the new sums are non-negative, the pipeline's host
+    phases were timed, and the collection window plus the slot wait is no
+    more than the batch's summed queue wait."""
+    keys = ("batches", "wait_s_sum", "collect_s_sum", "slot_wait_s_sum", "frontend_s_sum", "host_read_s_sum")
+    with BatchingEngine(pipe, max_batch=2, max_wait_ms=30, batch_buckets=(1, 2)) as eng:
+        prev = eng.stats()
+        assert all(prev[k] == 0 for k in keys)
+        for k in range(3):
+            futs = [eng.submit(f"batch {k} row {i}", spk=i, n_timesteps=2) for i in range(2)]
+            for f in futs:
+                f.result(timeout=TIMEOUT)
+            s = eng.stats()
+            d = {key: s[key] - prev[key] for key in keys}
+            assert d["batches"] == 1 and min(d.values()) >= 0, d
+            assert d["frontend_s_sum"] > 0 and d["host_read_s_sum"] > 0
+            assert 0 < d["collect_s_sum"] + d["slot_wait_s_sum"] <= d["wait_s_sum"], d
+            prev = s
+
+
+def test_counters_and_spans_under_sustained_load_on_a_backend_without_host_phases():
+    """The fake backend reports no frontend or host read: those sums stay 0;
+    every dispatched batch has its dispatch, fetch and resolve spans."""
+    obs.enable()
+    try:
+        with BatchingEngine(_FakeBackend(), max_batch=4, max_wait_ms=1) as eng:
+            futs = [eng.submit(f"utt {i}", spk=i % 3, seed=i) for i in range(40)]
+            for f in futs:
+                f.result(timeout=TIMEOUT)
+            s = eng.stats()
+    finally:
+        obs.disable()
+    spans = obs.drain()
+    assert s["frontend_s_sum"] == s["host_read_s_sum"] == 0.0
+    assert s["collect_s_sum"] + s["slot_wait_s_sum"] <= s["wait_s_sum"]
+    batches = {x["batch"] for x in spans if x["name"] == "engine.dispatch"}
+    assert len(batches) == s["batches"]
+    for name in ("engine.fetch", "engine.resolve"):
+        assert {x["batch"] for x in spans if x["name"] == name} == batches
+    rids = [r for x in spans if x["name"] == "engine.dispatch" for r in x["rids"]]
+    assert sorted(rids) == list(range(40))
