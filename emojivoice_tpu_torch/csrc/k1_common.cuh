@@ -69,6 +69,44 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint3
 #define K1_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
 #define K1_D16(i) K1_D4(i), K1_D4(i + 4), K1_D4(i + 8), K1_D4(i + 12)
 
+// The tiles a launch computes, in the order its blocks take them: time tiles fastest, then channel tiles, then
+// rows.  Without a reach (nullptr) every tile of every row.  A reach is B int32 on the device, frames at the
+// launch's rate: row b takes its first ceil(min(reach[b], T) / rows) time tiles and none past them, so a row of
+// reach 0 takes none.  A tile it does not take is neither read nor written.  Every thread walks the same list, read
+// from device memory inside the kernel: the host never learns the reach.
+struct TileWalk {
+  const int* reach;
+  int B, T, rows, n_t, n_c;  // rows: frames a time tile; n_t: time tiles of a whole row; n_c: channel tiles
+
+  __device__ __forceinline__ int live(int b) const {
+    if (reach == nullptr) return n_t;
+    const int r = min(max(__ldg(reach + b), 0), T);
+    return (r + rows - 1) / rows;
+  }
+  __device__ __forceinline__ int count() const {
+    if (reach == nullptr) return n_t * n_c * B;
+    int n = 0;
+    for (int b = 0; b < B; ++b) n += live(b);
+    return n * n_c;
+  }
+  // tile i < count() → its row bz, time tile tt and channel tile tc
+  __device__ __forceinline__ void at(int i, int& bz, int& tt, int& tc) const {
+    int n = n_t;
+    if (reach == nullptr) {
+      bz = i / (n_t * n_c);
+      i -= bz * n_t * n_c;
+    } else {
+      for (bz = 0;; ++bz) {
+        n = live(bz);
+        if (i < n * n_c) break;
+        i -= n * n_c;
+      }
+    }
+    tt = i % n;
+    tc = i / n;
+  }
+};
+
 int sm_count() {
   static int n = [] {
     int dev = 0, v = 0;

@@ -64,6 +64,17 @@
 //     main loop.
 //   * Epilogue from the accumulator fragment with the bias in f32, in the four
 //     modes below; frames beyond T and channels beyond C are masked.
+//   * The reach.  A caller may give each row of the batch a reach: int32 on
+//     the device, in frames at the stage's rate (ops/mrf.py::mrf_stage; the
+//     synthesis pipeline builds it from each row's predicted mel length, and
+//     a pad row's is 0).  Every conv of the res-block then computes only the
+//     time tiles of each row that start before its reach, and its blocks walk
+//     those tiles alone (TileWalk, csrc/k1_common.cuh): a tile past the reach
+//     is neither read nor written, so the output past a row's tile-rounded
+//     reach keeps whatever the memory held.  Inside a tile nothing changes,
+//     so every frame that is computed has the bits it has without a reach; the
+//     tile shapes are still chosen from the padded (B, T).  Without a reach
+//     (nullptr) every tile is computed.
 // C that is no multiple of 8 is zero-padded in shared memory and in the tiled
 // weights, never in the activations in global memory; C that is no multiple
 // of 4 (rows not 16-byte aligned) takes scalar copies of x instead of TMA.
@@ -173,7 +184,8 @@ template <int BN, int NWG, int MT, int KG>
 __global__ void __launch_bounds__(128 * (NWG + 1), 1)
 conv_taps_kernel(const __grid_constant__ CUtensorMap x_map, const float* __restrict__ x,
                  const void* __restrict__ w, const float* __restrict__ bias, const float* res, float* out,
-                 int B, int T, int C, int k, int dil, int mode, float scale, int n_stages) {
+                 const int* __restrict__ reach, int B, int T, int C, int k, int dil, int mode, float scale,
+                 int n_stages) {
   constexpr int BM = 64 * NWG * MT;
   constexpr int STAGE_BYTES = W_GROUPS * BN * 16;  // one tap's [W_GROUPS][BN][16 bytes] slice
   static_assert(KSTEPS % KG == 0, "whole commit groups per channel slice");
@@ -195,8 +207,8 @@ conv_taps_kernel(const __grid_constant__ CUtensorMap x_map, const float* __restr
   const int lane = tid & 31;
   const bool vec = (C & 3) == 0;  // tensor copies need 16-byte aligned rows
   const int n_chunks = (C + KC - 1) / KC;
-  const int nbx = (T + BM - 1) / BM, nby = (C + BN - 1) / BN;
-  const int n_tiles = nbx * nby * B;
+  const TileWalk walk{reach, B, T, BM, (T + BM - 1) / BM, (C + BN - 1) / BN};
+  const int n_tiles = walk.count();
 
   if (tid == 0) {
     for (int s = 0; s < kMaxStages; ++s) {
@@ -217,7 +229,9 @@ conv_taps_kernel(const __grid_constant__ CUtensorMap x_map, const float* __restr
     if (warp > 4 * NWG) return;
     int slot = 0, w_round = 0, a_count = 0;
     for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-      const int t0 = (tile % nbx) * BM, co0 = ((tile / nbx) % nby) * BN, bz = tile / (nbx * nby);
+      int bz, tt, tc;
+      walk.at(tile, bz, tt, tc);
+      const int t0 = tt * BM, co0 = tc * BN;
       const int bn_valid = min(BN, C - co0);  // output channels of this tile that exist
       for (int c = 0; c < n_chunks; ++c) {
         // x's next channel slice: rows t0 − halo ... of KC channels, zeros outside [0, T) and beyond C
@@ -278,7 +292,9 @@ conv_taps_kernel(const __grid_constant__ CUtensorMap x_map, const float* __restr
 #endif
 
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int t0 = (tile % nbx) * BM, co0 = ((tile / nbx) % nby) * BN, bz = tile / (nbx * nby);
+    int bz, tt, tc;
+    walk.at(tile, bz, tt, tc);
+    const int t0 = tt * BM, co0 = tc * BN;
     const size_t batch_off = static_cast<size_t>(bz) * T * C;
     float acc[MT][BN / 2];
 #pragma unroll
@@ -413,6 +429,7 @@ struct ConvArgs {
   const void* w;  // tiled weights: TF32 parts
   const float *bias, *res;
   float* out;
+  const int* reach;  // nullptr: every tile
   int B, T, C, k, dil, mode;
   float scale;
   cudaStream_t stream;
@@ -470,8 +487,8 @@ cudaError_t launch_conv(const ConvArgs& a) {
   if (err != cudaSuccess) return err;
   const long tiles = static_cast<long>((a.T + BM - 1) / BM) * ((a.C + BN - 1) / BN) * a.B;
   const int grid = static_cast<int>(std::min<long>(tiles, sm_count()));
-  kernel<<<grid, 128 * (NWG + 1), smem, a.stream>>>(x_map, a.x, a.w, a.bias, a.res, a.out, a.B, a.T, a.C, a.k, a.dil,
-                                                    a.mode, a.scale, n_stages);
+  kernel<<<grid, 128 * (NWG + 1), smem, a.stream>>>(x_map, a.x, a.w, a.bias, a.res, a.out, a.reach, a.B, a.T, a.C,
+                                                    a.k, a.dil, a.mode, a.scale, n_stages);
   return cudaGetLastError();
 }
 
@@ -506,7 +523,7 @@ size_t tiled_weight_bytes(int C, int k) {
 
 int resblock(const float* x, float* out, float* cur, float* h, const void* w1, const float* b1, const void* w2,
              const float* b2, int B, int T, int C, int k, int n_d, const int* dils, int accumulate, float scale,
-             void* stream_ptr) {
+             const int* reach, void* stream_ptr) {
   if (B <= 0 || T <= 0 || C <= 0 || n_d <= 0 || k <= 0 || (k % 2) == 0) return cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const size_t wstride = tiled_weight_bytes(C, k);
@@ -514,13 +531,13 @@ int resblock(const float* x, float* out, float* cur, float* h, const void* w1, c
   const float* src = x;  // the res-block's running value: x, then cur
   for (int i = 0; i < n_d; ++i) {
     if (dils[i] <= 0) return cudaErrorInvalidValue;
-    cudaError_t err = conv({src, w1b + i * wstride, b1 + static_cast<size_t>(i) * C, nullptr, h,
-                                  B, T, C, k, dils[i], kStore, 1.f, stream});
+    cudaError_t err = conv({src, w1b + i * wstride, b1 + static_cast<size_t>(i) * C, nullptr, h, reach,
+                            B, T, C, k, dils[i], kStore, 1.f, stream});
     if (err != cudaSuccess) return err;
     const bool last = i == n_d - 1;
     const int mode = !last ? kResidual : (accumulate ? kMeanAcc : kMeanFirst);
-    err = conv({h, w2b + i * wstride, b2 + static_cast<size_t>(i) * C, src, last ? out : cur,
-                      B, T, C, k, 1, mode, scale, stream});
+    err = conv({h, w2b + i * wstride, b2 + static_cast<size_t>(i) * C, src, last ? out : cur, reach,
+                B, T, C, k, 1, mode, scale, stream});
     if (err != cudaSuccess) return err;
     src = cur;
   }
@@ -539,22 +556,26 @@ long long mrf_tiled_weight_floats(int C, int k) {
 // One convolution of the res-block: out = epilogue(conv_{k,dil}(lrelu(x)) + bias).
 // x, res, out (B, T, C) f32 channels-last; w: the tiled TF32 parts of the
 // weights, mrf_tiled_weight_floats(C, k) floats; bias (C,).  mode: 0 store,
-// 1 add res, 2 (res + conv)·scale, 3 out += (res + conv)·scale.
+// 1 add res, 2 (res + conv)·scale, 3 out += (res + conv)·scale.  reach:
+// nullptr, or (B,) int32 on the device: the frames of each row to compute,
+// rounded up to whole tiles; out is left unwritten past them.
 int mrf_conv_f32(const float* x, const float* w, const float* bias, const float* res, float* out,
-                 int B, int T, int C, int k, int dil, int mode, float scale, void* stream_ptr) {
-  return conv_checked({x, w, bias, res, out, B, T, C, k, dil, mode, scale, static_cast<cudaStream_t>(stream_ptr)});
+                 int B, int T, int C, int k, int dil, int mode, float scale, const int* reach, void* stream_ptr) {
+  return conv_checked({x, w, bias, res, out, reach, B, T, C, k, dil, mode, scale,
+                       static_cast<cudaStream_t>(stream_ptr)});
 }
 
 // One ResBlock1 over x (B, T, C) f32 channels-last, into out (B, T, C).
 // w1, w2: n_d tiled weight blocks of mrf_tiled_weight_floats(C, k) floats
 // each; b1, b2: (n_d, C).  cur and h are (B, T, C) scratch.  accumulate = 0
-// writes out = rb(x)·scale, 1 adds rb(x)·scale to out.  Returns the first
-// CUDA error, or 0.
+// writes out = rb(x)·scale, 1 adds rb(x)·scale to out.  reach: nullptr, or
+// (B,) int32 on the device, every conv's frames as mrf_conv_f32 takes them.
+// Returns the first CUDA error, or 0.
 int mrf_resblock_f32(const float* x, float* out, float* cur, float* h,
                      const float* w1, const float* b1, const float* w2, const float* b2,
                      int B, int T, int C, int k, int n_d, const int* dils, int accumulate, float scale,
-                     void* stream_ptr) {
-  return resblock(x, out, cur, h, w1, b1, w2, b2, B, T, C, k, n_d, dils, accumulate, scale, stream_ptr);
+                     const int* reach, void* stream_ptr) {
+  return resblock(x, out, cur, h, w1, b1, w2, b2, B, T, C, k, n_d, dils, accumulate, scale, reach, stream_ptr);
 }
 
 }  // extern "C"

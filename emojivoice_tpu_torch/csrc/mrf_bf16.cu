@@ -80,6 +80,11 @@
 //     TMA box would need twice the shared memory and a second pass to round.
 //     Blocks are not persistent; two blocks an SM (where the shared memory
 //     allows) overlap one block's loads with the other's products.
+//   * The reach, as in csrc/mrf.cu: with a per-row reach every launch computes
+//     only the time tiles of each row that start before it (TileWalk,
+//     csrc/k1_common.cuh), and leaves the rest unread and unwritten.  The grid
+//     still has a block for every tile of the padded (B, T), since the host
+//     does not read the reach; the blocks past the walk's tiles return at once.
 // C that is no multiple of 32 or 64 is zero-padded in shared memory and in the
 // packed weights, never in the activations in global memory; C that is no
 // multiple of 4 takes scalar loads.
@@ -463,7 +468,8 @@ template <int BN, bool FUSED>
 __global__ void __launch_bounds__(kConsumers, 2)
 k1_bf16_unit_kernel(const float* __restrict__ x, const uint8_t* __restrict__ w1, const float* __restrict__ b1,
                     const uint8_t* __restrict__ w2, const float* __restrict__ b2, const float* res, float* out,
-                    int T, int C, int k, int dil, int mode, float scale, int n_stages, int chunks) {
+                    const int* __restrict__ reach, int B, int T, int C, int k, int dil, int mode, float scale,
+                    int n_stages, int chunks) {
   constexpr int KC = BN, STAGE = Ring<BN>::STAGE;
   // partial sets: two at BN = 32, one group in flight during a promotion (one set was slower on an H100); one at
   // BN = 64, where a second made ptxas serialize the products (C7514) and more than doubled a C = 128 stage's time,
@@ -477,12 +483,15 @@ k1_bf16_unit_kernel(const float* __restrict__ x, const uint8_t* __restrict__ w1,
   const int out_rows = FUSED ? BM - 2 * h2 : BM;
   const int n_t = (T + out_rows - 1) / out_rows;
   const int n_blk = FUSED ? 1 : (n_n + chunks - 1) / chunks;  // blocks along the output channels
-  const int tile = blockIdx.x;
-  const int t0 = (tile % n_t) * out_rows;
+  // the grid covers every tile; with a reach the blocks past the tiles it leaves are idle
+  const TileWalk walk{reach, B, T, out_rows, n_t, n_blk};
+  if (static_cast<int>(blockIdx.x) >= walk.count()) return;
+  int bz, tt, tc;
+  walk.at(blockIdx.x, bz, tt, tc);
+  const int t0 = tt * out_rows;
   // the N chunks of the block's passes: every one for the fused unit, `chunks` of them for the one-conv kernel
-  const int n_first = FUSED ? 0 : ((tile / n_t) % n_blk) * chunks;
+  const int n_first = FUSED ? 0 : tc * chunks;
   const int n_last = FUSED ? n_n : min(n_n, n_first + chunks);
-  const int bz = tile / (n_t * n_blk);
   // x row r is frame t0 − h2 − h1 + r (fused: conv_{k,d} runs over frames t0 − h2 ...), or t0 − h1 + r
   const int f0 = t0 - (FUSED ? h2 : 0) - h1;
 
@@ -582,6 +591,7 @@ struct UnitArgs {
   const void *w1, *w2;  // packed bf16 weights of conv_{k,d} and conv_{k,1}; w2 unused by the one-conv kernel
   const float *b1, *b2, *res;
   float* out;
+  const int* reach;  // nullptr: every tile
   int B, T, C, k, dil, mode;
   float scale;
   cudaStream_t stream;
@@ -637,8 +647,8 @@ cudaError_t launch_unit(const UnitArgs& a) {
   const long tiles = static_cast<long>((a.T + out_rows - 1) / out_rows) * (FUSED ? 1 : (n_n + chunks - 1) / chunks) * a.B;
   if (tiles > 0x7FFFFFFFL) return cudaErrorInvalidValue;
   kernel<<<static_cast<int>(tiles), kConsumers, smem, a.stream>>>(
-      a.x, static_cast<const uint8_t*>(a.w1), a.b1, static_cast<const uint8_t*>(a.w2), a.b2, a.res, a.out, a.T, a.C,
-      a.k, a.dil, a.mode, a.scale, n_stages, chunks);
+      a.x, static_cast<const uint8_t*>(a.w1), a.b1, static_cast<const uint8_t*>(a.w2), a.b2, a.res, a.out, a.reach, a.B,
+      a.T, a.C, a.k, a.dil, a.mode, a.scale, n_stages, chunks);
   return cudaGetLastError();
 }
 
@@ -677,24 +687,27 @@ extern "C" {
 
 // One convolution in bf16 mode: out = epilogue(conv_{k,dil}(round_bf16(lrelu(x))) + bias), the one-conv kernel.
 // x, res, out (B, T, C) f32 channels-last; w: one conv's packed bf16 weights (ops/mrf.py::tile_k_major_bf16);
-// bias (C,).  mode: 0 store, 1 add res, 2 (res + conv)·scale, 3 out += (res + conv)·scale.
+// bias (C,).  mode: 0 store, 1 add res, 2 (res + conv)·scale, 3 out += (res + conv)·scale.  reach: nullptr, or (B,)
+// int32 on the device: the frames of each row to compute, rounded up to whole tiles (TileWalk); out is left
+// unwritten past them.
 int mrf_conv_bf16(const float* x, const void* w, const float* bias, const float* res, float* out,
-                  int B, int T, int C, int k, int dil, int mode, float scale, void* stream_ptr) {
+                  int B, int T, int C, int k, int dil, int mode, float scale, const int* reach, void* stream_ptr) {
   if (bad_shape(B, T, C, k, dil) || mode < kStore || mode > kMeanAcc || (mode != kStore && res == nullptr))
     return cudaErrorInvalidValue;
-  return launch<false>({x, w, nullptr, bias, nullptr, res, out, B, T, C, k, dil, mode, scale,
+  return launch<false>({x, w, nullptr, bias, nullptr, res, out, reach, B, T, C, k, dil, mode, scale,
                         static_cast<cudaStream_t>(stream_ptr)});
 }
 
 // One ResBlock1 in bf16 mode over x (B, T, C) f32 channels-last, into out (B, T, C).  w1, w2: n_d packed bf16
 // weight blocks each; b1, b2: (n_d, C) f32.  cur and h are (B, T, C) f32 scratch: a fused unit writes its result
 // to the buffer it does not read (a tile's halo reads rows that its neighbours write), a unit of two one-conv
-// launches puts its intermediate in the buffer that does not hold the running value.  accumulate = 0 writes out = rb(x)·scale, 1 adds rb(x)·scale to out.  Returns the first
+// launches puts its intermediate in the buffer that does not hold the running value.  accumulate = 0 writes out = rb(x)·scale, 1 adds rb(x)·scale to out.
+// reach: nullptr, or (B,) int32 on the device, every launch's frames as mrf_conv_bf16 takes them.  Returns the first
 // CUDA error, or 0.
 int mrf_resblock_bf16(const float* x, float* out, float* cur, float* h,
                       const void* w1, const float* b1, const void* w2, const float* b2,
                       int B, int T, int C, int k, int n_d, const int* dils, int accumulate, float scale,
-                      void* stream_ptr) {
+                      const int* reach, void* stream_ptr) {
   if (n_d <= 0 || bad_shape(B, T, C, k, 1)) return cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const size_t wstride = packed_bytes(C, k);
@@ -710,15 +723,15 @@ int mrf_resblock_bf16(const float* x, float* out, float* cur, float* h,
     float* dst;
     if (unit_fused(B, T, C, k, dils[i])) {  // src → the other scratch buffer: no tile writes rows another reads
       dst = last ? out : (src == cur ? h : cur);
-      err = launch<true>({src, w1b + i * wstride, w2b + i * wstride, bias1, bias2, src, dst, B, T, C, k, dils[i], mode,
-                          scale, stream});
+      err = launch<true>({src, w1b + i * wstride, w2b + i * wstride, bias1, bias2, src, dst, reach, B, T, C, k, dils[i],
+                          mode, scale, stream});
     } else {  // src → mid, then mid → src in place (an element is read and written by one thread), or out
       float* mid = src == h ? cur : h;
       dst = last ? out : (src == x ? cur : const_cast<float*>(src));
-      err = launch<false>({src, w1b + i * wstride, nullptr, bias1, nullptr, nullptr, mid, B, T, C, k, dils[i], kStore,
-                           1.f, stream});
+      err = launch<false>({src, w1b + i * wstride, nullptr, bias1, nullptr, nullptr, mid, reach, B, T, C, k, dils[i],
+                           kStore, 1.f, stream});
       if (err != cudaSuccess) return err;
-      err = launch<false>({mid, w2b + i * wstride, nullptr, bias2, nullptr, src, dst, B, T, C, k, 1, mode, scale,
+      err = launch<false>({mid, w2b + i * wstride, nullptr, bias2, nullptr, src, dst, reach, B, T, C, k, 1, mode, scale,
                            stream});
     }
     if (err != cudaSuccess) return err;

@@ -477,7 +477,10 @@ class BundleSynthesisPipeline:
 
     def synthesise_async(self, texts, spks=None, n_timesteps: Optional[int] = None, temperature: float = 0.667,
                          length_scale: float = 1.0, denoiser_strength=None, language=None, seed=None,
-                         keep_mel: bool = True, vocode: bool = True, pcm16: bool = False):
+                         keep_mel: bool = True, vocode: bool = True, pcm16: bool = False,
+                         live_rows: Optional[int] = None):
+        """`live_rows` as the live pipeline takes it, from the serving
+        engine; a bundle's programs take no reach and vocode every row."""
         self._check(self.n_timesteps if n_timesteps is None else n_timesteps,
                     self.denoiser_strength if denoiser_strength is None else denoiser_strength)
         if seed is None:

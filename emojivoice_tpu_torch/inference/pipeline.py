@@ -12,6 +12,22 @@ denoiser → optional on-device pcm16.
 * **Fused** (``fused=True``): one pass at a fixed mel capacity with no host
   read in between.
 
+**The vocoder's reach.**  On one device (no mesh) a call vocodes each row
+only as far as its served audio depends on it: from the decoder's
+``mel_lengths`` on the device (no host read, fused or not) it builds each
+row's served frames, 0 for a pad row (``synthesise_async(live_rows=)``: the
+serving engine's pad rows), and the vocoder turns them into each MRF stage's
+reach (``HiFiGANGenerator.stage_reach``, with the margin for what this
+pipeline's denoiser reads past the served end, ``denoiser.read_past``).
+K1 computes only the tiles before the reach and leaves the rest of the
+padded wav unwritten (``ops/mrf.py``); every served sample, [0, L·hop) of a
+live row, has the bits it has without a reach, and ``finalize`` returns the
+live rows only.  Streaming windows (``_vocode`` called without served
+frames), the denoiser's bias probe, the exported bundle and the mesh path
+vocode every frame.  The two-stage host read brings back every row's
+predicted length in its one sync, and ``PendingSynthesis`` carries the
+row-frames K1 covers and the row-frames of the padded call.
+
 Precision (opt-in, as in the JAX package; f32 is the default and the oracle):
 
 * ``vocoder_dtype=torch.bfloat16`` runs only the vocoder in bf16: K1's bf16
@@ -104,7 +120,7 @@ from emojivoice_tpu_torch.utils.buckets import default_mel_buckets, default_text
 from emojivoice_tpu_torch.utils.masks import fix_len_compatibility, intersperse
 from emojivoice_tpu_torch.utils.prng import synthesis_noise
 from emojivoice_tpu_torch.utils.timing import StageClock
-from emojivoice_tpu_torch.vocoder.denoiser import Denoiser
+from emojivoice_tpu_torch.vocoder.denoiser import Denoiser, read_past
 from emojivoice_tpu_torch.vocoder.hifigan import HiFiGANGenerator
 
 HOP_LENGTH = 256
@@ -159,6 +175,13 @@ class PendingSynthesis:
     done: Any = None  # CUDA event recorded after the copies; None on the CPU
     frontend_s: float = 0.0  # the host's text frontend (``encode_texts``), seconds
     host_read_s: float = 0.0  # the host read of the predicted mel length (0 fused), seconds
+    live: Optional[int] = None  # rows [0, live) are served (None: all); the rest are pad rows
+    # mel-rate row-frames of the vocoder's MRF stages: those K1 computes, the live rows' reach with the widest
+    # stage margin (at most the bucket; the whole call without a reach), and those of the padded call
+    # (batch × mel bucket); both 0 where no host read tells the lengths (fused, a mesh's data axis) or nothing
+    # is vocoded
+    k1_frames_live: int = 0
+    k1_frames_all: int = 0
 
 
 class SynthesisPipeline:
@@ -212,6 +235,11 @@ class SynthesisPipeline:
         # the bias probe runs the f32 vocoder in every precision
         self.denoiser = (Denoiser(self.vocoder, num_mels=model_cfg.n_feats, device=self.device, mode=denoiser_mode)
                          if self.vocoder is not None else None)
+        # samples past a row's served end that the denoiser reads, and the widest margin of mel frames an MRF
+        # stage computes past a row's served frames (K1 runs ResBlock1 stages only)
+        self.vocode_tail = read_past(vocoder_cfg.total_upsample) if self.vocoder is not None else 0
+        self.k1_margin = (max(self.vocoder.reach_margins(self.vocode_tail))
+                          if self.vocoder is not None and vocoder_cfg.resblock == "1" else None)
         self.graphs = GraphStore(self.device) if graphs else None
 
     # ------------------------------------------------------------------ #
@@ -338,21 +366,45 @@ class SynthesisPipeline:
         return upload(torch.from_numpy(np.clip(raw, 0, self.model_cfg.n_spks - 1)), self.device)
 
     @torch.no_grad()
-    def _vocode(self, mel: torch.Tensor) -> torch.Tensor:
+    def _vocode(self, mel: torch.Tensor, served: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The pipeline's vocoder call, mel (B, T, n_feats) → wav (B, T·hop)
         f32: K1 on every MRF stage on the card, in bf16 mode where the
-        pipeline's precision says so.  Chunked streaming vocodes through it,
-        so streamed and monolithic audio come from the same kernels, and
-        through one graph per (batch, frames, dtype) where the pipeline
-        serves through graphs."""
+        pipeline's precision says so; with `served` ((B,) int32 on the
+        device) only as far as each row's served frames need (the module
+        docstring).  Chunked streaming vocodes through it, so streamed and
+        monolithic audio come from the same kernels, and through one graph
+        per (batch, frames, dtype) where the pipeline serves through graphs,
+        `served` copied in like the mel."""
         if self.graphs is None:
-            return self._vocoder_fn(mel)
+            return self._vocoder_fn(mel, served)
         with self.graphs.lock:
             return self.graphs.run(("vocoder", mel.shape[0], mel.shape[1], self.vocode_dtype), self._vocoder_fn,
-                                   (mel,), weights=(self.vocoder,))[0]
+                                   (mel, served), weights=(self.vocoder,))[0]
 
-    def _vocoder_fn(self, mel: torch.Tensor) -> torch.Tensor:
-        return self.vocoder(mel.float(), compute_dtype=self.vocode_dtype)
+    def _vocoder_fn(self, mel: torch.Tensor, served: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.vocoder(mel.float(), compute_dtype=self.vocode_dtype, served=served, tail=self.vocode_tail)
+
+    @staticmethod
+    def _served(mel_lengths: torch.Tensor, live: int) -> torch.Tensor:
+        """Each row's served mel frames on the device: its mel length, 0 for
+        a pad row (rows from `live` on)."""
+        served = mel_lengths.to(torch.int32)
+        if live == served.shape[0]:
+            return served
+        served = served.clone()
+        served[live:] = 0
+        return served
+
+    def _k1_frames(self, lengths, live: int, m_bucket: int, served: bool) -> tuple[int, int]:
+        """(row-frames K1 covers, row-frames of the padded call) at the mel
+        rate, from the rows' predicted lengths the host read (None: not
+        read)."""
+        if lengths is None or self.k1_margin is None:
+            return 0, 0
+        every = len(lengths) * m_bucket
+        if not served:
+            return every, every
+        return int(np.minimum(np.asarray(lengths[:live], np.int64) + self.k1_margin, m_bucket).sum()), every
 
     def _post_fn(self, denoise: bool, pcm16: bool):
         """The stage after the vocoder: the denoiser at a runtime strength,
@@ -367,10 +419,11 @@ class SynthesisPipeline:
         return post
 
     @torch.no_grad()
-    def _vocode_denoise_pcm(self, mel, denoise: bool, denoiser_strength: float, pcm16: bool, clock):
-        """The vocoder, then the denoiser and the pcm16 cast as one stage
-        (one graph keyed (batch, samples, denoise, pcm16) through graphs)."""
-        wav = self._vocode(mel)
+    def _vocode_denoise_pcm(self, mel, denoise: bool, denoiser_strength: float, pcm16: bool, clock, served=None):
+        """The vocoder (over `served` frames of each row where given), then
+        the denoiser and the pcm16 cast as one stage (one graph keyed (batch,
+        samples, denoise, pcm16) through graphs)."""
+        wav = self._vocode(mel, served)
         clock.mark("vocoder")
         if denoise or pcm16:
             post = self._post_fn(denoise, pcm16)
@@ -391,23 +444,25 @@ class SynthesisPipeline:
                    temperature: float = 0.667, length_scale: float = 1.0, denoiser_strength: float = 0.00025,
                    language: Optional[str] = None, seed=None, fused: bool = False,
                    fused_mel_bucket: Optional[int] = None, keep_mel: bool = True, vocode: bool = True,
-                   pcm16: bool = False) -> list[SynthesisResult]:
+                   pcm16: bool = False, live_rows: Optional[int] = None) -> list[SynthesisResult]:
         """Synthesise a padded batch of texts.  ``seed`` is one int (one
         generator for the batch) or one int per row (each row's noise depends
         on its own seed only)."""
         return self.finalize(self.synthesise_async(
             texts, spks=spks, n_timesteps=n_timesteps, temperature=temperature, length_scale=length_scale,
             denoiser_strength=denoiser_strength, language=language, seed=seed, fused=fused,
-            fused_mel_bucket=fused_mel_bucket, keep_mel=keep_mel, vocode=vocode, pcm16=pcm16))
+            fused_mel_bucket=fused_mel_bucket, keep_mel=keep_mel, vocode=vocode, pcm16=pcm16, live_rows=live_rows))
 
     @torch.no_grad()
     def synthesise_async(self, texts: Sequence[str], spks: Optional[Sequence[int]] = None, n_timesteps: int = 10,
                          temperature: float = 0.667, length_scale: float = 1.0,
                          denoiser_strength: float = 0.00025, language: Optional[str] = None, seed=None,
                          fused: bool = False, fused_mel_bucket: Optional[int] = None, keep_mel: bool = True,
-                         vocode: bool = True, pcm16: bool = False) -> PendingSynthesis:
+                         vocode: bool = True, pcm16: bool = False, live_rows: Optional[int] = None) -> PendingSynthesis:
         """Enqueue the synthesis, and the copies of its outputs to the host,
-        without waiting for them.
+        without waiting for them.  Rows from `live_rows` on are pad rows
+        (None: none are): nothing of theirs is vocoded where the pipeline
+        vocodes by reach, and ``finalize`` returns no result for them.
 
         In two-stage mode the call blocks once, where the host reads the
         predicted mel length after the encoder: on one CUDA stream that read
@@ -425,17 +480,21 @@ class SynthesisPipeline:
             x_np, xl_np, cleaned, _ = self.encode_texts(texts, language)
         frontend_s = time.perf_counter() - t0
         b = x_np.shape[0]
+        live = b if live_rows is None else int(live_rows)
+        if not 0 < live <= b:
+            raise ValueError(f"synthesise_async: live_rows={live_rows} for a batch of {b} rows")
         if seed is None:
             if self.mesh is not None:
                 raise ValueError("over a mesh every rank must draw the same noise: pass a seed")
             seed = int(np.random.randint(0, 2**31))
         if self.graphs is not None:
             with self.graphs.lock:
-                out, done, clock, host_read_s = self._staged(
+                out, done, clock, host_read_s, k1_frames = self._staged(
                     x_np, xl_np, spks, seed, n_timesteps, temperature, length_scale, denoiser_strength, fused,
-                    fused_mel_bucket, keep_mel, vocode, pcm16)
+                    fused_mel_bucket, keep_mel, vocode, pcm16, live)
             return PendingSynthesis(out=out, cleaned=cleaned, b=b, t0=t0, clock=clock, done=done,
-                                    frontend_s=frontend_s, host_read_s=host_read_s)
+                                    frontend_s=frontend_s, host_read_s=host_read_s, live=live,
+                                    k1_frames_live=k1_frames[0], k1_frames_all=k1_frames[1])
         clock = StageClock(self.device)
         # over a mesh whose data axis divides the batch, this rank's rows; all of them otherwise
         group = self.mesh.group(DATA_AXIS) if self.mesh is not None and b % self.mesh.size(DATA_AXIS) == 0 \
@@ -450,11 +509,11 @@ class SynthesisPipeline:
             # fused, the encoder runs in the compute dtype; two-stage, stage A stays f32 (the JAX stage A casts nothing)
             enc = (self.compute_model if fused else self.model).encode_text(x, x_lengths, spk, length_scale)
             clock.mark("encoder")
-        host_read_s = 0.0
+        host_read_s, lengths = 0.0, None
         if fused:
             m_bucket = fused_mel_bucket or self.mel_buckets[-1]
         else:
-            m_bucket, host_read_s = self._mel_bucket(enc[2], group)
+            m_bucket, host_read_s, lengths = self._mel_bucket(enc[2], group)
             if self.compute_dtype != torch.float32:  # stage B's inputs in the compute dtype, as the JAX stage B casts
                 mu_x, w_ceil, y_lengths, x_mask, spk_e = enc
                 dt = self.compute_dtype
@@ -468,33 +527,45 @@ class SynthesisPipeline:
             if keep_mel:
                 out["mel"] = dec["mel"].float()
             if vocode:
+                # by reach on one device; over a mesh every frame
+                served = self._served(dec["mel_lengths"], live) if self.mesh is None else None
                 out["wav"] = self._vocode_denoise_pcm(dec["mel"], denoiser_strength > 0, denoiser_strength, pcm16,
-                                                      clock)
+                                                      clock, served)
             out = {k: gather_rows(v, group) for k, v in out.items()}
             out, done = to_host_async(out)
+        live_frames, all_frames = self._k1_frames(lengths, live, m_bucket, self.mesh is None) if vocode else (0, 0)
         return PendingSynthesis(out=out, cleaned=cleaned, b=b, t0=t0, clock=clock, done=done,
-                                frontend_s=frontend_s, host_read_s=host_read_s)
+                                frontend_s=frontend_s, host_read_s=host_read_s, live=live,
+                                k1_frames_live=live_frames, k1_frames_all=all_frames)
 
-    def _mel_bucket(self, y_lengths: torch.Tensor, group=None) -> tuple[int, float]:
-        """The two-stage host read: the longest predicted mel length (over a
-        mesh's data axis too) picks the mel bucket → (bucket, seconds the
-        read took).  On one CUDA stream the read returns when everything
-        enqueued before it has finished."""
+    def _mel_bucket(self, y_lengths: torch.Tensor, group=None) -> tuple[int, float, Optional[np.ndarray]]:
+        """The two-stage host read: the rows' predicted mel lengths come back
+        in one sync, and the longest (over a mesh's data axis too) picks the
+        mel bucket → (bucket, seconds the read took, the rows' lengths, or
+        None over a data axis, where only the longest is read).  On one CUDA
+        stream the read returns when everything enqueued before it has
+        finished."""
         t0 = time.perf_counter()
         with obs.span("pipeline.host_read"):
-            y_len_max = y_lengths.max()
-            if group is not None:
+            lengths = None
+            if group is None:
+                lengths = y_lengths.cpu().numpy()
+                longest = int(lengths.max())
+            else:
+                y_len_max = y_lengths.max()
                 collectives["all_reduce"] += 1
                 torch.distributed.all_reduce(y_len_max, op=torch.distributed.ReduceOp.MAX, group=group)
-            m_bucket = pick_bucket(fix_len_compatibility(int(y_len_max.item())), self.mel_buckets)
-        return m_bucket, time.perf_counter() - t0
+                longest = int(y_len_max.item())
+            m_bucket = pick_bucket(fix_len_compatibility(longest), self.mel_buckets)
+        return m_bucket, time.perf_counter() - t0, lengths
 
     def _staged(self, x_np, xl_np, spks, seed, n_timesteps, temperature, length_scale, denoiser_strength, fused,
-                fused_mel_bucket, keep_mel, vocode, pcm16):
+                fused_mel_bucket, keep_mel, vocode, pcm16, live):
         """``synthesise_async``'s work through the graph store, one graph per
-        stage: encoder + durations, CFM decode, vocoder, denoiser + pcm16;
-        called under the store's lock → (host outputs, the CUDA event after
-        their copies, clock, seconds of the host read).  The keys
+        stage: encoder + durations, CFM decode, vocoder (by reach: rows from
+        `live` on are pad rows), denoiser + pcm16; called under the store's
+        lock → (host outputs, the CUDA event after their copies, clock,
+        seconds of the host read, ``_k1_frames``).  The keys
         carry what the JAX pipeline's keys carry (``_get_stage_a`` /
         ``_get_stage_b`` / ``_get_fused``) and changes a program here: the
         buckets, the batch, the step count, the dtypes, denoise and pcm16;
@@ -514,11 +585,11 @@ class SynthesisPipeline:
             enc_key = ("encoder", t_bucket, b, spk is not None, self.compute_dtype if fused else torch.float32)
             enc = g.run(enc_key, model.encode_text, (x, x_lengths, spk, float(length_scale)), weights=(model,))
             clock.mark("encoder")
-        host_read_s = 0.0
+        host_read_s, lengths = 0.0, None
         if fused:
             m_bucket = fused_mel_bucket or self.mel_buckets[-1]
         else:
-            m_bucket, host_read_s = self._mel_bucket(enc[2])
+            m_bucket, host_read_s, lengths = self._mel_bucket(enc[2])
         with obs.span("pipeline.launch"):
             z = synthesis_noise(seed, b, m_bucket, self.model_cfg.n_feats, temperature, self.device)  # f32
             mel, mel_lengths = g.run(("decoder", t_bucket, m_bucket, b, n_timesteps, self.compute_dtype),
@@ -528,9 +599,10 @@ class SynthesisPipeline:
             if keep_mel:
                 out["mel"] = mel.float()
             if vocode:
-                out["wav"] = self._vocode_denoise_pcm(mel, denoiser_strength > 0, denoiser_strength, pcm16, clock)
+                out["wav"] = self._vocode_denoise_pcm(mel, denoiser_strength > 0, denoiser_strength, pcm16, clock,
+                                                      self._served(mel_lengths, live))
             out, done = to_host_async(out)
-        return out, done, clock, host_read_s
+        return out, done, clock, host_read_s, self._k1_frames(lengths, live, m_bucket, True) if vocode else (0, 0)
 
     def _decode_fn(self, m_bucket: int, n_timesteps: int):
         """Stage B's decode on stage A's outputs, cast to the compute dtype
@@ -546,15 +618,15 @@ class SynthesisPipeline:
         return decode
 
     def finalize(self, p: PendingSynthesis) -> list[SynthesisResult]:
-        """Wait for an enqueued batch's host copies and build the results.
-        The RTF clock spans enqueue → copy of this batch."""
+        """Wait for an enqueued batch's host copies and build the results of
+        its live rows.  The RTF clock spans enqueue → copy of this batch."""
         if p.done is not None:
             p.done.synchronize()  # this batch's copies only, not the stream's later work
         out = {k: v.numpy() for k, v in p.out.items()}
         t_total = time.perf_counter() - p.t0
         stage_ms = p.clock.elapsed_ms()
         results = []
-        for i in range(p.b):
+        for i in range(p.b if p.live is None else p.live):
             ml = int(out["mel_lengths"][i])
             mel = out["mel"][i][:ml] if "mel" in out else np.zeros((0, 0), np.float32)
             wav = None

@@ -18,8 +18,9 @@ instead of B = 1.  What that buys on the H100 is in ``PERF.md``.
 - Batch sizes are rounded up to the next entry of ``batch_buckets`` by
   repeating the final row, so the number of distinct shapes stays bounded
   (the first call at a shape pays allocator growth and cuDNN/cuFFT plan
-  selection: ``warmup()`` takes them out of the serving path; the pad rows
-  are trimmed from the results and never surface).
+  selection: ``warmup()`` takes them out of the serving path).  The engine
+  tells the pipeline how many rows are live (``live_rows``): it vocodes none
+  of the pad rows (K1 gives them reach 0) and returns no result for them.
 - Noise is PER ROW: every request carries a seed (caller-provided via
   ``submit(seed=...)`` or engine-drawn), and the pipeline gives each row its
   own generator, so a request inside a merged batch draws the identical
@@ -103,6 +104,10 @@ class BatchingEngine:
       text frontend (``encode_texts``) and its host read of the predicted mel
       length (which waits for all work enqueued before it on the stream, an
       earlier batch's included), as ``PendingSynthesis`` reports them.
+    * ``k1_frames_live_sum`` and ``k1_frames_all_sum``: per batch, the
+      mel-rate row-frames of the vocoder's MRF stages that K1 computes (the
+      live rows' reach) and those of the padded call (batch bucket × mel
+      bucket), as ``PendingSynthesis`` reports them.
     * ``dispatch_s_sum`` (``mean_dispatch_ms``, over ``batches`` and
       ``failed_batches``): per batch, from the start of its dispatch to the
       end of ``finalize``: the host's enqueue, the host read, the device's
@@ -154,6 +159,8 @@ class BatchingEngine:
             "slot_wait_s_sum": 0.0,
             "frontend_s_sum": 0.0,
             "host_read_s_sum": 0.0,
+            "k1_frames_live_sum": 0,
+            "k1_frames_all_sum": 0,
         }
         # recent per-request queue waits for percentile reporting (bounded:
         # stats() stays O(window), old traffic ages out)
@@ -340,7 +347,7 @@ class BatchingEngine:
                 pending = self.pipe.synthesise_async(
                     texts, spks=spks, n_timesteps=steps, temperature=temp, length_scale=ls,
                     denoiser_strength=dn, language=language, seed=seeds,
-                    keep_mel=keep_mel, pcm16=self.pcm16,
+                    keep_mel=keep_mel, pcm16=self.pcm16, live_rows=n,
                 )
             except Exception as e:  # noqa: BLE001 — bad text/shape surfaces here
                 self._fail(batch, e, t0)
@@ -373,6 +380,8 @@ class BatchingEngine:
                 # the pipeline's host phases (another backend may report none)
                 self._stats["frontend_s_sum"] += getattr(pending, "frontend_s", 0.0)
                 self._stats["host_read_s_sum"] += getattr(pending, "host_read_s", 0.0)
+                self._stats["k1_frames_live_sum"] += getattr(pending, "k1_frames_live", 0)
+                self._stats["k1_frames_all_sum"] += getattr(pending, "k1_frames_all", 0)
             for r, res in zip(batch, results):
                 self._resolve(r.future, result=res)
 

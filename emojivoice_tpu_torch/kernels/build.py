@@ -76,17 +76,21 @@ def build_log(name: str, defines: tuple = ()) -> str:
     return build(name, defines).with_suffix(".log").read_text()
 
 
-def _bind_k1(lib: ctypes.CDLL, mode: str) -> ctypes.CDLL:
+def _bind_k1(lib: ctypes.CDLL, mode: str, reach: bool = True) -> ctypes.CDLL:
     """Argument types of a K1 library's res-block and one-conv entries (the
-    same in both modes) and of its error string."""
+    same in both modes) and of its error string.  ``reach=False`` binds a
+    source from before the entries took a reach (the probe's earlier
+    design)."""
     p, i = ctypes.c_void_p, ctypes.c_int
     resblock, conv = getattr(lib, f"mrf_resblock_{mode}"), getattr(lib, f"mrf_conv_{mode}")
-    resblock.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, ctypes.POINTER(i), i, ctypes.c_float, p]
+    tail = [p, p] if reach else [p]  # the reach (int32 on the device, or None), the stream
+    resblock.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, ctypes.POINTER(i), i, ctypes.c_float, *tail]
     resblock.restype = i
-    conv.argtypes = [p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, p]
+    conv.argtypes = [p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, *tail]
     conv.restype = i
     lib.mrf_error_string.argtypes = [i]
     lib.mrf_error_string.restype = ctypes.c_char_p
+    lib.no_reach = (None,) if reach else ()  # what a call without a reach passes there
     return lib
 
 

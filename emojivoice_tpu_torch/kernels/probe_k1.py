@@ -112,7 +112,7 @@ def probe_f32() -> None:
 
         def launch():
             _check(lib.mrf_conv_f32(x.data_ptr(), w.data_ptr(), bias.data_ptr(), None, out.data_ptr(),
-                                    b, t, c, k, d, 0, 1.0, _stream()), "mrf_conv_f32")
+                                    b, t, c, k, d, 0, 1.0, None, _stream()), "mrf_conv_f32")
         launch()
         torch.cuda.synchronize()
         ms = _ms(launch, 1)[0]
@@ -148,10 +148,11 @@ def probe_bf16_phases(old_lib) -> None:
         dils = (ctypes.c_int * 1)(d)
         runs = {
             "new one conv": lambda: lib.mrf_conv_bf16(x.data_ptr(), new_w.data_ptr(), bias.data_ptr(), None,
-                                                      out.data_ptr(), b, t, c, k, d, 0, 1.0, _stream()),
+                                                      out.data_ptr(), b, t, c, k, d, 0, 1.0, None, _stream()),
             "new fused unit": lambda: lib.mrf_resblock_bf16(x.data_ptr(), out.data_ptr(), cur.data_ptr(), h.data_ptr(),
                                                             new_w.data_ptr(), bias.data_ptr(), new_w.data_ptr(),
-                                                            bias.data_ptr(), b, t, c, k, 1, dils, 0, 1.0, _stream()),
+                                                            bias.data_ptr(), b, t, c, k, 1, dils, 0, 1.0, None,
+                                                            _stream()),
         }
         if old_lib is not None:
             old_w = old_tile_bf16(w)
@@ -173,7 +174,8 @@ def _stage_runner(lib, packed, x):
         for r, (rb, k, d) in enumerate(zip(packed, KERNELS, DILATIONS)):
             _check(lib.mrf_resblock_bf16(x.data_ptr(), out.data_ptr(), cur.data_ptr(), h.data_ptr(),
                                          rb[0].data_ptr(), rb[1].data_ptr(), rb[2].data_ptr(), rb[3].data_ptr(),
-                                         b, t, c, k, len(d), arrays[r], int(r > 0), 1.0 / len(KERNELS), _stream()),
+                                         b, t, c, k, len(d), arrays[r], int(r > 0), 1.0 / len(KERNELS), *lib.no_reach,
+                                         _stream()),
                    "mrf_resblock_bf16")
         return out
     return run
@@ -234,7 +236,7 @@ def precision(old_lib) -> dict:
     for name, (lib, tiled) in libs.items():
         out = torch.empty_like(x)
         _check(lib.mrf_conv_bf16(x.data_ptr(), tiled.data_ptr(), bias.data_ptr(), None, out.data_ptr(),
-                                 b, t, c, k, d, 0, 1.0, _stream()), name)
+                                 b, t, c, k, d, 0, 1.0, *lib.no_reach, _stream()), name)
         outs[name] = out
     torch.cuda.synchronize()
     res = {}
@@ -268,9 +270,10 @@ def main(argv=None) -> int:
                         if args.old_source is not None else [])])
     old_lib = None
     if args.old_source is not None:
-        old_lib = build._bind_k1(ctypes.CDLL(str(build.build("mrf_earlier", (), args.old_source))), "bf16")
+        old_lib = build._bind_k1(ctypes.CDLL(str(build.build("mrf_earlier", (), args.old_source))), "bf16",
+                                 reach=False)
         old_clocks = build._bind_k1(ctypes.CDLL(str(build.build("mrf_earlier", ("K1_PHASE_CLOCKS",),
-                                                                args.old_source))), "bf16")
+                                                                args.old_source))), "bf16", reach=False)
     for defines in ((), *VARIANTS.values()):
         _print_build("mrf_bf16", defines)
     if not args.skip_f32:

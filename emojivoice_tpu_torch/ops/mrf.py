@@ -41,6 +41,23 @@ them (``tile_k_major``, ``tile_k_major_bf16``; ``pack_weights`` does it all).
 ``mrf_stage`` takes either form on a CUDA tensor: a model packs once and hands
 over ``PackedResblock``s; contract tuples are packed on the fly, to the same
 bits.
+
+**The reach.**  ``mrf_stage(..., reach=r)`` takes r, (B,) int32 on x's
+device: per row the frames of this stage (at its rate) that the caller needs
+the stage's input to hold exactly.  Every conv of the stage then computes
+only the frames before its row's reach, which makes the output exact on
+[0, reach − ``stage_halo``) if the input is exact on [0, reach).  On the card
+K1 walks only the time tiles that start before the reach, in both modes
+(``csrc/k1_common.cuh``): past a row's reach rounded up to whole tiles the
+output is neither computed nor written and holds whatever the memory held,
+and a row of reach 0 (a pad row) is not computed at all.  Every frame that is
+computed has the bits it has without a reach.  On the CPU the plain twin
+computes the whole stage and writes NaN past each row's reach after every
+conv, so that any read of a frame K1 would leave unwritten shows.  The
+synthesis pipeline builds the reach from each row's predicted mel length
+(``vocoder/hifigan.py::stage_reach``); a call without one (streaming windows,
+the denoiser's bias probe, the exported bundle, the mesh path) computes
+every frame.
 """
 
 from __future__ import annotations
@@ -49,7 +66,7 @@ import collections
 import contextlib
 import ctypes
 import threading
-from typing import NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -156,10 +173,20 @@ def pack_weights(weights) -> list:
             for w1, b1, w2, b2 in weights]
 
 
+def stage_halo(kernel_sizes: Sequence[int], dilation_sizes: Sequence[Sequence[int]]) -> int:
+    """Frames by which an MRF stage's exact output falls short of its exact
+    input: the widest res-block's halos summed over its dilation units,
+    (k // 2)·d for conv_{k,d} and k // 2 for conv_{k,1} (60 at k = 11 and
+    dilations 1, 3, 5)."""
+    return max(sum((k // 2) * d + k // 2 for d in dils) for k, dils in zip(kernel_sizes, dilation_sizes))
+
+
 def mrf_stage_reference(x: torch.Tensor, weights, kernel_sizes: Sequence[int],
-                        dilation_sizes: Sequence[Sequence[int]]) -> torch.Tensor:
+                        dilation_sizes: Sequence[Sequence[int]], reach: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch MRF stage: per res-block, per dilation,
-    ``x += conv_{k,1}(lrelu(conv_{k,d}(lrelu(x))))``, then the mean.
+    ``x += conv_{k,1}(lrelu(conv_{k,d}(lrelu(x))))``, then the mean.  With a
+    `reach` (module docstring) every conv's output is NaN from its row's reach
+    on.
 
     With bf16 weights (contract tuples whose w1, w2 are bf16) it is K1's bf16
     mode: each conv's input, the lrelu'd activation, is rounded to bf16 and
@@ -172,8 +199,15 @@ def mrf_stage_reference(x: torch.Tensor, weights, kernel_sizes: Sequence[int],
     order alone moves."""
     xc = x.transpose(1, 2)
     dt = x.dtype
+    # frames past each row's reach: what K1 leaves unwritten, NaN here
+    past = None if reach is None else (torch.arange(x.shape[1], device=x.device) >= reach[:, None])[:, None]
+
+    def conv(t, w, b, d):  # w (k, c_in, c_out): 'same' padding (k − 1)·d / 2
+        t = F.conv1d(t, w.to(dt).permute(2, 1, 0), b.to(dt), padding=(w.shape[0] - 1) * d // 2, dilation=d)
+        return t if past is None else t.masked_fill(past, float("nan"))
+
     out = None
-    for (w1, b1, w2, b2), k, dils in zip(weights, kernel_sizes, dilation_sizes):
+    for (w1, b1, w2, b2), dils in zip(weights, dilation_sizes):
         bf16 = w1.dtype == torch.bfloat16
 
         def act(t):
@@ -182,12 +216,16 @@ def mrf_stage_reference(x: torch.Tensor, weights, kernel_sizes: Sequence[int],
 
         cur = xc
         for di, d in enumerate(dils):
-            t = F.conv1d(act(cur), w1[di].to(dt).permute(2, 1, 0), b1[di].to(dt), padding=(k * d - d) // 2,
-                         dilation=d)
-            t = F.conv1d(act(t), w2[di].to(dt).permute(2, 1, 0), b2[di].to(dt), padding=(k - 1) // 2)
-            cur = cur + t
+            cur = cur + conv(act(conv(act(cur), w1[di], b1[di], d)), w2[di], b2[di], 1)
         out = cur if out is None else out + cur
     return (out / len(kernel_sizes)).transpose(1, 2)
+
+
+def _check_reach(reach: Optional[torch.Tensor], x: torch.Tensor) -> None:
+    if reach is not None and (reach.dtype != torch.int32 or tuple(reach.shape) != (x.shape[0],)
+                              or reach.device != x.device or not reach.is_contiguous()):
+        raise ValueError(f"mrf_stage: reach must be a contiguous ({x.shape[0]},) int32 tensor on x's device, got "
+                         f"{tuple(reach.shape)} {reach.dtype} on {reach.device}")
 
 
 def _check(x: torch.Tensor, packed, kernel_sizes, dilation_sizes) -> bool:
@@ -248,6 +286,10 @@ def add_launches(counts: collections.Counter, sign: int = 1) -> None:
             launches[key] += sign * n
 
 
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
 def _raise_on(lib, err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"K1 {what} launch failed: CUDA error {err} ({lib.mrf_error_string(err).decode()})")
@@ -255,24 +297,26 @@ def _raise_on(lib, err: int, what: str) -> None:
 
 @torch.library.custom_op("emojivoice_tpu_torch::mrf_stage", mutates_args=(),
                          schema="(Tensor x, Tensor[] operands, int[] kernel_sizes, int[] dilations, "
-                                "int[] n_dilations) -> Tensor")
-def _mrf_stage_op(x, operands, kernel_sizes, dilations, n_dilations):
+                                "int[] n_dilations, Tensor? reach=None) -> Tensor")
+def _mrf_stage_op(x, operands, kernel_sizes, dilations, n_dilations, reach=None):
     """The registered op behind ``mrf_stage``: `operands` is the res-blocks'
     (w1, b1, w2, b2) flattened, `dilations` the res-blocks' dilation lists
-    concatenated, `n_dilations` their lengths."""
+    concatenated, `n_dilations` their lengths, `reach` None or the rows'
+    reach."""
     weights = [tuple(operands[4 * r:4 * r + 4]) for r in range(len(kernel_sizes))]
     ends = [sum(n_dilations[:r + 1]) for r in range(len(n_dilations))]
     dils = [tuple(dilations[end - n:end]) for end, n in zip(ends, n_dilations)]
+    _check_reach(reach, x)
     if x.device.type == "cpu":
         # contiguous, as the kernel's output and the fake implementation are
-        return mrf_stage_reference(x, weights, kernel_sizes, dils).contiguous()
+        return mrf_stage_reference(x, weights, kernel_sizes, dils, reach).contiguous()
     if x.device.type != "cuda":
         raise ValueError(f"mrf_stage: no kernel for device {x.device}")
-    return _launch_k1(x, weights, kernel_sizes, dils)
+    return _launch_k1(x, weights, kernel_sizes, dils, reach)
 
 
 @_mrf_stage_op.register_fake
-def _mrf_stage_fake(x, operands, kernel_sizes, dilations, n_dilations):
+def _mrf_stage_fake(x, operands, kernel_sizes, dilations, n_dilations, reach=None):
     return torch.empty_like(x)
 
 
@@ -283,10 +327,11 @@ def _library(mode: str):
     return build.load_mrf() if mode == "f32" else build.load_mrf_bf16()
 
 
-def _launch_k1(x: torch.Tensor, weights, kernel_sizes, dilation_sizes) -> torch.Tensor:
+def _launch_k1(x: torch.Tensor, weights, kernel_sizes, dilation_sizes, reach=None) -> torch.Tensor:
     """K1 on a CUDA tensor: one ``mrf_resblock_f32`` (or, on bf16 weights,
     ``mrf_resblock_bf16``) call per res-block (each launches its convs or
-    dilation units), raising on a failed build or launch."""
+    dilation units, over the tiles `reach` leaves them), raising on a failed
+    build or launch."""
     packed = pack_weights(weights) if all(rb[0].dim() == 4 for rb in weights) else weights
     packed = [PackedResblock(*rb) for rb in packed]
     mode = "bf16" if _check(x, packed, kernel_sizes, dilation_sizes) else "f32"
@@ -304,31 +349,34 @@ def _launch_k1(x: torch.Tensor, weights, kernel_sizes, dilation_sizes) -> torch.
             err = resblock(
                 x.data_ptr(), out.data_ptr(), cur.data_ptr(), h.data_ptr(),
                 rb.w1.data_ptr(), rb.b1.data_ptr(), rb.w2.data_ptr(), rb.b2.data_ptr(),
-                b, t, c, k, len(dils), dil_arr, int(r > 0), 1.0 / n, stream)
+                b, t, c, k, len(dils), dil_arr, int(r > 0), 1.0 / n, _ptr(reach), stream)
             _raise_on(lib, err, f"mrf_resblock_{mode} at B={b} T={t} C={c} k={k}")
         count_launch(c, mode)
     return out
 
 
 def mrf_stage(x: torch.Tensor, weights, kernel_sizes: Tuple[int, ...],
-              dilation_sizes: Tuple[Tuple[int, ...], ...]) -> torch.Tensor:
+              dilation_sizes: Tuple[Tuple[int, ...], ...], reach: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Fused MRF stage (B, T, C) → (B, T, C); see the module docstring.
     `weights`: contract tuples, or on a CUDA tensor ``PackedResblock``s; bf16
-    w1/w2 select K1's bf16 mode."""
+    w1/w2 select K1's bf16 mode.  `reach`: None (every frame), or (B,) int32
+    on x's device (the module docstring's reach)."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"mrf_stage: no kernel for device {x.device}")
     return torch.ops.emojivoice_tpu_torch.mrf_stage(
         x, [t for rb in weights for t in rb], [int(k) for k in kernel_sizes],
-        [int(d) for dils in dilation_sizes for d in dils], [len(dils) for dils in dilation_sizes])
+        [int(d) for dils in dilation_sizes for d in dils], [len(dils) for dils in dilation_sizes], reach)
 
 
-def conv_taps(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, dilation: int = 1) -> torch.Tensor:
+def conv_taps(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, dilation: int = 1,
+              reach: Optional[torch.Tensor] = None, out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One of K1's convolutions alone, ``conv_{k,d}(lrelu(x)) + bias`` with
     'same' zero padding: x (B, T, C) f32 on the card, w (k, C, C) as
     [tap][c_in][c_out], f32 (3xTF32 mode) or bf16 (bf16 mode's one-conv
-    kernel: lrelu(x) rounded to bf16, one product per tap), bias (C,).  For
-    holding the tensor-core product against a reference; it is no part of
-    ``mrf_stage``'s count."""
+    kernel: lrelu(x) rounded to bf16, one product per tap), bias (C,), over
+    the tiles `reach` leaves it (the module docstring), into `out` (a new
+    tensor where None).  For holding the tensor-core product against a
+    reference; it is no part of ``mrf_stage``'s count."""
     if x.device.type != "cuda" or x.dtype != torch.float32 or x.dim() != 3 or not x.is_contiguous():
         raise ValueError("conv_taps: x must be a contiguous (B, T, C) float32 CUDA tensor")
     b, t, c = x.shape
@@ -338,11 +386,15 @@ def conv_taps(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, dilation: in
     mode = "bf16" if w.dtype == torch.bfloat16 else "f32"
     lib = _library(mode)
     tiled = pack_conv(w[None] if mode == "bf16" else w.float()[None])
+    _check_reach(reach, x)
     bias = bias.float().contiguous()
-    out = torch.empty_like(x)
+    if out is None:
+        out = torch.empty_like(x)
+    elif out.shape != x.shape or out.dtype != x.dtype or out.device != x.device or not out.is_contiguous():
+        raise ValueError("conv_taps: out must be a contiguous tensor of x's shape, dtype and device")
     with torch.cuda.device(x.device), _launch_lock:
         err = getattr(lib, f"mrf_conv_{mode}")(x.data_ptr(), tiled.data_ptr(), bias.data_ptr(), None, out.data_ptr(),
-                                               b, t, c, k, dilation, 0, 1.0,
+                                               b, t, c, k, dilation, 0, 1.0, _ptr(reach),
                                                ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     _raise_on(lib, err, f"mrf_conv_{mode} at B={b} T={t} C={c} k={k} d={dilation}")
     return out

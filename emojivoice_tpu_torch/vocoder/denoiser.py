@@ -38,6 +38,18 @@ def denoise(audio: torch.Tensor, bias_spec: torch.Tensor, strength: Union[float,
     return istft(spec * (mag_d / torch.clamp_min(mag, 1e-12)), N_FFT, HOP, WIN)
 
 
+def read_past(frame_samples: int) -> int:
+    """Samples past a row's served end that ``denoise`` reads to give the
+    served samples [0, L·`frame_samples`) exactly, for any L: the last STFT
+    frame whose window reaches the end, frame ⌊(end − 1 + n_fft/2) / hop⌋,
+    reads on to its centre + n_fft/2 (768 at 256 samples a mel frame).  Its
+    bins are scaled one by one, and the overlap-add adds each frame only
+    where its window lies."""
+    half = N_FFT // 2
+    return max((end - 1 + half) // HOP * HOP + (N_FFT - half) - end
+               for end in (n * frame_samples for n in range(1, HOP + 1)))
+
+
 class Denoiser:
     def __init__(self, vocoder, num_mels: int = 80, device=None, mode: str = "zeros",
                  mel: torch.Tensor = None):

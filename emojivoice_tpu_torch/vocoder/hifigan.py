@@ -42,6 +42,18 @@ channel of a ``Conv1d`` (out, in, k) and per *input* channel of a
 ``ConvTranspose1d`` (in, out, k), no epsilon.  ``fold_weight_norm()`` gives
 the plain generator to serve.
 
+**Served frames.**  ``forward(mel, served=s, tail=n)`` computes the MRF
+stages only as far as the waveform a caller keeps depends on them: s is
+(B,) int32 on the mel's device, per row the mel frames whose audio is served
+(0 for a pad row), and the samples [0, s·hop + n) of each row are bit-equal
+to a call without ``served`` (hop = ``total_upsample``; the pipeline's n is
+what its denoiser reads past the served end).  ``reach_margins`` works back
+from there through ``conv_post``'s 7 taps, each stage's up-sampling kernel
+and stride and each res-block's halo to a margin of mel frames a stage, and
+``stage_reach`` turns the rows' frames into each stage's reach
+(``ops/mrf.py``); ``conv_pre``, the up-sampling convs and ``conv_post`` still
+run over every frame.  The rest of each row is unspecified.
+
 Under tensor parallelism (``parallel/tp.py::shard_params`` on a plain
 generator) each res-block's ``convs1`` hold a slice of their output channels
 and ``convs2`` of their input channels, as the JAX package lays them out.
@@ -55,13 +67,14 @@ convs instead).  ``forward_train`` runs the pairs column → row parallel.
 from __future__ import annotations
 
 import threading
+from typing import Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from emojivoice_tpu_torch.config import HiFiGANConfig
-from emojivoice_tpu_torch.ops.mrf import LRELU_SLOPE, mrf_stage, pack_weights
+from emojivoice_tpu_torch.ops.mrf import LRELU_SLOPE, mrf_stage, pack_weights, stage_halo
 from emojivoice_tpu_torch.parallel.tp import gathered
 
 
@@ -210,10 +223,46 @@ class HiFiGANGenerator(nn.Module):
                 self._stacked[dtype] = [pack_weights(st) for st in stacked] if on_card else stacked
             return self._stacked[dtype][stage]
 
+    def reach_margins(self, tail: int = 0) -> list:
+        """Per MRF stage the mel frames past a row's served frames L that its
+        input must hold exactly for the waveform to be exact on
+        [0, L·hop + `tail`) (the module docstring): worked back from the
+        waveform through ``conv_post`` (7 taps), then per stage, last first,
+        its res-blocks' halo and the up-sampling conv before it (kernel K,
+        stride u, padding p: output frame n reads input frames up to
+        ⌊(n + p) / u⌋)."""
+        cfg = self.cfg
+        rate = cfg.total_upsample  # samples a mel frame at the current stage's rate
+        need = tail + self.conv_post.padding[0]  # samples past L·rate the current stage's output must hold
+        halo = stage_halo(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes)
+        margins = []
+        for u, k in reversed(list(zip(cfg.upsample_rates, cfg.upsample_kernel_sizes))):
+            need += halo  # the stage's input
+            margins.append(-(-need // rate))
+            need = (need - 1 + (k - u) // 2) // u + 1  # the stage before: the up-sampling conv's input
+            rate //= u
+        return margins[::-1]
+
+    def stage_reach(self, served: torch.Tensor, frames: int, tail: int = 0) -> list:
+        """Each MRF stage's reach (``ops/mrf.py``) for rows serving `served`
+        mel frames of `frames`: ``min(T_s, (L + M_s)·r_s)`` with r_s the
+        stage's samples a mel frame, T_s = frames·r_s and M_s
+        ``reach_margins(tail)``; 0 for a row that serves nothing.  int32 on
+        served's device, computed there."""
+        live = served > 0
+        reach, rate = [], 1
+        for u, m in zip(self.cfg.upsample_rates, self.reach_margins(tail)):
+            rate *= u
+            reach.append(torch.clamp_max((served + m) * rate, frames * rate) * live)
+        return reach
+
     @torch.no_grad()
-    def forward(self, mel: torch.Tensor, compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    def forward(self, mel: torch.Tensor, compute_dtype: torch.dtype = torch.float32,
+                served: Optional[torch.Tensor] = None, tail: int = 0) -> torch.Tensor:
         """mel (B, T, num_mels) f32 → waveform f32; `compute_dtype` bf16 runs
-        the MRF stages in K1's bf16 mode (the module docstring)."""
+        the MRF stages in K1's bf16 mode; with `served` only what the samples
+        [0, served·hop + `tail`) of each row read is computed (the module
+        docstring)."""
         cfg = self.cfg
         if self.weight_norm:
             raise RuntimeError("HiFiGANGenerator.forward serves plain weights: call fold_weight_norm() and serve "
@@ -223,7 +272,8 @@ class HiFiGANGenerator(nn.Module):
                 raise ValueError("HiFiGANGenerator.forward: the bf16 mode is K1's, which runs ResBlock1 stages; "
                                  "ResBlock2 serves in f32")
             return self.forward_train(mel)
-        return _serve(self, mel, [self.stage_weights(i, compute_dtype) for i in range(len(self.ups))])
+        reach = self.stage_reach(served, mel.shape[1], tail) if served is not None else None
+        return _serve(self, mel, [self.stage_weights(i, compute_dtype) for i in range(len(self.ups))], reach)
 
     def for_export(self) -> nn.Module:
         """The serving forward as ``torch.export`` can trace it: a ResBlock1
@@ -258,15 +308,16 @@ class HiFiGANGenerator(nn.Module):
         return plain.to(self.conv_pre.bias.device).eval()
 
 
-def _serve(gen, mel: torch.Tensor, stages) -> torch.Tensor:
+def _serve(gen, mel: torch.Tensor, stages, reach=None) -> torch.Tensor:
     """The serving forward of a ResBlock1 generator, every MRF stage through
-    ``mrf_stage`` on `stages` (``stage_weights`` of each stage)."""
+    ``mrf_stage`` on `stages` (``stage_weights`` of each stage), over each
+    stage's `reach` where one is given (``stage_reach``)."""
     cfg = gen.cfg
     dils = tuple(tuple(d) for d in cfg.resblock_dilation_sizes)
     x = gen.conv_pre(mel.transpose(1, 2))
-    for up, weights in zip(gen.ups, stages):
+    for up, weights, r in zip(gen.ups, stages, reach or [None] * len(stages)):
         x = up(F.leaky_relu(x, LRELU_SLOPE))
-        x = mrf_stage(x.transpose(1, 2).contiguous(), weights, cfg.resblock_kernel_sizes, dils).transpose(1, 2)
+        x = mrf_stage(x.transpose(1, 2).contiguous(), weights, cfg.resblock_kernel_sizes, dils, r).transpose(1, 2)
     x = gen.conv_post(F.leaky_relu(x, 0.01))
     return torch.tanh(x)[:, 0, :]
 

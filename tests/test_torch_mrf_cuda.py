@@ -28,6 +28,7 @@ held to float64 of the operands rounded where ``_conv_same`` rounds them at
 that bound.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -244,3 +245,72 @@ def test_k1_runs_inside_an_exported_vocoder(cuda_f32, tmp_path, monkeypatch):
     monkeypatch.setattr(build, "load_mrf", no_build)
     with pytest.raises(RuntimeError, match="nvcc failed"), torch.inference_mode():
         program(mel)
+
+
+# The four HiFi-GAN v1 stages of a 512-frame bucket at batch 8: per row the reach at each stage's rate, five live
+# rows of ragged lengths (the whole bucket, one frame short, two in the middle, one frame) and three pad rows.
+V1_STAGES_B8 = [(256, 4096), (128, 32768), (64, 65536), (32, 131072)]
+MAX_TILE = {"f32": 512, "bf16": mrf.BF16_BM}  # the tallest time tile of each mode's one-conv launch
+
+
+def _ragged_reach(t_len):
+    return torch.tensor([t_len, t_len - 1, t_len // 2 + 37, t_len // 7 + 5, 1, 0, 0, 0], dtype=torch.int32,
+                        device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["f32", "bf16"])
+@pytest.mark.parametrize("c,t_len", V1_STAGES_B8)
+def test_k1_reach_keeps_the_live_region_and_skips_the_rest(cuda_f32, mode, c, t_len):
+    """With a reach a stage gives each live row's frames [0, reach − halo)
+    the bits it gives without one, and one conv into an output filled with
+    NaN leaves it NaN past each row's reach rounded up to whole tiles (the
+    pad rows whole), with [0, reach) equal to the conv without a reach: the
+    tiles past the reach are skipped, the rest computed as before."""
+    x, w = _stage(8, c, t_len, seed=c + 11)
+    if mode == "bf16":
+        w = _bf16(w)
+    reach = _ragged_reach(t_len)
+    every = mrf.mrf_stage(x, w, KERNELS, DILATIONS)
+    before = mrf.launches[(c, mode)]
+    got = mrf.mrf_stage(x, w, KERNELS, DILATIONS, reach)
+    torch.cuda.synchronize()
+    assert mrf.launches[(c, mode)] == before + 1
+    halo = mrf.stage_halo(KERNELS, DILATIONS)
+    for row, n in enumerate(reach.tolist()):
+        assert torch.equal(got[row, :max(n - halo, 0)], every[row, :max(n - halo, 0)])
+
+    w1 = w[2][0][1]  # k = 11, c_in × c_out
+    bias = w[2][1][1]
+    whole = mrf.conv_taps(x, w1, bias, 3)
+    out = torch.full_like(x, float("nan"))
+    assert mrf.conv_taps(x, w1, bias, 3, reach, out) is out
+    torch.cuda.synchronize()
+    for row, n in enumerate(reach.tolist()):
+        assert torch.equal(out[row, :n], whole[row, :n])
+        assert bool(torch.isnan(out[row, -(-n // MAX_TILE[mode]) * MAX_TILE[mode]:]).all())
+
+
+@pytest.mark.cuda
+def test_k1_reach_through_the_graphs_gives_the_same_pcm16(cuda_f32, monkeypatch):
+    """A serving batch of five live rows in batch bucket 8 through the
+    pipeline's captured graphs, the vocoder by reach (the pad rows' reach 0):
+    every live row's pcm16 equals the same call vocoding every frame of every
+    row, and only the live rows come back."""
+    from emojivoice_tpu_torch.inference.pipeline import SynthesisPipeline
+
+    pipe = SynthesisPipeline.from_random(seed=0, device="cuda")
+    texts = ["Hello there, how are you today?", "Yes.", "A somewhat longer reply that runs on for a while.",
+             "Short one.", "The last real row of the batch."]
+    texts += [texts[-1]] * 3
+    kw = dict(spks=[1, 2, 3, 4, 5, 5, 5, 5], n_timesteps=2, seed=[11, 12, 13, 14, 15, 15, 15, 15], pcm16=True,
+              keep_mel=False)
+    pending = pipe.synthesise_async(texts, live_rows=5, **kw)
+    got = pipe.finalize(pending)
+    assert len(got) == 5 and 0 < pending.k1_frames_live < pending.k1_frames_all
+    monkeypatch.setattr(pipe, "_served", lambda mel_lengths, live: None)
+    want = pipe.synthesise(texts, **kw)
+    assert len(want) == 8
+    for g, w in zip(got, want):
+        assert g.mel_length == w.mel_length and g.wav.shape == (g.mel_length * 256,)
+        assert np.array_equal(g.wav, w.wav)

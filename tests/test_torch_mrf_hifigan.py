@@ -17,9 +17,11 @@ from emojivoice_tpu.config import HiFiGANConfig
 from emojivoice_tpu.io.torch_ckpt import convert_hifigan_state_dict
 from emojivoice_tpu.ops.pallas_mrf import mrf_stage_pallas, mrf_stage_unfused, stack_resblock_weights
 from emojivoice_tpu.vocoder import HiFiGANGenerator as FlaxHiFiGAN
+from emojivoice_tpu_torch import config as torch_config
 from emojivoice_tpu_torch.io.from_jax import hifigan_state_dict_from_flax
 from emojivoice_tpu_torch.ops import mrf
 from emojivoice_tpu_torch.vocoder import hifigan
+from emojivoice_tpu_torch.vocoder.denoiser import Denoiser, read_past
 from emojivoice_tpu_torch.vocoder.hifigan import HiFiGANGenerator
 
 torch.set_num_threads(2)
@@ -184,3 +186,47 @@ def test_exported_generator_keeps_the_op_as_one_node_per_stage(rng, narrow, tmp_
     torch.testing.assert_close(got, gen(mel), rtol=0, atol=0)
     np.testing.assert_allclose(got.numpy(), np.asarray(FlaxHiFiGAN(cfg=cfg).apply(params, jnp.asarray(mel.numpy()))),
                                atol=ATOL)
+
+
+BUCKET = 256  # mel frames of the padded call
+
+
+@pytest.mark.parametrize("served", [
+    (BUCKET, BUCKET - 1, BUCKET - 200, 0, 0),  # a row at the full bucket, rows 1 and 200 frames short, two pad rows
+    (BUCKET - 1,),  # B = 1
+    None,  # no reach
+], ids=["padded_batch", "b1", "no_reach"])
+def test_reach_keeps_every_served_sample(rng, served):
+    """HiFi-GAN v1's strides, up-sampling kernels and res-blocks (at a narrow
+    width) and the denoiser over a padded batch.  With each row's served
+    frames the MRF stages compute only their reach (``stage_reach``; the
+    plain twin writes NaN past it after every conv, where K1 leaves the frames
+    unwritten), and every served sample [0, L·256) of a live row equals the
+    call without a reach to the bit, which holds the margins worked back from
+    the denoiser's window, ``conv_post``, the up-sampling convs and the
+    res-blocks' halos; a pad row is NaN whole, nothing of it computed.
+    Without a reach every frame is computed, as the plain convs compute it."""
+    cfg = torch_config.HiFiGANConfig(upsample_initial_channel=32, num_mels=12)
+    assert cfg.total_upsample == 256 and tuple(cfg.resblock_kernel_sizes) == V1_KERNELS
+    torch.manual_seed(3)
+    gen = HiFiGANGenerator(cfg).eval()
+    denoiser = Denoiser(gen, num_mels=cfg.num_mels)
+    b = 1 if served is None else len(served)
+    mel = torch.from_numpy((rng.normal(size=(b, BUCKET, cfg.num_mels)) * 2 - 6).astype(np.float32))
+    every = gen(mel)
+    if served is None:
+        with torch.no_grad():
+            assert torch.equal(every, gen.forward_train(mel))
+        return
+    tail = read_past(cfg.total_upsample)
+    margin = max(gen.reach_margins(tail))
+    assert tail == 768 and 10 <= margin <= 15
+    reached = gen(mel, served=torch.tensor(served, dtype=torch.int32), tail=tail)
+    want, got = denoiser(every, 0.05), denoiser(reached, 0.05)
+    for row, n in enumerate(served):
+        if n == 0:
+            assert bool(torch.isnan(reached[row]).all())
+            continue
+        assert torch.equal(got[row, :n * 256], want[row, :n * 256])
+        if n + margin < BUCKET:  # the reach left the rest of the row
+            assert bool(torch.isnan(reached[row, (n + margin) * 256:]).all())

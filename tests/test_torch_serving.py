@@ -34,6 +34,8 @@ from emojivoice_tpu_torch.inference.pipeline import SynthesisPipeline
 from emojivoice_tpu_torch.inference.serving import BatchingEngine
 from emojivoice_tpu_torch.io.from_jax import hifigan_state_dict_from_flax, matcha_state_dict_from_flax
 from emojivoice_tpu_torch.utils import observability as obs
+from emojivoice_tpu_torch.utils.buckets import pick_bucket
+from emojivoice_tpu_torch.utils.masks import fix_len_compatibility
 from tests.test_pipeline import tiny_root
 
 torch.set_num_threads(2)
@@ -101,6 +103,27 @@ def test_batch_padded_to_bucket(pipe):
         s = eng.stats()
     assert s["batch_hist"] == {4: 1}  # 3 rows → bucket 4
     assert s["pad_rows"] == 1
+
+
+def test_pad_rows_get_no_vocoder_work_and_are_counted(pipe):
+    """Three requests in batch bucket 4: the engine tells the pipeline that
+    three rows are live, so the pad row gets reach 0 and no result, each live
+    row's audio equals the same padded batch called directly to the bit, and
+    the counters hold the row-frames K1 computes (each live row's length and
+    the widest stage margin, at most the mel bucket) and those of the padded
+    call."""
+    texts = ["pad me", "pad me too, a little longer", "and me"]
+    with BatchingEngine(pipe, max_batch=4, max_wait_ms=1500, batch_buckets=(1, 2, 4), pcm16=False) as eng:
+        futs = [eng.submit(t, spk=i, n_timesteps=2, seed=20 + i) for i, t in enumerate(texts)]
+        got = [f.result(timeout=TIMEOUT) for f in futs]
+        s = eng.stats()
+    assert s["batches"] == 1 and s["pad_rows"] == 1
+    direct = pipe.synthesise(texts + texts[-1:], spks=[0, 1, 2, 2], n_timesteps=2, seed=[20, 21, 22, 22])
+    for g, d in zip(got, direct):
+        assert np.array_equal(g.wav, d.wav) and np.isfinite(g.wav).all()
+    m_bucket = pick_bucket(fix_len_compatibility(max(r.mel_length for r in got)), pipe.mel_buckets)
+    assert s["k1_frames_all_sum"] == 4 * m_bucket
+    assert s["k1_frames_live_sum"] == sum(min(r.mel_length + pipe.k1_margin, m_bucket) for r in got)
 
 
 def test_mismatched_program_keys_split_batches(pipe):
@@ -360,7 +383,14 @@ def test_engine_dispatches_as_the_jax_engine_does():
         return sorted(backend.calls), done, counters
 
     ours, theirs = drive(BatchingEngine), drive(JaxBatchingEngine)
-    assert ours == theirs
+    # the port's engine also tells the backend how many rows are live: here, with distinct texts, those that are
+    # not the last row repeated to the batch bucket
+    calls = []
+    for texts, spks, seeds, kw in ours[0]:
+        kw = dict(kw)
+        assert kw.pop("live_rows") == len(set(texts))
+        calls.append((texts, spks, seeds, tuple(sorted(kw.items()))))
+    assert (calls, *ours[1:]) == theirs
     calls, done, counters = ours
     assert done == ["alpha", "beta", "ValueError('poison text')", "delta", "epsilon"]
     assert counters["errors"] == 1 and counters["requests"] == 5
