@@ -57,6 +57,19 @@ Phases (each one failing fails the run, exit code ≠ 0):
      (4, 512, 2048), (2, 1000, 1100), (3, 33, 120), and (2, 1500, 1600) whose
      decision bits go through the global scratch buffer; every path is
      checked for its properties; both timed like K1;
+  4b. kernel, K3 — ``ops.moe.experts`` (csrc/moe.cu, the routed experts of
+     a mixture-of-experts layer) against ``experts_reference`` at
+     DeepSeek-V2-Lite's widths (hidden 2048, expert width 1408, 64 experts,
+     top-6), within 1e-5 of the output's largest magnitude: a decode step's
+     one row (the GEMVs over the 6 routed experts) and a 512-row prefill
+     whose first 37 rows route nowhere (the grouped GEMM); both timed like
+     K1, beside the bound of their bytes (the routed or hit experts' weights
+     read once).  Then the main path: ``TorchChatLM`` over DeepSeek-V2-Lite's
+     published config cut to 3 layers (the dense one and two of experts),
+     random f32 weights, a greedy reply at the 512 bucket whose prefill and
+     steps run eagerly once (each K3 call there held against its plain
+     version on the router's own routing) and are captured, then a second
+     reply by replays alone; K3's launches are counted over both replies;
   5. training — a synthetic alignable corpus (the 11 emoji speakers, long
      texts, 32 utterances) is written to a temporary folder and
      ``emojivoice_tpu_torch.training.train.main`` is called as a user would,
@@ -304,7 +317,9 @@ run: K1's three TF32 products per f32 product at 495 TFLOP/s (the earlier
 SIMT design's bound at 67 TFLOP/s and a one-product TF32 kernel's stay beside
 it), K1's bf16 mode one bf16 product at 989 TFLOP/s (with its launches per
 stage and the window shapes' time and bound), K2's two f32 operations
-per cell at 67 TFLOP/s.  There is no CPU path:
+per cell at 67 TFLOP/s, K3's 6·H·I operations a token-expert pair at the
+TF32 peak or the routed or hit experts' bytes (its bound on the f32 CUDA
+cores beside it).  There is no CPU path:
 without a CUDA device it exits 1.
 """
 
@@ -474,6 +489,26 @@ GPTJ_CPU_LAYERS = 2  # [apps] (e): GPT-J card against CPU at full width on 2 of 
 # algorithm under capture, the f32 wav within GRAPH_WAV_TOL (bf16: the [precision] bounds, VOCODER_TOL and MEL_MAE_TOL)
 GRAPH_BATCHES, GRAPH_WAV_TOL, GRAPH_THREADS = (1, 8, 32), 1e-5, 32
 K1_KERNEL_NAMES = ("conv_taps_kernel", "k1_bf16_unit_kernel")  # K1's kernels in csrc/mrf.cu and csrc/mrf_bf16.cu
+# [kernel K3]: DeepSeek-V2-Lite's routed experts (deepseek-ai/DeepSeek-V2-Lite config.json): hidden, expert width,
+# routed experts, experts a token; K3 against its plain version within MOE_TOL of the output's largest magnitude (both
+# f32 with TF32 off, each dot product of 2048 or 1408 terms summed in another order: tests/test_torch_moe_cuda.py);
+# a decode step's one row and a prefill's 512, MOE_PADS of them pads routed nowhere (id E)
+MOE_WIDTHS = (2048, 1408, 64, 6)
+MOE_ROWS = (1, 512)
+MOE_PADS = 37
+MOE_TOL = 1e-5
+# the main path: the published config (the benchmark's agent_whisper_dsv2lite holds it whole) at MOE_LAYERS layers
+DSV2_LITE = dict(vocab_size=102400, hidden_size=2048, intermediate_size=10944, num_hidden_layers=27,
+                 num_attention_heads=16, num_key_value_heads=16, kv_lora_rank=512, q_lora_rank=None,
+                 qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128, first_k_dense_replace=1, moe_layer_freq=1,
+                 n_routed_experts=64, n_shared_experts=2, num_experts_per_tok=6, moe_intermediate_size=1408,
+                 topk_method="greedy", scoring_func="softmax", norm_topk_prob=False, routed_scaling_factor=1.0,
+                 n_group=1, topk_group=1, rms_norm_eps=1e-6, rope_theta=10000, max_position_embeddings=163840,
+                 attention_bias=False, hidden_act="silu", tie_word_embeddings=False, bos_token_id=100000,
+                 eos_token_id=100001,
+                 rope_scaling={"beta_fast": 32.0, "beta_slow": 1.0, "factor": 40.0, "mscale": 0.707,
+                               "mscale_all_dim": 0.707, "original_max_position_embeddings": 4096, "type": "yarn"})
+MOE_LAYERS = 3
 
 
 @contextlib.contextmanager
@@ -2646,6 +2681,149 @@ def phase_kernel_mas(mas) -> list:
     return rows
 
 
+def moe_routing(t: int, seed: int, pads: int = 0):
+    """Rows x (t, H) and, per row, K distinct experts with softmax-sized
+    weights (the router's order: heaviest first); the first `pads` rows
+    route nowhere (id E), as a prefill's pad rows do."""
+    h, _, e, k = MOE_WIDTHS
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    x = torch.randn((t, h), generator=g, device=DEVICE)
+    weights, ids = torch.softmax(torch.randn((t, e), generator=g, device=DEVICE), -1).sort(-1, descending=True)
+    ids = ids[:, :k].to(torch.int32)
+    ids[:pads] = e
+    return x, ids.contiguous(), weights[:, :k].contiguous()
+
+
+def moe_work(rows: int, pairs: int, hits: int) -> dict:
+    """The least time of one K3 call (benchmark/work_moe.py's count): each
+    routed or hit expert's gate, up and down rows read once, each live row
+    in and out, an id and a weight a pair; 6 H I operations a pair, at the
+    TF32 peak (the bound) and at the f32 CUDA cores' that K3 computes on."""
+    h, inter, _, _ = MOE_WIDTHS
+    nbytes = 4 * (hits * 3 * h * inter + 2 * rows * h) + 8 * pairs
+    flops = 6 * h * inter * pairs
+    bytes_ms, tf32_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / TF32_FLOPS * 1e3
+    return dict(bytes=nbytes, flops=flops, bound_ms=max(bytes_ms, tf32_ms),
+                bound_by="bytes" if bytes_ms >= tf32_ms else "operations",
+                bound_ms_f32_cores=max(bytes_ms, flops / F32_FLOPS * 1e3))
+
+
+def moe_close(got, want) -> float:
+    """K3's largest error over the plain output's largest magnitude (raises
+    past MOE_TOL or on a value that is not finite)."""
+    err = float((got - want).abs().max() / want.abs().max())
+    if not torch.isfinite(got).all() or err > MOE_TOL:
+        raise RuntimeError(f"K3 against experts_reference: {err:.3e} of the output's largest magnitude "
+                           f"(bound {MOE_TOL})")
+    return err
+
+
+def phase_kernel_moe() -> dict:
+    """[kernel K3] (the module docstring's 4b): K3 alone at a step's and a
+    prefill's rows, then its launches on the main path, a DeepSeek-V2-Lite
+    reply through the decode graphs."""
+    from emojivoice_tpu_torch.kernels.build import build_log, load_moe
+    from emojivoice_tpu_torch.ops import moe
+
+    t = time.perf_counter()
+    load_moe()
+    print(f"[kernel K3] csrc/moe.cu built and loaded in {time.perf_counter() - t:.2f} s")
+    for line in build_log("moe").splitlines():
+        if "ptxas info" in line and ("registers" in line or "Compiling" in line):
+            print(f"[build] moe.cu: {line.strip()}")
+    h, inter, e, k = MOE_WIDTHS
+    g = torch.Generator(device=DEVICE).manual_seed(3)
+    w13 = torch.randn((e, 2 * inter, h), generator=g, device=DEVICE) * 0.02
+    w2 = torch.randn((e, h, inter), generator=g, device=DEVICE) * 0.02
+    rows = []
+    for i, t_rows in enumerate(MOE_ROWS):
+        pads = MOE_PADS if t_rows > 1 else 0
+        x, ids, w = moe_routing(t_rows, seed=10 + i, pads=pads)
+        err = moe_close(moe.experts(x, ids, w, w13, w2), moe.experts_reference(x, ids, w, w13, w2))
+        plain_ms, k3_ms = abba_ms(lambda: moe.experts_reference(x, ids, w, w13, w2),
+                                  lambda: moe.experts(x, ids, w, w13, w2))
+        live = ids[ids < e]
+        work = moe_work(t_rows - pads, int(live.numel()), int(live.unique().numel()))
+        rows.append(dict(T=t_rows, pads=pads, path="gemv" if t_rows * k <= moe.GEMV_PAIRS else "grouped",
+                         rel_err=err, ms=k3_ms, plain_ms=plain_ms, **work))
+        r = rows[-1]
+        print(f"[kernel K3] T={t_rows:3d} ({pads} pads, {r['path']})  err {err:.2e} of the largest output  K3 "
+              f"{k3_ms:8.4f} ms  plain {plain_ms:8.3f} ms  bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
+              f"({r['bytes'] / 1e6:.1f} MB; on the f32 CUDA cores {r['bound_ms_f32_cores']:.4f} ms)  "
+              f"{100 * r['bound_ms'] / k3_ms:.1f} % of the bound")
+    del w13, w2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(rows=rows, main=moe_main_path(moe))
+
+
+def moe_main_path(moe) -> dict:
+    """The main path's K3 (``phase_kernel_moe``): DeepSeek-V2-Lite at
+    MOE_LAYERS layers through ``TorchChatLM``'s decode graphs, a greedy
+    reply at the 512 bucket twice.  Each K3 call that runs outside a
+    capture (the first reply's warm prefill and step) is held against its
+    plain version on the router's routing; a captured call runs once a
+    replay, so the launches are those calls plus each graph's replays times
+    its MoE layers."""
+    from emojivoice_tpu_torch.apps.torch_adapters import TorchChatLM, import_transformers
+
+    tf = import_transformers()
+    cfg = dict(DSV2_LITE, num_hidden_layers=MOE_LAYERS)
+    with torch.random.fork_rng(devices=[torch.device(DEVICE)] if torch.device(DEVICE).type == "cuda" else []):
+        torch.manual_seed(0)
+        with torch.device(DEVICE):
+            model = tf.DeepseekV2ForCausalLM(tf.DeepseekV2Config(**cfg)).float().eval()
+    moe_layers = MOE_LAYERS - cfg["first_k_dense_replace"]
+    tok = StubTokenizer()
+    tok.eos_token_id = cfg["eos_token_id"]
+    lm = TorchChatLM(model=model, tokenizer=tok, temperature=0.0, max_new_tokens=16, prompt_buckets=(512,),
+                     device=DEVICE)
+    if lm.decode != "graphs" or type(lm._dec).__name__ != "DeepseekV2Decoder":
+        raise RuntimeError(f"[kernel K3] DeepSeek-V2 decodes {lm.decode} through {type(lm._dec).__name__}")
+    g = torch.Generator().manual_seed(1)
+    ids = np.zeros((1, 512), np.int64)
+    mask = np.zeros((1, 512), np.int64)
+    ids[0, 112:] = torch.randint(3, 100000, (400,), generator=g).numpy()
+    mask[0, 112:] = 1
+    real, checked = moe.experts, []
+
+    def held(x, ids_, weights, w13, w2, counts=None):
+        out = real(x, ids_, weights, w13, w2, counts=counts)
+        if not torch.cuda.is_current_stream_capturing():
+            checked.append((x.shape[0], moe_close(out, moe.experts_reference(x, ids_, weights, w13, w2))))
+        return out
+
+    replays = lambda: sum(entry.replays for entry in lm.graphs._graphs.values())  # noqa: E731
+    moe.launches = 0
+    moe.experts = held
+    try:
+        first = lm._generate(ids, mask)[0, 512:].tolist()
+    finally:
+        moe.experts = real
+    captured = moe.launches
+    moe.launches = 0
+    second = lm._generate(ids, mask)[0, 512:].tolist()
+    if first != second or moe.launches:
+        raise RuntimeError(f"[kernel K3] the replayed reply {second} against the first {first}; "
+                           f"{moe.launches} K3 calls outside the graphs")
+    replayed = replays() * moe_layers  # both replies' replays: the adapter is new
+    eager = len(checked)
+    out = dict(layers=MOE_LAYERS, moe_layers=moe_layers, tokens=len(first), eager_calls=eager,
+               calls_at_capture=captured - eager, replayed_calls=replayed, launches=eager + replayed,
+               checked_rows=sorted({r for r, _ in checked}), rel_err=max(err for _, err in checked),
+               stats=lm.stats())
+    if not checked or min(out["checked_rows"]) != 1 or max(out["checked_rows"]) != 512:
+        raise RuntimeError(f"[kernel K3] the main path held K3 at rows {out['checked_rows']}, expected 1 and 512")
+    print(f"[kernel K3] main path: DeepSeek-V2-Lite at {MOE_LAYERS} layers, a greedy reply of {len(first)} tokens "
+          f"at the 512 bucket twice: K3 held against its plain version on {eager} calls (rows "
+          f"{out['checked_rows']}, largest err {out['rel_err']:.2e}); launches {out['launches']} ({eager} eager, "
+          f"{replayed} in replays); {json.dumps(out['stats'])}")
+    del lm, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def read_metrics(out_dir: Path, tag: str) -> list:
     lines = (out_dir / "metrics.jsonl").read_text().splitlines()
     return [r for r in map(json.loads, lines) if r["tag"] == tag]
@@ -4725,6 +4903,7 @@ def main() -> int:
     pipe, launches = timed("synth", phase_synthesis, mrf)
     graphs = timed("graphs", phase_graphs, mrf)
     mas_rows = timed("kernel K2", phase_kernel_mas, mas)
+    k3 = timed("kernel K3", phase_kernel_moe)
     training = timed("train + vocoder", phase_training, mas, mrf)
     serving = timed("serve", phase_serving, pipe, mrf)
     apps = timed("apps", phase_apps, pipe, mrf)
@@ -4839,6 +5018,27 @@ def main() -> int:
         "ms_16x256x768": k2_sized["ms"],
         "plain_ms_16x256x768": k2_sized["plain_ms"],
         "bound_ms_16x256x768": k2_sized["bound_ms"],
+    }, {
+        "name": "K3 routed experts f32 (a mixture-of-experts layer's routed experts: GEMVs in a step, a sorted "
+                "grouped GEMM in a prefill)",
+        "route": "cuda",
+        "source": "emojivoice_tpu_torch/csrc/moe.cu",
+        "replaces": None,  # no TPU counterpart: the JAX package runs no mixture-of-experts model
+        # K3 calls on the main path: a DeepSeek-V2-Lite reply at MOE_LAYERS layers, run eagerly once and replayed
+        "launches": k3["main"]["launches"],
+        "max_rel_err": max([r["rel_err"] for r in k3["rows"]] + [k3["main"]["rel_err"]]),
+        "ms": k3["rows"][0]["ms"],
+        "plain_ms": k3["rows"][0]["plain_ms"],
+        "bound_ms": k3["rows"][0]["bound_ms"],
+        "bound_by": k3["rows"][0]["bound_by"],
+        "library_ms": None,  # the port calls no library's kernel for it
+        "shape": "a decode step's one row over 6 of 64 experts, DeepSeek-V2-Lite's widths (one MoE layer)",
+        "ms_prefill_512": k3["rows"][1]["ms"],
+        "plain_ms_prefill_512": k3["rows"][1]["plain_ms"],
+        "bound_ms_prefill_512": k3["rows"][1]["bound_ms"],
+        "bound_ms_prefill_512_f32_cores": k3["rows"][1]["bound_ms_f32_cores"],
+        "main_path": {key: k3["main"][key] for key in ("layers", "tokens", "eager_calls", "calls_at_capture",
+                                                       "replayed_calls", "checked_rows", "rel_err")},
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -51,6 +51,13 @@ device.  No step takes a decision on the host, so each can be captured:
   (``BartForCausalLM``): learned positions offset by 2, the embedding
   scaled by √d where ``scale_embedding`` and then its LayerNorm, OPT's
   post-LN layer, no final LayerNorm, no cross-attention.
+* DeepSeek-V2 (``DeepseekV2Decoder``): the same contract through
+  ``_StepDecoder``'s skeleton over another cache, ``LatentKV`` (per slot
+  the RMSNormed latent and the rotated key part every head shares):
+  multi-head latent attention, decompressed in the prefill and absorbed in
+  a step; the routed experts through ``ops/moe.py`` (K3 on the card), the
+  pad rows of a prefill routed nowhere; the published softmax scale
+  (``mla_softmax_scale``).
 * Whisper.  ``encode()`` runs the encoder on the (1, n_mels, 3000)
   features, makes each decoder layer's cross-attention keys and values once
   and resets the cache; ``step()`` feeds the last token, applies the
@@ -104,6 +111,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from emojivoice_tpu_torch.ops import moe
 from emojivoice_tpu_torch.utils.cuda_graphs import GraphCache, weights_stamp
 
 NEG_INF = float("-inf")
@@ -279,6 +287,33 @@ class StaticKV:
         """Each batch row takes the keys and values of the row `beams` names,
         in place (a beam search's chosen beams)."""
         for t in self.k + self.v:
+            t.copy_(t.index_select(0, beams))
+
+
+class LatentKV:
+    """Multi-head latent attention's cache (DeepSeek-V2): per layer the
+    RMSNormed latent c of every slot, (batch, length, rank), and its rotated
+    key part, one head shared by all, (batch, length, rope); 576 values a
+    slot at DeepSeek-V2-Lite's widths against ``StaticKV``'s heads · (key +
+    value).  The valid-slot mask, the slot counter and the beams' reorder are
+    ``StaticKV``'s."""
+
+    def __init__(self, layers: int, rank: int, rope: int, length: int, dtype, device, batch: int = 1):
+        self.c = [torch.zeros((batch, length, rank), dtype=dtype, device=device) for _ in range(layers)]
+        self.pe = [torch.zeros((batch, length, rope), dtype=dtype, device=device) for _ in range(layers)]
+        self.valid = torch.zeros((1, length), dtype=torch.bool, device=device)
+        self.slot = torch.zeros((), dtype=torch.long, device=device)
+        self.length = length
+
+    open_slot = StaticKV.open_slot
+
+    def write(self, layer: int, at: torch.Tensor, c: torch.Tensor, pe: torch.Tensor) -> None:
+        """One token's (batch, 1, rank) latent and (batch, 1, rope) key part into the slot `at`."""
+        self.c[layer].index_copy_(1, at, c)
+        self.pe[layer].index_copy_(1, at, pe)
+
+    def reorder(self, beams: torch.Tensor) -> None:
+        for t in self.c + self.pe:
             t.copy_(t.index_select(0, beams))
 
 
@@ -796,7 +831,9 @@ class _StepDecoder(_ChatDecoder):
     None), and gives ``_embed(ids, pos)``, ``_layer(blk, x, attend, ctx)``,
     where ``attend(q, k, v)`` caches k and v and attends over the cache, and
     the hooks ``_context(pos)`` (per-call data of the positions, such as
-    rotary rows) and ``_bias(pos, at)`` (ALiBi)."""
+    rotary rows) and ``_bias(pos, at)`` (ALiBi); ``_prefill_attend`` and
+    ``_step_attend`` make each layer's ``attend`` (a decoder whose cache
+    holds other state, such as DeepSeek-V2's latents, gives its own)."""
 
     scale = None
     window = None
@@ -833,11 +870,7 @@ class _StepDecoder(_ChatDecoder):
         band = None if self.window is None else ~torch.ones_like(eye).tril(-self.window)
         bias, ctx, x = self._bias(pos), self._context(pos), self._embed(ids, pos)
         for i, blk in enumerate(self.blocks):
-            def attend(q, k, v, i=i):
-                kv.k[i][:, :, :bucket].copy_(k)
-                kv.v[i][:, :, :bucket].copy_(v)
-                return _attend(q, k, v, self._band(i, allowed, band), self.scale, bias)
-            x = self._layer(blk, x, attend, ctx)
+            x = self._layer(blk, x, self._prefill_attend(i, bucket, self._band(i, allowed, band), bias), ctx)
         self._prefilled(bucket, mask)
         self._finish(x, sample)
 
@@ -849,13 +882,32 @@ class _StepDecoder(_ChatDecoder):
         valid = kv.valid[:, None, None, :]
         bias, ctx, x = self._bias(pos, at), self._context(pos), self._embed(self.tok, pos)
         for i, blk in enumerate(self.blocks):
-            def attend(q, k, v, i=i):
-                kv.write(i, at, k, v)
-                return _attend(q, kv.k[i], kv.v[i], self._band(i, valid, band), self.scale, bias)
-            x = self._layer(blk, x, attend, ctx)
+            x = self._layer(blk, x, self._step_attend(i, at, self._band(i, valid, band), bias), ctx)
         kv.slot.add_(1)
         self.pos.add_(1)
         self._finish(x, sample)
+
+    def _prefill_attend(self, i: int, bucket: int, allowed: torch.Tensor, bias) -> Callable:
+        """Layer i's attention in a prefill, ``attend(q, k, v)``: the keys and
+        values into the cache's first `bucket` slots, then attention over
+        them as `allowed`."""
+        kv = self.kv
+
+        def attend(q, k, v):
+            kv.k[i][:, :, :bucket].copy_(k)
+            kv.v[i][:, :, :bucket].copy_(v)
+            return _attend(q, k, v, allowed, self.scale, bias)
+        return attend
+
+    def _step_attend(self, i: int, at: torch.Tensor, allowed: torch.Tensor, bias) -> Callable:
+        """Layer i's attention in a step: the token's key and value into the
+        slot `at`, then attention over the cache as `allowed`."""
+        kv = self.kv
+
+        def attend(q, k, v):
+            kv.write(i, at, k, v)
+            return _attend(q, kv.k[i], kv.v[i], allowed, self.scale, bias)
+        return attend
 
 
 class GPTNeoDecoder(_StepDecoder):
@@ -1158,6 +1210,247 @@ class GPTJDecoder(_StepDecoder):
         k = _rotate_pairs(_heads(blk["k"](h), self.heads), cos, sin)
         out = blk["o"](_merge(attend(q, k, _heads(blk["v"](h), self.heads))))
         return out + blk["fc_out"](self.act(blk["fc_in"](h))) + x  # the model's order of the three
+
+
+def _rope_params(config) -> dict:
+    """The rotary parameters: ``rope_scaling`` (transformers 4) or
+    ``rope_parameters`` (5), {} where neither is set."""
+    for name in ("rope_scaling", "rope_parameters"):
+        params = getattr(config, name, None)
+        if isinstance(params, dict):
+            return params
+    return {}
+
+
+def mla_softmax_scale(config) -> float:
+    """DeepSeek's published softmax scale (``modeling_deepseek.py``): 1 /
+    √(qk_nope_head_dim + qk_rope_head_dim), times m² where the rotary
+    scaling gives ``mscale_all_dim`` and a factor above 1, m = 0.1 ·
+    mscale_all_dim · ln(factor) + 1.  Read from the config, not from the
+    attention's ``scaling``: transformers 4.57 and 5.5 leave m² out."""
+    scale = (config.qk_nope_head_dim + config.qk_rope_head_dim) ** -0.5
+    params = _rope_params(config)
+    m_all, factor = params.get("mscale_all_dim") or 0.0, float(params.get("factor") or 1.0)
+    if m_all and factor > 1.0:
+        m = 0.1 * m_all * math.log(factor) + 1.0
+        scale *= m * m
+    return scale
+
+
+def expert_stack(experts: nn.Module) -> tuple:
+    """A MoE layer's routed experts as one tensor each, (w13 (E, 2I, H): each
+    expert's gate rows then its up rows; w2 (E, H, I)): transformers 5's
+    fused ``gate_up_proj`` and ``down_proj`` as they are; transformers 4's
+    ``ModuleList`` moved once, expert by expert, into a stack, each expert's
+    parameters then pointed at its slice, so that the model's weights are
+    never held twice (a second call finds the slices and returns the
+    stack)."""
+    if hasattr(experts, "gate_up_proj"):
+        return experts.gate_up_proj, experts.down_proj
+    mods = list(experts)
+    inter, hidden = mods[0].gate_proj.weight.shape
+    stack = getattr(experts, "port_stack", None)
+    if stack is not None and all(
+            m.gate_proj.weight.data_ptr() == stack[0][e, :inter].data_ptr()
+            and m.up_proj.weight.data_ptr() == stack[0][e, inter:].data_ptr()
+            and m.down_proj.weight.data_ptr() == stack[1][e].data_ptr() for e, m in enumerate(mods)):
+        return stack
+    ref = mods[0].gate_proj.weight
+    w13 = torch.empty((len(mods), 2 * inter, hidden), dtype=ref.dtype, device=ref.device)
+    w2 = torch.empty((len(mods), hidden, inter), dtype=ref.dtype, device=ref.device)
+    with torch.no_grad():
+        for e, m in enumerate(mods):
+            for src, dst in ((m.gate_proj, w13[e, :inter]), (m.up_proj, w13[e, inter:]), (m.down_proj, w2[e])):
+                dst.copy_(src.weight)
+                src.weight.data = dst
+    experts.port_stack = (w13, w2)
+    return w13, w2
+
+
+class DeepseekV2Decoder(_StepDecoder):
+    """A ``DeepseekV2ForCausalLM``'s prefill and step over a ``LatentKV``,
+    through ``_StepDecoder``'s skeleton (positions, masks, pad queries, the
+    search) with its own attention and MLPs:
+
+    * multi-head latent attention.  q = W_q h (or W_qb RMSNorm(W_qa h)), per
+      head q_nope and q_pe; [c_kv | k_pe] = W_kva h, c = RMSNorm(c_kv);
+      q_pe and k_pe (one head shared by all) rotated in interleaved pairs
+      (GPT-J's ``_rotate_pairs``) by tables made from the model's rotary
+      module (its yarn ``inv_freq`` and ``attention_scaling``); scores
+      (q_nope · k_nope + q_pe · k_pe) · ``mla_softmax_scale``.  The prefill
+      decompresses, [k_nope | v] = W_kvb c per head, and writes c and the
+      rotated k_pe into the cache; a step attends in the absorbed form over
+      the cache: q̃ = W_UKᵀ q_nope scored against c, o = W_UV (Σ p · c).
+    * the MLPs: the first ``first_k_dense_replace`` layers a SiLU-gated MLP;
+      the others the routed experts through ``ops/moe.py::experts`` (K3 on
+      the card) over the layer's ``expert_stack``, routed by softmax over
+      the experts and the top ``num_experts_per_tok`` (ties to the lower
+      id, as ``_top`` orders them; normalised where ``norm_topk_prob``, then
+      times ``routed_scaling_factor``), plus the shared experts' MLP.  A
+      prefill routes its pad rows nowhere (no real token reads them).
+
+    ``counters`` (device, int64): the pairs routed in prefills, the pairs
+    of the busiest expert summed over each prefill's layers, and the experts
+    hit in them, added from the histogram the grouping makes
+    (``moe.group``); a step adds nothing on the device: it routes
+    ``step_hits`` pairs to that many experts a step for one row.
+    Refused by name: another ``topk_method`` than greedy, another
+    ``scoring_func`` than softmax, a dynamic rotary type, biases on the
+    experts, and MoE layers other than every one after the dense ones."""
+
+    def __init__(self, model: nn.Module, buckets: Sequence[int], search: ChatSearch):
+        cfg = model.config
+        heads = cfg.num_attention_heads
+        _refuse("DeepseekV2Decoder", cfg, {
+            "model_type": lambda v: v == "deepseek_v2",
+            "hidden_act": lambda v: v == "silu",
+            "topk_method": lambda v: v in (None, "greedy"),
+            "scoring_func": lambda v: v in (None, "softmax"),
+            "mlp_bias": lambda v: not v,
+            "moe_layer_freq": lambda v: v in (None, 1),
+            "num_key_value_heads": lambda v: v in (None, heads),
+        })
+        body = model.model
+        self.rope_type = _rope_type(body.rotary_emb, cfg)
+        _refuse("DeepseekV2Decoder", self, {"rope_type": lambda v: v not in DYNAMIC_ROPE})
+        self.heads, self.rank = heads, cfg.kv_lora_rank
+        self.nope, self.rope, self.v_dim = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+        self.scale = mla_softmax_scale(cfg)
+        self.top_k = cfg.num_experts_per_tok
+        self.norm_topk = bool(cfg.norm_topk_prob) and self.top_k > 1
+        self.routed_scale = float(cfg.routed_scaling_factor or 1.0)
+        self.embed = body.embed_tokens.weight
+        dtype, device = self.embed.dtype, self.embed.device
+        self.blocks = [self._block(layer) for layer in body.layers]
+        self.ln_f = _rms_norm(body.norm, False)
+        self.head = _dense(model.lm_head)
+        self.n_experts = next((b["w13"].shape[0] for b in self.blocks if "w13" in b), 0)
+        if self.n_experts and device.type == "cuda":
+            from emojivoice_tpu_torch.kernels.build import load_moe
+
+            load_moe()  # K3's build, at set-up and not inside a capture
+        self._search_for(search)
+        length = max(buckets) + self.max_new_tokens
+        self.kv = LatentKV(len(self.blocks), self.rank, self.rope, length, dtype, device, self.batch)
+        self._buffers(buckets, self.embed.shape[0], device)
+        rotary = body.rotary_emb
+        freqs = torch.arange(length, dtype=torch.float32, device=device)[:, None] * \
+            rotary.inv_freq.detach().float().to(device)[None, :]
+        self.cos = (freqs.cos() * rotary.attention_scaling).repeat_interleave(2, -1).to(dtype)
+        self.sin = (freqs.sin() * rotary.attention_scaling).repeat_interleave(2, -1).to(dtype)
+        self.counters = torch.zeros(3, dtype=torch.long, device=device)
+        self.step_hits = sum("w13" in b for b in self.blocks) * min(self.n_experts, self.batch * self.top_k)
+        self._rows = None  # in a prefill: (bucket, 1) True at a real token
+
+    def _block(self, layer) -> dict:
+        attn, mlp = layer.self_attn, layer.mlp
+        if getattr(attn, "q_lora_rank", None) is None and hasattr(attn, "q_proj"):
+            q = _dense(attn.q_proj)
+        else:
+            q_a, q_ln, q_b = _dense(attn.q_a_proj), _rms_norm(attn.q_a_layernorm, False), _dense(attn.q_b_proj)
+            q = lambda h: q_b(q_ln(q_a(h)))  # noqa: E731
+        w_kvb = attn.kv_b_proj.weight.view(self.heads, self.nope + self.v_dim, self.rank)
+        blk = dict(ln_1=_rms_norm(layer.input_layernorm, False), q=q, kv_a=_dense(attn.kv_a_proj_with_mqa),
+                   kv_ln=_rms_norm(attn.kv_a_layernorm, False), kv_b=_dense(attn.kv_b_proj),
+                   w_uk=w_kvb[:, :self.nope], w_uv=w_kvb[:, self.nope:], o=_dense(attn.o_proj),
+                   ln_2=_rms_norm(layer.post_attention_layernorm, False))
+        if hasattr(mlp, "experts"):
+            blk["w13"], blk["w2"] = expert_stack(mlp.experts)
+            blk["gate"] = mlp.gate.weight
+            blk["shared"] = self._gated(mlp.shared_experts)
+        else:
+            blk["mlp"] = self._gated(mlp)
+        return blk
+
+    @staticmethod
+    def _gated(mlp) -> Callable:
+        gate, up, down = _dense(mlp.gate_proj), _dense(mlp.up_proj), _dense(mlp.down_proj)
+        return lambda h: down(F.silu(gate(h)) * up(h))
+
+    def _context(self, pos):
+        """The (1, 1, T, rope) cos and sin rows of positions `pos`."""
+        return F.embedding(pos, self.cos)[:, None], F.embedding(pos, self.sin)[:, None]
+
+    def _embed(self, ids, pos):
+        return F.embedding(ids, self.embed)
+
+    def prefill(self, bucket: int, sample: bool) -> None:
+        self._rows = self.inputs(bucket)[1].view(-1, 1)
+        try:
+            super().prefill(bucket, sample)
+        finally:
+            self._rows = None
+
+    def _routed(self, blk: dict, h: torch.Tensor) -> torch.Tensor:
+        """The routed experts' sum for the rows h (T, hidden)."""
+        probs = torch.softmax(F.linear(h.float(), blk["gate"].float()), dim=-1)
+        weights, ids = _top(probs, self.top_k)
+        if self.norm_topk:
+            weights = weights / (weights.sum(-1, keepdim=True) + 1e-20)
+        weights = (weights * self.routed_scale).contiguous()
+        ids = ids.to(torch.int32)
+        counts = None
+        if self._rows is not None:  # a prefill: pad rows route nowhere; the routing's counts kept
+            ids = ids.masked_fill(~self._rows, self.n_experts)
+            counts = moe.group(ids, self.n_experts)
+            live = counts[:self.n_experts].long()
+            self.counters.add_(torch.stack((live.sum(), live.max(), (live > 0).sum())))
+        return moe.experts(h.contiguous(), ids, weights, blk["w13"], blk["w2"], counts=counts)
+
+    def _mlp(self, blk: dict, h: torch.Tensor) -> torch.Tensor:
+        if "mlp" in blk:
+            return blk["mlp"](h)
+        rows = h.reshape(-1, h.shape[-1])
+        return self._routed(blk, rows).view(h.shape) + blk["shared"](h)
+
+    def _layer(self, blk, x, attend, ctx):
+        cos, sin = ctx
+        b, t = x.shape[:2]
+        h = blk["ln_1"](x)
+        q = blk["q"](h).view(b, t, self.heads, -1).transpose(1, 2)
+        q_nope, q_pe = q.split([self.nope, self.rope], dim=-1)
+        ckv = blk["kv_a"](h)
+        c = blk["kv_ln"](ckv[..., :self.rank])
+        k_pe = _rotate_pairs(ckv[..., self.rank:][:, None], cos, sin)
+        x = x + blk["o"](_merge(attend(q_nope, _rotate_pairs(q_pe, cos, sin), c, k_pe, blk)))
+        return x + self._mlp(blk, blk["ln_2"](x))
+
+    def _softmax_v(self, scores, v, allowed) -> torch.Tensor:
+        weights = torch.softmax((scores * self.scale).masked_fill(~allowed, NEG_INF).float(), dim=-1)
+        return weights.to(v.dtype) @ v
+
+    def _prefill_attend(self, i, bucket, allowed, bias):
+        """The decompressed form: [k_nope | v] = W_kvb c per head, the
+        latents and rotated key parts into the cache's first slots."""
+        kv = self.kv
+
+        def attend(q_nope, q_pe, c, k_pe, blk):
+            kv.c[i][:, :bucket].copy_(c)
+            kv.pe[i][:, :bucket].copy_(k_pe[:, 0])
+            k_nope, v = _heads(blk["kv_b"](c), self.heads).split([self.nope, self.v_dim], dim=-1)
+            scores = q_nope @ k_nope.transpose(-1, -2) + q_pe @ k_pe.transpose(-1, -2)
+            return self._softmax_v(scores, v, allowed)
+        return attend
+
+    def _step_attend(self, i, at, allowed, bias):
+        """The absorbed form over the cached latents: q̃ = W_UKᵀ q_nope
+        against c, then o = W_UV (Σ p · c)."""
+        kv = self.kv
+
+        def attend(q_nope, q_pe, c, k_pe, blk):
+            kv.write(i, at, c, k_pe[:, 0])
+            latents = kv.c[i][:, None]  # (batch, 1, slots, rank): every head reads the one latent
+            q_lat = torch.einsum("bhtd,hdc->bhtc", q_nope, blk["w_uk"])
+            scores = q_lat @ latents.transpose(-1, -2) + q_pe @ kv.pe[i][:, None].transpose(-1, -2)
+            return torch.einsum("bhtc,hdc->bhtd", self._softmax_v(scores, latents, allowed), blk["w_uv"])
+        return attend
+
+    def moe_stats(self, steps: int) -> dict:
+        """The counters on the host (a device read): pairs, the busiest
+        expert's pairs and the experts hit, over the prefills, with `steps`
+        decode steps' hits added (``step_hits`` each)."""
+        pairs, max_load, hits = (int(v) for v in self.counters.tolist())
+        return dict(moe_pairs_sum=pairs, moe_max_load_sum=max_load, moe_experts_hit_sum=hits + steps * self.step_hits)
 
 
 class WhisperDecoder:

@@ -50,9 +50,10 @@ the card unless ``device="cpu"`` is given.
 
 The chat LM's decode steps exist for the model types of ``CHAT_DECODERS``
 (GPT-2, the Llama family: llama, mistral, gemma, and gpt_neo, opt, xglm,
-bloom, gptj, bart).  Another causal LM that transformers'
-``AutoModelForCausalLM`` builds decodes through transformers' forward on
-the same device, as ``graphs=False`` does; the adapter says so on one line
+bloom, gptj, bart, and deepseek_v2: latent attention and routed experts).
+Another causal LM that transformers' ``AutoModelForCausalLM`` builds
+decodes through transformers' forward on the same device, as
+``graphs=False`` does; the adapter says so on one line
 when it is made, and ``TorchChatLM.decode`` reads ``"graphs"`` or
 ``"eager"``.  Either way the generation config's rules that the Flax
 ``generate`` applies for ``FlaxChatLM``'s call (``decode.ChatSearch``: the
@@ -73,9 +74,9 @@ import numpy as np
 import torch
 
 from emojivoice_tpu_torch.apps.decode import (BartDecoder, BloomDecoder, ChatRules, ChatSearch, DecodeGraphs,
-                                              GPT2Decoder, GPTJDecoder, GPTNeoDecoder, LlamaDecoder, OPTDecoder,
-                                              WhisperDecoder, XGLMDecoder, beam_reset, beam_result, beam_state,
-                                              beam_step, sample_top_k, token_list)
+                                              DeepseekV2Decoder, GPT2Decoder, GPTJDecoder, GPTNeoDecoder, LlamaDecoder,
+                                              OPTDecoder, WhisperDecoder, XGLMDecoder, beam_reset, beam_result,
+                                              beam_state, beam_step, sample_top_k, token_list)
 from emojivoice_tpu_torch.utils import observability as obs
 from emojivoice_tpu_torch.utils.prng import step_generator
 
@@ -83,7 +84,7 @@ WHISPER_SAMPLE_RATE = 16_000
 # the chat LM's model types with decode steps of the port's own (apps/decode.py); another type decodes eagerly
 CHAT_DECODERS = {"gpt2": GPT2Decoder, "llama": LlamaDecoder, "mistral": LlamaDecoder, "gemma": LlamaDecoder,
                  "gpt_neo": GPTNeoDecoder, "opt": OPTDecoder, "xglm": XGLMDecoder, "bloom": BloomDecoder,
-                 "gptj": GPTJDecoder, "bart": BartDecoder}
+                 "gptj": GPTJDecoder, "bart": BartDecoder, "deepseek_v2": DeepseekV2Decoder}
 
 
 def import_transformers():
@@ -340,9 +341,37 @@ class TorchChatLM:
                   f"transformers' forward on {self.device}, one token at a time", flush=True)
         self.graphs = DecodeGraphs(self.device) if self.decode == "graphs" else None
         self._dec = self._decoder() if self.graphs is not None else None
+        self.steps = 0  # decode steps after a prefill, counted on the host
 
     def _decoder(self):
         return CHAT_DECODERS[self._model.config.model_type](self._model, self.prompt_buckets, self._search)
+
+    def counters(self) -> tuple:
+        """(the decoder's device counters, or None where it keeps none; the
+        decode steps so far): no host read, so a caller may take a device
+        copy between turns.  A mixture-of-experts decoder counts the pairs
+        routed in prefills, the busiest expert's pairs and the experts hit
+        (``decode.DeepseekV2Decoder``)."""
+        return getattr(self._dec, "counters", None), self.steps
+
+    def stats(self) -> dict:
+        """The counters on the host, read on demand (a device read: never on
+        a reply's path): the decode mode, the decode steps and, for a
+        mixture-of-experts decoder, ``moe_pairs_sum``, ``moe_max_load_sum``
+        and ``moe_experts_hit_sum``."""
+        out = dict(decode=self.decode, steps=self.steps)
+        if hasattr(self._dec, "moe_stats"):
+            out.update(self._dec.moe_stats(self.steps))
+        return out
+
+    def last_logits(self) -> torch.Tensor:
+        """The scores after the rules that the last token was chosen from,
+        (rows, V) f32 on the device: the decoder's own buffer, which the next
+        prefill or step overwrites (copy it to keep it).  The graphs mode
+        only."""
+        if self._dec is None:
+            raise RuntimeError("TorchChatLM.last_logits: the eager mode keeps no scores")
+        return self._dec.logits
 
     # -- prompt construction (the JAX adapter's, unchanged) -------------------
 
@@ -442,6 +471,7 @@ class TorchChatLM:
                             self.graphs.run(("beam_decode",) if beams else ("decode", sample), lambda: dec.step(sample))
                     if logits_out is not None:
                         logits_out.append(dec.logits.clone())
+                    self.steps += not prefill
                     with obs.span(None if prefill else "llm.read", turn=turn):
                         # whether the beams are done, or the token
                         value = self.graphs.read(dec.beam["done"] if beams else dec.tok)

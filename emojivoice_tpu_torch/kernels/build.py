@@ -119,3 +119,18 @@ def load_mas() -> ctypes.CDLL:
     lib.mas_error_string.argtypes = [i]
     lib.mas_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_moe() -> ctypes.CDLL:
+    """K3, the routed-expert kernels (csrc/moe.cu), built on first call: only
+    a mixture-of-experts chat decoder asks for it."""
+    lib = ctypes.CDLL(str(build("moe")))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.k3_gemv.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.k3_gemv.restype = i
+    lib.k3_grouped.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, p]
+    lib.k3_grouped.restype = i
+    lib.k3_error_string.argtypes = [i]
+    lib.k3_error_string.restype = ctypes.c_char_p
+    return lib
